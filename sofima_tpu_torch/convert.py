@@ -1,0 +1,60 @@
+"""Carrying configurations and state between sofima_tpu and the port.
+
+SOFIMA has no weights: its parameters are the config dataclasses and its
+state is the solved mesh and the coordinate maps. This module moves both
+across without importing JAX:
+
+  * `config_from_jax(obj)` builds the port's StackAlignConfig or
+    IntegrationConfig from a sofima_tpu config (any object with the same
+    dataclass fields), via `dataclasses.asdict`;
+  * `map_from_numpy` / `map_to_numpy` convert [2|3, z, y, x] maps and
+    [2, 1, G, G] solved meshes between numpy (what `np.asarray` of a JAX
+    array gives) and torch, keeping layout, dtype and NaN exactly.
+
+IntegrationConfig.to_json of both packages produces the same string.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sofima_tpu_torch import mesh
+from sofima_tpu_torch.pipeline import stack_align
+
+
+def config_from_jax(obj):
+  """Port config equal field by field to a sofima_tpu config dataclass.
+
+  Accepts sofima_tpu's StackAlignConfig (nested mesh config included) or
+  IntegrationConfig; the type is recognized by its fields.
+  """
+  if not dataclasses.is_dataclass(obj):
+    raise TypeError(f'expected a config dataclass, got {type(obj)!r}')
+  d = dataclasses.asdict(obj)
+  names = set(d)
+  if names == {f.name for f in dataclasses.fields(mesh.IntegrationConfig)}:
+    return mesh.IntegrationConfig(**d)
+  if names == {f.name for f in dataclasses.fields(
+      stack_align.StackAlignConfig)}:
+    d['mesh'] = mesh.IntegrationConfig(**d['mesh'])
+    return stack_align.StackAlignConfig(**d)
+  raise TypeError(f'unrecognized config type {type(obj).__name__}')
+
+
+def map_from_numpy(array, device=None) -> torch.Tensor:
+  """[2|3, z, y, x] map or [2, 1, G, G] mesh -> torch (same dtype, NaN)."""
+  arr = np.asarray(array)
+  if arr.ndim != 4 or arr.shape[0] not in (2, 3):
+    raise ValueError(f'expected a [2|3, z, y, x] map, got {arr.shape}')
+  return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def map_to_numpy(tensor: torch.Tensor) -> np.ndarray:
+  """torch map or mesh -> numpy (same layout, dtype and NaN)."""
+  if tensor.ndim != 4 or tensor.shape[0] not in (2, 3):
+    raise ValueError(f'expected a [2|3, z, y, x] map, got '
+                     f'{tuple(tensor.shape)}')
+  return tensor.detach().cpu().numpy().copy()

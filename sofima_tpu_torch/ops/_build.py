@@ -1,0 +1,131 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+No `sofima_tpu` twin: the reference's Pallas kernels compile inside jit.
+Here every `csrc/*.cu` is compiled at first use, on the machine with the
+card, into ONE shared library with a plain C interface:
+
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+       -Xcompiler -fPIC -o <build>/<hash>/libsofima_kernels.so csrc/*.cu
+
+The build directory is keyed by a hash of the sources and flags, so an
+edited kernel rebuilds and an unchanged one loads in milliseconds. It
+lives under `build/` beside the package (listed in .gitignore), or under
+$SOFIMA_TORCH_BUILD_DIR. `--use_fast_math` is deliberately absent: it
+changes the NaN, inf and rsqrt behaviour that the mesh solver and the
+peak chain depend on.
+
+Importing this module needs no nvcc and no card; only `library()` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_lock = threading.Lock()
+_lib = None
+# Seconds the last build (or cached load) of the library took, and the
+# compiler's per-kernel register / shared-memory report.
+build_seconds: float | None = None
+build_log: str = ''
+
+# Launches per kernel entry, incremented by each wrapper exactly where it
+# launches its kernel (never on the CPU path).
+launch_counts: dict[str, int] = {
+    'dense_flow_peaks': 0,      # K1: coarse pass
+    'targeted_flow_peaks': 0,   # K2: fine pass
+    'fused_fire': 0,            # K3: mesh solve
+    'warp_gather': 0,           # K4: render
+}
+
+
+def reset_launch_counts() -> None:
+  for k in launch_counts:
+    launch_counts[k] = 0
+
+
+def _build_root() -> pathlib.Path:
+  env = os.environ.get('SOFIMA_TORCH_BUILD_DIR')
+  if env:
+    return pathlib.Path(env)
+  return CSRC.parent.parent / 'build' / 'sofima_tpu_torch'
+
+
+def _nvcc() -> str:
+  for cand in (os.environ.get('NVCC'),
+               os.path.join(os.environ.get('CUDA_HOME', ''), 'bin', 'nvcc'),
+               shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc'):
+    if cand and os.path.isfile(cand):
+      return cand
+  raise RuntimeError('nvcc not found: the CUDA kernels build only where the '
+                     'CUDA toolkit is installed (set CUDA_HOME or NVCC)')
+
+
+def library() -> ctypes.CDLL:
+  """Builds (once per source hash) and loads the kernel library."""
+  global _lib, build_seconds, build_log
+  with _lock:
+    if _lib is not None:
+      return _lib
+    t0 = time.perf_counter()
+    sources = sorted(CSRC.glob('*.cu'))
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC.glob('*.cuh')):
+      digest.update(src.name.encode())
+      digest.update(src.read_bytes())
+    out_dir = _build_root() / digest.hexdigest()[:16]
+    so_path = out_dir / 'libsofima_kernels.so'
+    log_path = out_dir / 'build.log'
+    if not so_path.exists():
+      out_dir.mkdir(parents=True, exist_ok=True)
+      tmp = out_dir / f'.tmp{os.getpid()}.so'
+      cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources)]
+      proc = subprocess.run(cmd, capture_output=True, text=True)
+      log_path.write_text(proc.stdout + proc.stderr)
+      if proc.returncode != 0:
+        raise RuntimeError('nvcc failed:\n' + ' '.join(cmd) + '\n'
+                           + proc.stdout + proc.stderr)
+      os.replace(tmp, so_path)
+    build_log = log_path.read_text() if log_path.exists() else ''
+    _lib = ctypes.CDLL(str(so_path))
+    build_seconds = time.perf_counter() - t0
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+  """Raises on a non-zero cudaError_t returned by a launch function."""
+  if rc != 0:
+    raise RuntimeError(f'{name}: CUDA error {rc}')
+
+
+def stream_of(t: torch.Tensor) -> int:
+  return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor,
+                 dtype=torch.float32) -> None:
+  """Kernel preconditions: one CUDA device, dtype, contiguity."""
+  dev = tensors[0].device
+  for t in tensors:
+    if t.device != dev or t.device.type != 'cuda':
+      raise ValueError(f'{name}: all tensors must be on one CUDA device')
+    if t.dtype != dtype:
+      raise TypeError(f'{name}: expected {dtype}, got {t.dtype}')
+    if not t.is_contiguous():
+      raise ValueError(f'{name}: tensors must be contiguous')
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+  return None if t is None else t.data_ptr()

@@ -1,0 +1,327 @@
+"""Kernels K1 and K2, dense-grid flow peaks: CUDA wrappers and plain twin.
+
+Twin of sofima_tpu/ops/pallas_flow.py: `dense_flow_peaks_pallas` (K1,
+Pallas body `_grid_kernel`, unmasked) and `dense_flow_peaks_targeted`
+(K2, `_grid_kernel_targeted`), plus `targeted_geometry`, ported only as
+the rule for the granularity of the fine-pass window offsets. Both
+entries launch the one kernel in csrc/flow_peaks.cu: K1 with no offsets,
+K2 with per-patch post-window offsets expanded from the per-block
+[nrsteps, ngroups, 2] offsets and an optional centered `peak_crop`.
+
+For every patch pair on the grid (pre at (i*sy, j*sx), post at the same
+position plus its offset, zeros outside the image) the kernel removes
+each patch's mean, computes the circular cross-correlation with the zero
+shift at p//2, and extracts the top-2 peak statistics of
+flow_field._batched_peaks. Output [4, gy, gx] = (x, y, sharpness,
+ratio), NaN rows where no peak passes the threshold.
+
+Precision: the correlation runs in float32 on both the kernel and the
+plain version, including when callers ask for `bf16=True` (the reference
+feeds bf16 operands to the TPU's matrix unit; on the H100 the f32 FMA
+transform is the simple, exact choice for this first port).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from sofima_tpu_torch.ops import _build
+
+# Patches per chunk in the plain version (bounds its memory).
+_PLAIN_CHUNK = 512
+# Largest per-block working set the kernel keeps in shared memory (of the
+# H100's 227 KB); above it each block works in global scratch instead.
+_MAX_SMEM_BYTES = 200 * 1024
+
+
+def targeted_geometry(shape, patch_size, step, group=None, rows=None):
+  """Grid and offset-block geometry of the targeted fine pass.
+
+  The fine pass shifts every `rows x group` block of patches by one
+  offset, and parity with the reference needs its blocks: `group` and
+  `rows` follow the reference's TPU alignment rule
+  (pallas_flow.pick_grid_geometry), and the coarse prior is sampled at
+  the centre of its block window, whose column extent is rounded up to
+  the TPU's 128 lanes.
+  """
+  py, px = patch_size
+  sy, sx = step
+  h, w = shape
+  gy = (h - (py - sy)) // sy
+  gx = (w - (px - sx)) // sx
+  if group is None:
+    unit = 128 // int(np.gcd(int(sx), 128))
+    group = max(unit, ((8 + unit - 1) // unit) * unit)
+  if rows is None:
+    rows = 2 if (sy + py) % 8 == 0 and gy >= 2 else 1
+  win_c = -(-((group - 1) * sx + px) // 128) * 128
+  return dict(gy=gy, gx=gx, group=group, rows=rows,
+              ngroups=-(-gx // group), nrsteps=-(-gy // rows),
+              win_r=(rows - 1) * sy + py, win_c=win_c)
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_tables_np(p: int):
+  """cos/sin(2 pi jk / p) as float32 [p, p] (reduced modulo p first)."""
+  jk = np.outer(np.arange(p), np.arange(p)) % p
+  ang = 2.0 * np.pi * jk / p
+  return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _rdft_mats_np(n: int):
+  """Half-spectrum DFT matrices, as flow_field._rdft_mats builds them."""
+  h = n // 2 + 1
+  ang = -2.0 * np.pi * np.outer(np.arange(n), np.arange(h)) / n
+  fr = np.cos(ang).astype(np.float32)
+  fi = np.sin(ang).astype(np.float32)
+  alpha = np.full(h, 2.0, np.float32)
+  alpha[0] = 1.0
+  if n % 2 == 0:
+    alpha[-1] = 1.0
+  br = (np.cos(-ang) * alpha[None]).astype(np.float32).T
+  bi = (-np.sin(-ang) * alpha[None]).astype(np.float32).T
+  return fr, fi, br, bi
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_mats_np(n: int):
+  ang = -2.0 * np.pi * np.outer(np.arange(n), np.arange(n)) / n
+  return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def circular_xcorr(pre_b: torch.Tensor, post_b: torch.Tensor) -> torch.Tensor:
+  """irfft2(F(pre) conj(F(post))) of [b, n, n] batches via DFT matmuls.
+
+  Plain-version transcription of flow_field._circular_xcorr_matmul (f32).
+  """
+  n1, n2 = pre_b.shape[-2:]
+  dev = pre_b.device
+  wr1, wi1 = (torch.as_tensor(m, device=dev) for m in _dft_mats_np(n1))
+  fr2, fi2, br2, bi2 = (torch.as_tensor(m, device=dev)
+                        for m in _rdft_mats_np(n2))
+
+  def rdft2(img):
+    ar = torch.einsum('bnm,mh->bnh', img, fr2)
+    ai = torch.einsum('bnm,mh->bnh', img, fi2)
+    fr = (torch.einsum('kn,bnh->bkh', wr1, ar)
+          - torch.einsum('kn,bnh->bkh', wi1, ai))
+    fi = (torch.einsum('kn,bnh->bkh', wr1, ai)
+          + torch.einsum('kn,bnh->bkh', wi1, ar))
+    return fr, fi
+
+  pr, pi = rdft2(pre_b)
+  qr, qi = rdft2(post_b)
+  cr = pr * qr + pi * qi
+  ci = pi * qr - pr * qi
+  gr = (torch.einsum('kn,bnh->bkh', wr1, cr)
+        + torch.einsum('kn,bnh->bkh', wi1, ci)) / n1
+  gi = (torch.einsum('kn,bnh->bkh', wr1, ci)
+        - torch.einsum('kn,bnh->bkh', wi1, cr)) / n1
+  return (torch.einsum('bkh,hm->bkm', gr, br2)
+          + torch.einsum('bkh,hm->bkm', gi, bi2)) / n2
+
+
+def batched_peaks(img: torch.Tensor, center, min_distance: int = 2,
+                  threshold_rel: float = 0.5,
+                  peak_radius: int = 5) -> torch.Tensor:
+  """Top-2 local maxima + stats of [b, n1, n2] surfaces -> [b, 4].
+
+  Twin of flow_field._batched_peaks: rows of (x, y offset from `center`,
+  sharpness, peak ratio), ratio 0 with one peak, NaN rows with none.
+  """
+  b, n1, n2 = img.shape
+  size = 2 * int(min_distance) + 1
+  img_max = torch.nn.functional.max_pool2d(
+      img[:, None], size, stride=1, padding=int(min_distance))[:, 0]
+  thr = threshold_rel * img.amax(dim=(1, 2), keepdim=True)
+  mask = (img == img_max) & (img > thr)
+  flat = torch.where(mask, img, torch.full_like(img, float('-inf')))
+  flat = flat.reshape(b, -1)
+  idx1 = torch.argmax(flat, dim=-1)
+  val1 = torch.gather(flat, 1, idx1[:, None])[:, 0]
+  cols = torch.arange(flat.shape[-1], device=img.device)[None]
+  flat2 = torch.where(cols == idx1[:, None],
+                      torch.full_like(flat, float('-inf')), flat)
+  val2 = flat2.amax(dim=-1)
+
+  r = int(peak_radius)
+  wsize = 2 * r + 1
+  minf = -torch.nn.functional.max_pool2d(-img[:, None], wsize, stride=1)[:, 0]
+  py, px = idx1 // n2, idx1 % n2
+  sy = torch.clamp(py - r, 0, n1 - wsize)
+  sx = torch.clamp(px - r, 0, n2 - wsize)
+  wmin = minf[torch.arange(b, device=img.device), sy, sx]
+  sharp = val1 / wmin
+  ratio = torch.where(torch.isinf(val2), torch.zeros_like(val1), val1 / val2)
+  rows = torch.stack([px.to(torch.float32) - center[1],
+                      py.to(torch.float32) - center[0], sharp, ratio], dim=-1)
+  return torch.where(torch.isinf(val1)[:, None],
+                     torch.full_like(rows, float('nan')), rows)
+
+
+def _patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+             p: int) -> torch.Tensor:
+  """[b, p, p] patches at (y0, x0) with zeros outside the image."""
+  h, w = img.shape
+  ar = torch.arange(p, device=img.device)
+  yy = y0[:, None, None] + ar[None, :, None]
+  xx = x0[:, None, None] + ar[None, None, :]
+  inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+  lin = torch.where(inb, yy * w + xx, torch.zeros_like(yy))
+  vals = img.reshape(-1)[lin]
+  return torch.where(inb, vals, torch.zeros_like(vals))
+
+
+def flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
+                     offsets: torch.Tensor | None, grid: tuple[int, int],
+                     patch: int, step: tuple[int, int], crop: int,
+                     mean: float | None, min_distance: int,
+                     threshold_rel: float, peak_radius: int) -> torch.Tensor:
+  """Plain PyTorch version of the flow-peaks kernel -> [4, gy, gx]."""
+  gy, gx = grid
+  sy, sx = step
+  dev = pre.device
+  n = gy * gx
+  ii = torch.arange(n, device=dev)
+  y0 = (ii // gx) * sy
+  x0 = (ii % gx) * sx
+  qy0, qx0 = y0, x0
+  if offsets is not None:
+    off = offsets.reshape(n, 2).to(torch.int64)
+    qy0, qx0 = y0 + off[:, 0], x0 + off[:, 1]
+  lo = patch // 2 - crop // 2
+  out = []
+  for c0 in range(0, n, _PLAIN_CHUNK):
+    sl = slice(c0, min(n, c0 + _PLAIN_CHUNK))
+    a = _patches(pre, y0[sl], x0[sl], patch)
+    b = _patches(post, qy0[sl], qx0[sl], patch)
+    if mean is None:
+      a = a - a.mean(dim=(1, 2), keepdim=True)
+      b = b - b.mean(dim=(1, 2), keepdim=True)
+    else:
+      a, b = a - mean, b - mean
+    corr = circular_xcorr(a, b)
+    corr = torch.roll(corr, (patch // 2, patch // 2), dims=(1, 2))
+    corr = corr[:, lo:lo + crop, lo:lo + crop]
+    out.append(batched_peaks(corr, (crop // 2, crop // 2), min_distance,
+                             threshold_rel, peak_radius))
+  return torch.cat(out).reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
+
+
+def _launch(pre, post, offsets, grid, patch, step, crop, mean, min_distance,
+            threshold_rel, peak_radius, counter):
+  _build.require_cuda('flow_peaks', pre, post)
+  if offsets is not None:
+    _build.require_cuda('flow_peaks offsets', offsets, dtype=torch.int32)
+  lib = _build.library()
+  lib.flow_peaks_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
+  lib.flow_peaks_per_block.restype = ctypes.c_int64
+  fn = lib.flow_peaks_launch
+  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  gy, gx = grid
+  sy, sx = step
+  dev = pre.device
+  ctab, stab = (torch.as_tensor(t, device=dev)
+                for t in _dft_tables_np(patch))
+  per_block = int(lib.flow_peaks_per_block(patch, crop))
+  npatch = gy * gx
+  out = torch.empty((4, gy, gx), dtype=torch.float32, device=dev)
+  if npatch == 0:
+    return out
+  scratch = None
+  if per_block * 4 <= _MAX_SMEM_BYTES:
+    nblocks = npatch
+  else:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblocks = min(npatch, 4 * sms)
+    scratch = torch.empty((nblocks, per_block), dtype=torch.float32,
+                          device=dev)
+  h, w = pre.shape
+  rc = fn(pre.data_ptr(), post.data_ptr(), h, w, _build.ptr(offsets), gy, gx,
+          patch, sy, sx, ctab.data_ptr(), stab.data_ptr(), crop,
+          int(mean is None), float(mean or 0.0), int(min_distance),
+          float(threshold_rel), int(peak_radius), _build.ptr(scratch),
+          nblocks, out.data_ptr(), _build.stream_of(pre))
+  _build.launch_counts[counter] += 1
+  _build.check(rc, 'flow_peaks')
+  return out
+
+
+def _check_square(patch_size):
+  if patch_size[0] != patch_size[1]:
+    raise NotImplementedError('square patches only')
+  return int(patch_size[0])
+
+
+def dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
+                     patch_size=(160, 160), step=(40, 40),
+                     mean: float | None = None, min_distance: int = 2,
+                     threshold_rel: float = 0.5,
+                     peak_radius: int = 5) -> torch.Tensor:
+  """K1: flow peaks over the full dense grid -> [4, gy, gx]."""
+  p = _check_square(patch_size)
+  sy, sx = step
+  h, w = pre_image.shape
+  grid = ((h - (p - sy)) // sy, (w - (p - sx)) // sx)
+  pre = pre_image.to(torch.float32).contiguous()
+  post = post_image.to(torch.float32).contiguous()
+  if pre.device.type == 'cpu':
+    return flow_peaks_plain(pre, post, None, grid, p, (sy, sx), p, mean,
+                            min_distance, threshold_rel, peak_radius)
+  return _launch(pre, post, None, grid, p, (sy, sx), p, mean, min_distance,
+                 threshold_rel, peak_radius, 'dense_flow_peaks')
+
+
+def dense_flow_peaks_targeted(pre_image: torch.Tensor,
+                              post_image: torch.Tensor,
+                              post_offsets: torch.Tensor,
+                              patch_size=(160, 160), step=(40, 40),
+                              max_offset: int = 96, mean: float | None = None,
+                              group: int | None = None, rows: int | None = None,
+                              min_distance: int = 2, threshold_rel: float = 0.5,
+                              peak_radius: int = 5,
+                              peak_crop: int | None = None) -> torch.Tensor:
+  """K2: dense grid flow with per-block integer post-window offsets.
+
+  `post_offsets`: int [nrsteps, ngroups, 2] (dy, dx) shifts of each
+  `rows x group` block of patches (see `targeted_geometry`), clipped to
+  +-max_offset. Returns [4, gy, gx] with x/y peaks RELATIVE to the
+  shifted windows; `peak_crop` (even) restricts the peak search to the
+  centered [peak_crop, peak_crop] core of each surface.
+  """
+  p = _check_square(patch_size)
+  sy, sx = step
+  h, w = pre_image.shape
+  geo = targeted_geometry((h, w), patch_size, step, group, rows)
+  gy, gx = geo['gy'], geo['gx']
+  if tuple(post_offsets.shape) != (geo['nrsteps'], geo['ngroups'], 2):
+    raise ValueError(f'post_offsets shape {tuple(post_offsets.shape)}')
+  crop = p
+  if peak_crop is not None:
+    crop = int(peak_crop)
+    if not (0 < crop <= p and crop % 2 == 0):
+      raise ValueError('peak_crop must be even and <= patch size')
+  md = int(max_offset)
+  offs = torch.clamp(post_offsets.to(torch.int32), -md, md)
+  offs = torch.repeat_interleave(offs, geo['rows'], dim=0)
+  offs = torch.repeat_interleave(offs, geo['group'], dim=1)
+  offs = offs[:gy, :gx].contiguous()
+  pre = pre_image.to(torch.float32).contiguous()
+  post = post_image.to(torch.float32).contiguous()
+  if pre.device.type == 'cpu':
+    return flow_peaks_plain(pre, post, offs, (gy, gx), p, (sy, sx), crop,
+                            mean, min_distance, threshold_rel, peak_radius)
+  return _launch(pre, post, offs, (gy, gx), p, (sy, sx), crop, mean,
+                 min_distance, threshold_rel, peak_radius,
+                 'targeted_flow_peaks')
