@@ -1,18 +1,34 @@
-"""GPU smoke run of sofima_tpu_torch: kernels, then the stack-alignment path.
+"""GPU smoke run of sofima_tpu_torch: every kernel, then every ported path.
 
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from sofima_tpu_torch/csrc, checks each kernel
-against its plain PyTorch version at the main path's shapes, builds a
-synthetic 10k^2 serial-section stack (seeded texture, cumulative drift
-plus wobble, as bench.py's pipeline stage does), aligns it with
-`align_stack_pipelined` at bench.py's headline configuration, and checks
-the result against the known ground truth. Any failed check raises. The
-last line is the JSON status; the line before it lists each kernel with
-its launch count on the main path, its error against the plain version
-and both times. Without CUDA it exits non-zero before any work.
+It builds the CUDA kernels from sofima_tpu_torch/csrc and drives the two
+slices of the port, each kernel checked against its plain PyTorch
+version at its path's shapes (timed beside it, with the least time the
+card could take for the same work and, where one exists, one PyTorch
+call that computes the same function):
+
+  * stack alignment: K1-K4 on 10k^2 sections, then a synthetic 10k^2
+    serial-section stack (seeded texture, cumulative drift plus wobble,
+    as bench.py's pipeline stage builds it) aligned by
+    `align_stack_pipelined` at bench.py's headline configuration and
+    checked against the known ground truth;
+  * 3d tile stitching: K9 (3d force; also on path (a)'s tile meshes),
+    K11 (fused 3d FIRE) and K13 (3d render); then (a) `stitch_and_render_3d` on bench.py's LICONN
+    geometry (2 x 2 tiles of 64 x 576 x 576, seeded band-limited
+    texture) with bench.py's quality gates, (b) `mesh.relax_mesh` with
+    the 3d force on bench.py's mesh3d mesh and (c) the fused 3d solver
+    on bench.py's mesh3d_fused mesh, with their throughputs; and the
+    stitch at the CPU tests' geometry on the card against the CPU.
+
+Each path runs with the launch counters set to 0 just before it and
+read just after; a kernel of the path that was not launched fails the
+run. Any failed check raises. The last line is the JSON status; the
+line before it lists each kernel with its launch count, its error
+against the plain version and its times. Without CUDA it exits non-zero
+before any work.
 """
 
 from __future__ import annotations
@@ -39,6 +55,36 @@ MESH_TOL = 1e-3         # px, fused solver vs plain solver
 RENDER_TOL = 1e-2       # gray levels, render kernel vs plain render
 MAX_ERR = 3.5           # bench.py's pipeline ground-truth gate
 SMALL_MESH_TOL = 0.4    # px = 0.01 * stride, small-input parity
+MESH3D = (8, 512, 1024)       # bench.py's mesh3d nodes (z, y, x)
+FUSED3D = (8, 128, 256)       # bench.py's mesh3d_fused nodes
+LICONN = (64, 576, 64)        # bench.py's stitch3d: depth, tile edge, overlap
+FORCE_TOL = 1e-4        # 3d force vs plain (tests/test_pallas_mesh.py's bar)
+STITCH_REL_ERR = 0.5    # bench.py's stitch3d gates
+STITCH_COVERAGE = 0.5
+SMALL_MESH_TOL_3D = 0.08      # px = 0.01 * stride 8
+SMALL_CANVAS_TOL = (0.05, 2.0)  # gray levels: mean, max where both weigh
+
+# The least time the card could take for the same work: the
+# larger of bytes over HBM bandwidth and operations over the f32 peak
+# outside the tensor cores (NVIDIA H100 SXM data sheet).
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+# Operation counts per unit of work, f32 flops (a sqrt, rsqrt, sin or
+# division counts as one):
+#   circular xcorr of a p x p pair: 3 real 2d FFTs (2.5 N log2 N each,
+#   half a complex FFT's 5 N log2 N, N = p^2), the spectrum product and
+#   the peak search (~8 per point);
+#   Lanczos render: ~350 per output pixel (16 weights of ~12, 64 taps of
+#   2, the row sums and the norm); trilinear 3d render: ~50 per voxel;
+#   spring force: 15 per 2d link (8 per node) and 24 per 3d link, each
+#   3d spring counted once (13 per node, Newton's third law);
+#   FIRE step: the force plus ~60 (2d) / ~80 (3d) per node for the k0
+#   spring, the Verlet update, the mixing and the power sum.
+LANCZOS_FLOPS_PX = 350
+LINEAR3D_FLOPS_VOX = 50
+FORCE3D_FLOPS_NODE = 13 * 24
+FIRE2D_FLOPS_NODE_STEP = 8 * 15 + 60
+FIRE3D_FLOPS_NODE_STEP = FORCE3D_FLOPS_NODE + 80
 
 
 def check(ok: bool, what: str) -> None:
@@ -54,6 +100,11 @@ def smi() -> str:
 
 def sync():
   torch.cuda.synchronize()
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+  """Bit-for-bit equality, NaN included."""
+  return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -76,6 +127,18 @@ def wall_ms(fn) -> float:
   fn()
   sync()
   return (time.perf_counter() - t0) * 1e3
+
+
+def least_time(nbytes: float, flops: float) -> dict:
+  """bound_ms / bound_by of work that moves `nbytes` and does `flops`."""
+  t_b, t_o = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+  return dict(bound_ms=max(t_b, t_o),
+              bound_by='bytes' if t_b >= t_o else 'operations')
+
+
+def xcorr_flops(p: int) -> float:
+  n = p * p
+  return 3 * 2.5 * n * np.log2(n) + 8 * n
 
 
 def texture(n: int, dev) -> torch.Tensor:
@@ -161,33 +224,20 @@ def compare_flow(got, ref, name):
       stat_frac=frac, stat_max_rel=rel, stat_max_abs=float(d.max()))
 
 
-def main() -> int:
-  if not torch.cuda.is_available():
-    print('chip_smoke: CUDA is not available', file=sys.stderr)
-    return 2
-  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-  from sofima_tpu_torch.ops import _build
+def stack_slice(dev, report, _build) -> dict:
+  """K1-K4 at the stack path's shapes, then the stack path itself.
+
+  Returns the kernels' launch counts from the stack path's run."""
   from sofima_tpu_torch.ops import cuda_flow
   from sofima_tpu_torch.ops import cuda_mesh
   from sofima_tpu_torch.ops import cuda_warp
   from sofima_tpu_torch.ops import interp
   from sofima_tpu_torch.pipeline import stack_align
 
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
-  dev = torch.device('cuda', 0)
-  card = smi()
-  print(card)
-  print(f'python {sys.version.split()[0]}  torch {torch.__version__}  '
-        f'cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}')
-  _build.library()
-  print(f'kernel build + load: {_build.build_seconds:.2f} s')
-  print(_build.build_log.strip())
-  report = {}
-
   tex = texture(N, dev)
   pre = tex.contiguous()
   post = torch.roll(tex, (7, -12), (0, 1)).contiguous()
+  image_bytes = 2 * N * N * 4
 
   # K1: the coarse pass, p = step = 160 on the 10k^2 pair.
   print('K1 dense_flow_peaks, 10k^2, p = s = 160')
@@ -196,9 +246,12 @@ def main() -> int:
   k1p = lambda: cuda_flow.flow_peaks_plain(
       pre, post, None, (gy, gy), 160, (160, 160), 160, None, 2, 0.5, 5)
   report['K1'] = dict(compare_flow(k1(), k1p(), 'K1'), ms=cuda_ms(k1),
-                      plain_ms=wall_ms(k1p))
+                      plain_ms=wall_ms(k1p), library_ms=None,
+                      **least_time(image_bytes + 16 * gy * gy,
+                                   gy * gy * xcorr_flops(160)))
   print(f'  kernel {report["K1"]["ms"]:.3f} ms, plain '
-        f'{report["K1"]["plain_ms"]:.3f} ms')
+        f'{report["K1"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K1"]["bound_ms"]:.3f} ms')
 
   # K2: the fine pass, p = 80, s = 40, 4-row blocks. As on the main path,
   # each block's window is targeted near the true shift (7, -12), here
@@ -217,10 +270,14 @@ def main() -> int:
   k2p = lambda: cuda_flow.flow_peaks_plain(
       pre, post, ex, (geo['gy'], geo['gx']), 80, (40, 40), 32, None, 2,
       0.5, 5)
+  n2 = geo['gy'] * geo['gx']
   report['K2'] = dict(compare_flow(k2(), k2p(), 'K2'), ms=cuda_ms(k2),
-                      plain_ms=wall_ms(k2p))
+                      plain_ms=wall_ms(k2p), library_ms=None,
+                      **least_time(image_bytes + offs.numel() * 4 + 16 * n2,
+                                   n2 * xcorr_flops(80)))
   print(f'  kernel {report["K2"]["ms"]:.3f} ms, plain '
-        f'{report["K2"]["plain_ms"]:.3f} ms')
+        f'{report["K2"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K2"]["bound_ms"]:.3f} ms')
 
   # K3: the fused FIRE solve on a 250^2 mesh (headline solver config).
   print('K3 fused_fire, 250^2 nodes')
@@ -240,18 +297,26 @@ def main() -> int:
   ref, _, steps_p = cuda_mesh.relax_mesh_fused_plain(x0[:, 0], prev_t[:, 0],
                                                      cfg.mesh)
   check(int(steps) == int(steps_p), f'K3 steps {int(steps)} vs {steps_p}')
+  check(same_bits(got, k3()[0]), 'K3 does not repeat bit for bit')
   check(bool(torch.equal(torch.isnan(got[:, 0]), torch.isnan(ref))),
         'K3 NaN pattern differs')
   err = float(torch.nan_to_num((got[:, 0] - ref).abs(), nan=0.0).max())
-  print(f'  steps {int(steps)} (plain {steps_p}), max |dx| {err:.3g} px')
+  print(f'  steps {int(steps)} (plain {steps_p}), max |dx| {err:.3g} px; '
+        'a second launch repeats it bit for bit')
   check(err < MESH_TOL, f'K3 differs from the plain solver by {err} px')
   report['K3'] = dict(err=err, ms=cuda_ms(k3), plain_ms=wall_ms(
       lambda: cuda_mesh.relax_mesh_fused_plain(x0[:, 0], prev_t[:, 0],
-                                               cfg.mesh)))
+                                               cfg.mesh)), library_ms=None,
+                      steps=int(steps),
+                      **least_time(3 * 2 * g * g * 4,
+                                   int(steps) * g * g
+                                   * FIRE2D_FLOPS_NODE_STEP))
   print(f'  kernel {report["K3"]["ms"]:.3f} ms, plain '
-        f'{report["K3"]["plain_ms"]:.3f} ms')
+        f'{report["K3"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K3"]["bound_ms"]:.3f} ms')
 
-  # K4: a 10k^2 Lanczos render through a ~100 px displacement.
+  # K4: a 10k^2 Lanczos render through a ~100 px displacement; the same
+  # coordinates rendered bilinear by K4 and by grid_sample.
   print('K4 warp_gather, 10k^2 Lanczos')
   node = torch.arange(g + 1, dtype=torch.float32, device=dev) * STRIDE
   disp = torch.stack([
@@ -268,11 +333,30 @@ def main() -> int:
               .abs().max())
   print(f'  max |diff| {err:.3g} gray levels')
   check(err < RENDER_TOL, f'K4 differs from the plain render by {err}')
+  k4l = lambda: cuda_warp.shift_warp(img, coords, 'linear')
+  err_l = float((k4l() - cuda_warp.shift_warp_plain(img, coords, 'linear'))
+                .abs().max())
+  check(err_l < RENDER_TOL, f'K4 (linear) differs from plain by {err_l}')
+  # The library call computes the bilinear render: grid_sample with zero
+  # padding and align_corners=True on normalized (x, y) coordinates.
+  grid = torch.stack([coords[0, 1] * (2.0 / (N - 1)) - 1.0,
+                      coords[0, 0] * (2.0 / (N - 1)) - 1.0], dim=-1)[None]
+  lib = lambda: torch.nn.functional.grid_sample(
+      img[None], grid, mode='bilinear', padding_mode='zeros',
+      align_corners=True)
+  lib_err = float((lib()[0, 0] - k4l()[0]).abs().max())
   report['K4'] = dict(err=err, ms=cuda_ms(k4), plain_ms=wall_ms(
-      lambda: cuda_warp.shift_warp_plain(img, coords, 'lanczos')))
-  print(f'  kernel {report["K4"]["ms"]:.3f} ms, plain '
-        f'{report["K4"]["plain_ms"]:.3f} ms')
-  del coords, img
+      lambda: cuda_warp.shift_warp_plain(img, coords, 'lanczos')),
+                      ms_linear=cuda_ms(k4l), max_abs_err_linear=err_l,
+                      library_ms=cuda_ms(lib), library_max_abs_diff=lib_err,
+                      **least_time(16 * N * N, LANCZOS_FLOPS_PX * N * N))
+  print(f'  kernel {report["K4"]["ms"]:.3f} ms (bilinear '
+        f'{report["K4"]["ms_linear"]:.3f} ms), plain '
+        f'{report["K4"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K4"]["bound_ms"]:.3f} ms, grid_sample (bilinear) '
+        f'{report["K4"]["library_ms"]:.3f} ms, |K4 - grid_sample| '
+        f'{lib_err:.3g}')
+  del coords, img, grid
 
   print(f'stack: {N_Z} sections of {N}^2 (bench.py runs 16; cut for time)')
   stack = make_stack(post, N_Z)
@@ -295,7 +379,7 @@ def main() -> int:
   errs = [float((rendered[z][inter].float() - base_i).abs().mean())
           for z in range(1, N_Z)]
   raw = float((stack[N_Z - 1][inter].float() - base_i).abs().mean())
-  print('main path: align_stack_pipelined (max_displacement=128, '
+  print('stack path: align_stack_pipelined (max_displacement=128, '
         'residual=6, render_two_pass, peak_crop=32, num_iters=125, uint8)')
   print('  phase seconds: ' + ', '.join(f'{k} {v:.3f}'
                                         for k, v in timings.items()))
@@ -308,8 +392,9 @@ def main() -> int:
   check(bool(torch.isfinite(solved).all()), 'solved mesh is not finite')
   check(max(errs) <= MAX_ERR, f'interior error {max(errs)} > {MAX_ERR}')
   check(not bool(overflow), 'envelope overflow on the main path')
-  for k, v in launches.items():
-    check(v > 0, f'kernel {k} was not launched on the main path')
+  for k in ('dense_flow_peaks', 'targeted_flow_peaks', 'fused_fire',
+            'warp_gather'):
+    check(launches[k] > 0, f'kernel {k} was not launched on the stack path')
 
   # Small input: the card's run against the plain versions on the CPU.
   n_s = 480
@@ -323,6 +408,328 @@ def main() -> int:
   check(d < SMALL_MESH_TOL, 'small-input meshes differ')
   check(bool(o_gpu) == bool(o_cpu), 'small-input overflow flags differ')
   check(bool(torch.isfinite(r_gpu).all()), 'small-input render not finite')
+  return launches
+
+
+def texture3d(shape, seed: int, dev) -> torch.Tensor:
+  """bench.py's band-limited 3d texture in [0, 255] (sigma 0.12)."""
+  rng = np.random.RandomState(seed)
+  noise = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+  f = torch.fft.rfftn(noise.double())
+  del noise
+  fz = torch.fft.fftfreq(shape[0], device=dev, dtype=torch.float64)
+  fy = torch.fft.fftfreq(shape[1], device=dev, dtype=torch.float64)
+  fx = torch.fft.rfftfreq(shape[2], device=dev, dtype=torch.float64)
+  f *= torch.exp(-((fx[None, None, :] ** 2 + fy[None, :, None] ** 2
+                    + fz[:, None, None] ** 2) / (2 * 0.12 ** 2)))
+  vol = torch.fft.irfftn(f, s=shape).float()
+  del f
+  return (vol - vol.min()) / (vol.max() - vol.min()) * 255.0
+
+
+def liconn_inputs(vol: torch.Tensor, tile_yx: int, overlap: int):
+  """bench.py's 2 x 2 tile grid over `vol` with its coarse offsets."""
+  step = tile_yx - overlap
+  tiles = {(tx, ty): vol[:, ty * step:ty * step + tile_yx,
+                         tx * step:tx * step + tile_yx].contiguous()
+           for ty in range(2) for tx in range(2)}
+  cx = np.full((3, 1, 2, 2), np.nan)
+  cx[:, 0, :, 0] = np.array([-overlap, 0.0, 0.0])[:, None]
+  cy = np.full((3, 1, 2, 2), np.nan)
+  cy[:, 0, 0, :] = np.array([0.0, -overlap, 0.0])[:, None]
+  coarse = np.zeros((3, 1, 2, 2), np.float32)
+  for ty in range(2):
+    for tx in range(2):
+      coarse[0, 0, ty, tx] = -overlap * tx
+      coarse[1, 0, ty, tx] = -overlap * ty
+  return tiles, cx, cy, coarse
+
+
+def stitch_slice(dev, report, _build) -> dict:
+  """K9, K11 and K13 at their paths' shapes, then paths (a), (b), (c).
+
+  Returns the kernels' launch counts from their paths' runs."""
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch.ops import cuda_mesh
+  from sofima_tpu_torch.ops import cuda_warp
+  from sofima_tpu_torch.pipeline import stitch3d
+
+  launches = {}
+  rng = np.random.RandomState(SEED + 3)
+
+  # K9: bench.py's mesh3d mesh, NaN nodes sprinkled in.
+  shape_b = (3,) + MESH3D
+  nodes_b = int(np.prod(MESH3D))
+  print(f'K9 force3d, {list(shape_b)} nodes with NaN holes')
+  xk = torch.from_numpy(rng.randn(*shape_b).astype(np.float32)).to(dev)
+  holes = torch.from_numpy(rng.rand(*MESH3D) < 0.001).to(dev)
+  xk = torch.where(holes[None], torch.full_like(xk, float('nan')), xk)
+  stride_b = (40.0, 40.0, 40.0)
+  errs = []
+  for prefer in (False, True):
+    got = cuda_mesh.force_3d(xk, 0.1, stride_b, prefer)
+    ref = mesh.elastic_mesh_3d_plain(xk, 0.1, stride_b, prefer)
+    errs.append(float((got - ref).abs().max()))
+    check(bool(torch.isfinite(got).all()), 'K9 force not finite')
+  err = max(errs)
+  print(f'  max |df| {errs[0]:.3g} (prefer_orig_order {errs[1]:.3g})')
+  check(err < FORCE_TOL, f'K9 differs from the plain force by {err}')
+  k9 = lambda: cuda_mesh.force_3d(xk, 0.1, stride_b)
+  report['K9'] = dict(err=err, ms=cuda_ms(k9, reps=20), plain_ms=wall_ms(
+      lambda: mesh.elastic_mesh_3d_plain(xk, 0.1, stride_b)),
+                      library_ms=None,
+                      **least_time(24 * nodes_b,
+                                   FORCE3D_FLOPS_NODE * nodes_b))
+  print(f'  kernel {report["K9"]["ms"]:.4f} ms, plain '
+        f'{report["K9"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K9"]["bound_ms"]:.4f} ms')
+  del xk, holes, got, ref
+
+  # K11: bench.py's mesh3d_fused mesh and config (cfg3f).
+  print(f'K11 fused_fire_3d, {[3, *FUSED3D]} nodes, cfg3f')
+  cfg3f = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0, 40.0, 40.0),
+      num_iters=500, max_iters=1000, stop_v_max=0.0, dt_max=100.0)
+  nodes_c = int(np.prod(FUSED3D))
+  x3f = torch.from_numpy(rng.randn(3, *FUSED3D).astype(np.float32)).to(dev)
+  prev3f = torch.zeros_like(x3f)
+  got, _, steps = cuda_mesh.relax_mesh_fused_3d(x3f, prev3f, cfg3f)
+  ref, _, steps_p = cuda_mesh.relax_mesh_fused_3d_plain(x3f, prev3f, cfg3f)
+  check(int(steps) == int(steps_p), f'K11 steps {int(steps)} vs {steps_p}')
+  check(same_bits(got, cuda_mesh.relax_mesh_fused_3d(x3f, prev3f, cfg3f)[0]),
+        'K11 does not repeat bit for bit')
+  check(bool(torch.equal(torch.isnan(got), torch.isnan(ref))),
+        'K11 NaN pattern differs')
+  err = float(torch.nan_to_num((got - ref).abs(), nan=0.0).max())
+  print(f'  steps {int(steps)} (plain {steps_p}), max |dx| {err:.3g} px; '
+        'a second launch repeats it bit for bit')
+  check(err < MESH_TOL, f'K11 differs from the plain solver by {err} px')
+  k11 = lambda: cuda_mesh.relax_mesh_fused_3d(x3f, prev3f, cfg3f)
+  report['K11'] = dict(err=err, ms=cuda_ms(k11), plain_ms=wall_ms(
+      lambda: cuda_mesh.relax_mesh_fused_3d_plain(x3f, prev3f, cfg3f)),
+                       library_ms=None, steps=int(steps),
+                       **least_time(3 * 3 * nodes_c * 4, int(steps) * nodes_c
+                                    * FIRE3D_FLOPS_NODE_STEP))
+  print(f'  kernel {report["K11"]["ms"]:.3f} ms, plain '
+        f'{report["K11"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K11"]["bound_ms"]:.3f} ms')
+
+  # K13: one LICONN tile's render shape (a 64 x 576 x 576 tile renders
+  # 128 x 640 x 640 voxels with its 2-node halo at stride 16),
+  # coordinates of a smooth ~1.5 px residual with NaN holes, bounds as
+  # the render buckets them.
+  zdim, tile_yx, overlap = LICONN
+  halo = 2 * 16
+  oz, oy, ox = zdim + 2 * halo, tile_yx + 2 * halo, tile_yx + 2 * halo
+  print(f'K13 warp_gather_3d, {zdim} x {tile_yx} x {tile_yx} -> '
+        f'{oz} x {oy} x {ox}')
+  vol = texture3d((zdim, tile_yx, tile_yx), SEED + 4, dev)
+  org = (-halo, -halo, -halo)
+  zz = torch.arange(oz, dtype=torch.float32, device=dev)[:, None, None] - halo
+  yy = torch.arange(oy, dtype=torch.float32, device=dev)[None, :, None] - halo
+  xx = torch.arange(ox, dtype=torch.float32, device=dev)[None, None, :] - halo
+  coords = torch.stack([
+      (zz + 0.6 * torch.sin(yy / 57.0)).expand(oz, oy, ox),
+      (yy + 1.5 * torch.cos(xx / 83.0 + zz / 40.0)).expand(oz, oy, ox),
+      (xx + 1.4 * torch.sin(yy / 61.0 + 0.3)).expand(oz, oy, ox)]).contiguous()
+  coords[:, oz // 2, 10:20, 30:90] = float('nan')
+  bnds = (-2, 2, -4, 4, -4, 4)
+  k13 = lambda: cuda_warp.shift_warp_3d(vol, coords, 'linear', *bnds, *org)
+  k13p = lambda: cuda_warp.shift_warp_3d_plain(vol, coords, 'linear', bnds,
+                                               org)
+  err = float((k13() - k13p()).abs().max())
+  k13z = lambda: cuda_warp.shift_warp_3d(vol, coords, 'lanczos', *bnds, *org)
+  err_z = float((k13z() - cuda_warp.shift_warp_3d_plain(
+      vol, coords, 'lanczos', bnds, org)).abs().max())
+  print(f'  max |diff| trilinear {err:.3g}, Lanczos {err_z:.3g} gray levels')
+  check(err < RENDER_TOL, f'K13 differs from the plain render by {err}')
+  check(err_z < RENDER_TOL, f'K13 (Lanczos) differs from plain by {err_z}')
+  d, h, w = vol.shape
+  norm = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1), 2.0 / (d - 1)],
+                      device=dev)
+  grid = (torch.stack([coords[2], coords[1], coords[0]], dim=-1) * norm
+          - 1.0)[None]
+  lib = lambda: torch.nn.functional.grid_sample(
+      vol[None, None], grid, mode='bilinear', padding_mode='zeros',
+      align_corners=True)
+  lib_diff = float(torch.nan_to_num(lib()[0, 0] - k13()).abs().max())
+  n_out = oz * oy * ox
+  report['K13'] = dict(err=err, ms=cuda_ms(k13), plain_ms=wall_ms(k13p),
+                       max_abs_err_lanczos=err_z, ms_lanczos=cuda_ms(k13z),
+                       library_ms=cuda_ms(lib),
+                       library_max_abs_diff=lib_diff,
+                       **least_time(16 * n_out + 4 * vol.numel(),
+                                    LINEAR3D_FLOPS_VOX * n_out))
+  print(f'  kernel {report["K13"]["ms"]:.3f} ms (Lanczos '
+        f'{report["K13"]["ms_lanczos"]:.3f} ms), plain '
+        f'{report["K13"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K13"]["bound_ms"]:.3f} ms, grid_sample '
+        f'{report["K13"]["library_ms"]:.3f} ms (|diff| {lib_diff:.3g}: '
+        f'grid_sample has no static bounds)')
+  del vol, coords, grid
+
+  # Path (a): stitch_and_render_3d at bench.py's LICONN geometry.
+  n3 = 2 * tile_yx - overlap
+  print(f'path (a): stitch_and_render_3d, 2 x 2 tiles of {zdim} x {tile_yx}'
+        f'^2, union {zdim} x {n3}^2')
+  vol3 = texture3d((zdim, n3, n3), 9, dev)
+  tiles, cx, cy, coarse = liconn_inputs(vol3, tile_yx, overlap)
+  stride3 = (16, 16, 16)
+  cfg_s3 = stitch3d.Stitch3dConfig(
+      stride=stride3, patch_size=(32, 32, 32), flow_batch=64, margin=8,
+      mesh_cfg=mesh.IntegrationConfig(
+          dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=stride3,
+          num_iters=400, max_iters=10000, stop_v_max=0.005, dt_max=100.0))
+  stitch3d.stitch_and_render_3d(tiles, cx, cy, coarse, cfg_s3)  # warm-up
+  sync()
+  _build.reset_launch_counts()
+  timings = {}
+  t0 = time.perf_counter()
+  out = stitch3d.stitch_and_render_3d(tiles, cx, cy, coarse, cfg_s3,
+                                      timings=timings)
+  sync()
+  wall = time.perf_counter() - t0
+  launches_a = dict(_build.launch_counts)
+  lo_z, lo_yx = 8, 16
+  sel = (slice(lo_z, zdim - lo_z), slice(lo_yx, n3 - lo_yx),
+         slice(lo_yx, n3 - lo_yx))
+  truth = vol3[sel]
+  m = out['weights'][sel] > 0
+  cnt = int(m.sum())
+  rel = float(torch.where(m, (out['canvas'][sel] - truth).abs(),
+                          torch.zeros_like(truth)).sum()
+              / max(cnt, 1) / truth.std(correction=0))
+  cov = cnt / truth.numel()
+  mvox = zdim * n3 * n3 / wall / 1e6
+  steps = out['solve_steps']
+  print('  phase seconds: ' + ', '.join(f'{k} {v:.3f}'
+                                        for k, v in timings.items()))
+  print(f'  wall {wall:.3f} s, {mvox:.1f} Mvox/s, solve steps {steps} '
+        f'({timings["solve"] / steps * 1e3:.3f} ms per step)')
+  print(f'  rel_err {rel:.4f} (gate {STITCH_REL_ERR}), coverage {cov:.4f} '
+        f'(gate {STITCH_COVERAGE})')
+  print(f'  launches {launches_a}')
+  check(bool(torch.isfinite(out['solved']).all()), 'stitch meshes not finite')
+  check(rel <= STITCH_REL_ERR, f'stitch3d rel_err {rel}')
+  check(cov >= STITCH_COVERAGE, f'stitch3d coverage {cov}')
+  for k in ('force3d', 'warp_gather_3d'):
+    check(launches_a[k] > 0, f'kernel {k} was not launched on path (a)')
+  launches['force3d'] = launches_a['force3d']
+  launches['warp_gather_3d'] = launches_a['warp_gather_3d']
+  report['path_a'] = dict(wall_s=wall, mvox_s=mvox, solve_steps=steps,
+                          rel_err=rel, coverage=cov, **timings)
+
+  # K9 at path (a)'s solve shape: the batched tile meshes [3, n, gz, gy,
+  # gx] (batch and channel strides), moved off rest and with NaN nodes.
+  solved = out['solved']
+  xa = solved + torch.from_numpy(
+      rng.randn(*solved.shape).astype(np.float32) * 2.0).to(dev)
+  holes_a = torch.from_numpy(rng.rand(*solved.shape[1:]) < 0.01).to(dev)
+  xa = torch.where(holes_a[None], torch.full_like(xa, float('nan')), xa)
+  errs_a = []
+  for prefer in (False, True):
+    got = cuda_mesh.force_3d(xa, 0.1, stride3, prefer)
+    ref = mesh.elastic_mesh_3d_plain(xa, 0.1, stride3, prefer)
+    errs_a.append(float((got - ref).abs().max()))
+    check(bool(torch.isfinite(got).all()), 'K9 force not finite (path a)')
+  err_a = max(errs_a)
+  print(f'K9 at path (a)\'s shape {list(xa.shape)}: max |df| '
+        f'{errs_a[0]:.3g} (prefer_orig_order {errs_a[1]:.3g})')
+  check(err_a < FORCE_TOL, f'K9 differs from the plain force by {err_a} '
+        'on the tile meshes')
+  report['K9']['max_abs_err_tile_meshes'] = err_a
+  report['K9']['err'] = max(report['K9']['err'], err_a)
+  del out, tiles, vol3, truth, solved, xa, holes_a, got, ref
+
+  # Path (b): relax_mesh with the 3d force, bench.py's mesh3d stage.
+  print(f'path (b): relax_mesh + elastic_mesh_3d, {list(shape_b)}, '
+        '200 steps')
+  cfg3 = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0, 40.0, 40.0),
+      num_iters=200, max_iters=200, stop_v_max=0.0, dt_max=100.0)
+  x3 = torch.from_numpy(rng.randn(*shape_b).astype(np.float32)).to(dev)
+  prev3 = torch.zeros_like(x3)
+  run_b = lambda: mesh.relax_mesh(x3, prev3, cfg3,
+                                  mesh_force=mesh.elastic_mesh_3d)
+  run_b()
+  sync()
+  _build.reset_launch_counts()
+  t_b = wall_ms(run_b) / 1e3
+  launches_b = dict(_build.launch_counts)
+  glups_b = cfg3.num_iters * nodes_b / t_b / 1e9
+  print(f'  {t_b:.3f} s, {glups_b:.2f} GLUPS, launches {launches_b}')
+  check(launches_b['force3d'] > 0, 'K9 was not launched on path (b)')
+  report['path_b'] = dict(seconds=t_b, glups=glups_b,
+                          force3d_launches=launches_b['force3d'])
+  del x3, prev3
+
+  # Path (c): the fused 3d solver, bench.py's mesh3d_fused stage.
+  print(f'path (c): relax_mesh_fused_3d, {[3, *FUSED3D]}, cfg3f')
+  _build.reset_launch_counts()
+  t_c = wall_ms(k11) / 1e3
+  launches_c = dict(_build.launch_counts)
+  glups_c = cfg3f.max_iters * nodes_c / t_c / 1e9
+  print(f'  {t_c:.4f} s, {glups_c:.2f} GLUPS, launches {launches_c}')
+  check(launches_c['fused_fire_3d'] > 0, 'K11 was not launched on path (c)')
+  launches['fused_fire_3d'] = launches_c['fused_fire_3d']
+  report['path_c'] = dict(seconds=t_c, glups=glups_c)
+
+  # Small input: path (a) at the CPU tests' geometry, card against CPU.
+  vol_s = texture3d((24, 48, 80), 3, dev)
+  tiles_s = {(0, 0): vol_s[:, :, :48].contiguous(),
+             (1, 0): vol_s[:, :, 32:].contiguous()}
+  cx_s = np.full((3, 1, 1, 2), np.nan)
+  cx_s[:, 0, 0, 0] = (-16, 0, 0)
+  cy_s = np.full((3, 1, 1, 2), np.nan)
+  coarse_s = np.zeros((3, 1, 1, 2), np.float32)
+  coarse_s[0, 0, 0, 1] = -16
+  cfg_small = stitch3d.Stitch3dConfig(
+      stride=(8, 8, 8), patch_size=(16, 16, 16), flow_batch=8, margin=2,
+      mesh_cfg=mesh.IntegrationConfig(
+          dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(8, 8, 8),
+          num_iters=200, max_iters=5000, stop_v_max=0.01, dt_max=100.0))
+  g_out = stitch3d.stitch_and_render_3d(tiles_s, cx_s, cy_s, coarse_s,
+                                        cfg_small)
+  c_out = stitch3d.stitch_and_render_3d(
+      {k: v.cpu() for k, v in tiles_s.items()}, cx_s, cy_s, coarse_s,
+      cfg_small)
+  dm = float((g_out['solved'].cpu() - c_out['solved']).abs().max())
+  both = (g_out['weights'].cpu() > 0) & (c_out['weights'] > 0)
+  dc = (g_out['canvas'].cpu() - c_out['canvas']).abs()[both]
+  print(f'small input (2 tiles of 24 x 48 x 48): mesh max |diff| vs CPU '
+        f'{dm:.3g} px (bar {SMALL_MESH_TOL_3D}), canvas mean / max |diff| '
+        f'{float(dc.mean()):.3g} / {float(dc.max()):.3g} (bar '
+        f'{SMALL_CANVAS_TOL[0]} / {SMALL_CANVAS_TOL[1]}), steps '
+        f'{g_out["solve_steps"]} / {c_out["solve_steps"]}')
+  check(dm < SMALL_MESH_TOL_3D, 'small-input 3d meshes differ')
+  check(float(dc.mean()) < SMALL_CANVAS_TOL[0]
+        and float(dc.max()) < SMALL_CANVAS_TOL[1], 'small canvases differ')
+  return launches
+
+
+def main() -> int:
+  if not torch.cuda.is_available():
+    print('chip_smoke: CUDA is not available', file=sys.stderr)
+    return 2
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  from sofima_tpu_torch.ops import _build
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = torch.device('cuda', 0)
+  card = smi()
+  print(card)
+  print(f'python {sys.version.split()[0]}  torch {torch.__version__}  '
+        f'cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}')
+  t_start = time.perf_counter()
+  _build.library()
+  print(f'kernel build + load: {_build.build_seconds:.2f} s')
+  print(_build.build_log.strip())
+  report = {}
+  launches = stack_slice(dev, report, _build)
+  torch.cuda.empty_cache()
+  launches.update(stitch_slice(dev, report, _build))
+  print(f'total {time.perf_counter() - t_start:.1f} s')
 
   kernels = []
   meta = [
@@ -334,15 +741,26 @@ def main() -> int:
        'sofima_tpu/ops/pallas_mesh.py:852'),
       ('K4', 'warp_gather', 'sofima_tpu_torch/csrc/warp.cu',
        'sofima_tpu/ops/pallas_warp.py:206'),
+      ('K9', 'force3d', 'sofima_tpu_torch/csrc/force3d.cu',
+       'sofima_tpu/ops/pallas_mesh.py:259'),
+      ('K11', 'fused_fire_3d', 'sofima_tpu_torch/csrc/fire.cu',
+       'sofima_tpu/ops/pallas_mesh.py:1215'),
+      ('K13', 'warp_gather_3d', 'sofima_tpu_torch/csrc/warp3d.cu',
+       'sofima_tpu/ops/pallas_warp.py:692'),
   ]
+  main_keys = ('err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
   for key, name, src, rep in meta:
     r = report[key]
     # For K1/K2, max_abs_err is the integer x/y peaks; the sharpness and
     # ratio agreement follows as stat_frac / stat_max_rel / stat_max_abs.
-    stats = {k: v for k, v in r.items() if k.startswith('stat_')}
+    extra = {k: v for k, v in r.items() if k not in main_keys}
     kernels.append(dict(name=name, route='cuda', source=src, replaces=rep,
                         launches=launches[name], max_abs_err=r['err'],
-                        **stats, ms=r['ms'], plain_ms=r['plain_ms']))
+                        ms=r['ms'], plain_ms=r['plain_ms'],
+                        bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+                        library_ms=r['library_ms'], **extra))
+  paths = {k: report[k] for k in ('path_a', 'path_b', 'path_c')}
+  print(json.dumps({'paths': paths}))
   print(smi())
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

@@ -1,32 +1,43 @@
 // Fused FIRE mesh relaxation: the whole chunked convergence loop of
-// mesh.relax_mesh_fused in ONE cooperative kernel launch.
+// mesh.relax_mesh_fused in ONE cooperative kernel launch, for 2d section
+// meshes (K3) and 3d tile meshes (K11).
 //
 // Replaces sofima_tpu/ops/pallas_mesh.py `_fused_fire_kernel` (entry
 // relax_mesh_fused_pallas) with `_roll_force_2d`: 8-neighbour Hooke
-// springs (diagonals at k/sqrt(2)), prefer_orig_order, NaN-inert nodes,
-// zero-length k0 springs to `prev` clamped by the force cap, cap
-// escalation, and the stop test "two consecutive converged chunks".
+// springs (diagonals at k/sqrt(2)); and the inner `kernel` of
+// relax_mesh_fused_pallas_3d with `_roll_force_3d` /
+// `_roll_force_3d_loop`: 26-neighbour springs at k * stride_x / l0, the
+// force of K9 (mesh3d.cuh). One loop body serves both, templated on the dimension:
+// prefer_orig_order, NaN-inert nodes, zero-length k0 springs to `prev`
+// clamped by the force cap, cap escalation, and the stop test "two
+// consecutive converged chunks". The 3d kernel's `link_loop`,
+// `symmetric` and `guard` variants are Mosaic workarounds with the same
+// result; nodes outside the grid simply carry no spring here.
 //
 // What bounds it on the H100: latency, not bytes or FLOPs. A section's
-// mesh is ~250^2 nodes (x, v, a, prev: ~2 MB, L2-resident), and every
-// FIRE step needs one global reduction (the power sum a.v) before any
-// node may take the next step. A launch per step would pay ~5 us of
-// launch latency thousands of times per solve. Here one cooperative
-// launch keeps the state in device memory and separates the phases with
-// grid-wide barriers: two per step (after the position update, and
-// after the per-block power partials are written) plus one per chunk
-// (kinetic energy and v_max). Block partials are summed by every block
-// in the same fixed order, so all blocks agree on the FIRE scalars (dt,
-// alpha, n_pos, cap) without atomics and a run repeats bit for bit. The
-// grid is sized from the occupancy API so that every block is resident,
-// as a grid barrier requires; larger meshes loop over nodes per thread,
-// so there is no size limit (the Pallas kernel's VMEM bound is gone).
+// mesh is ~250^2 nodes and a LICONN tile mesh 8 x 128 x 256 (x, v, a,
+// prev: 2-13 MB, L2-resident), and every FIRE step needs one global
+// reduction (the power sum a.v) before any node may take the next step.
+// A launch per step would pay ~5 us of launch latency thousands of times
+// per solve. Here one cooperative launch keeps the state in device
+// memory and separates the phases with grid-wide barriers: two per step
+// (after the position update, and after the per-block power partials are
+// written), one per chunk (kinetic energy and v_max) and one after the
+// initial force, before any node moves. Block partials
+// are summed by every block in the same fixed order, so all blocks agree
+// on the FIRE scalars (dt, alpha, n_pos, cap) without atomics and a run
+// repeats bit for bit. The grid is sized from the occupancy API so that
+// every block is resident, as a grid barrier requires; larger meshes
+// loop over nodes per thread, so there is no size limit (the Pallas
+// kernels' VMEM bound is gone).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mesh3d.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -41,23 +52,20 @@ struct FireParams {
   float start_cap, final_cap, cap_scale, stop_v_max;
   int num_iters, max_chunks, n_min, cap_upscale_every;
   int prefer_orig_order, has_prev;
+  sofima::Links3d links;  // 3d only
 };
 
-// jnp.sign: -1, 0 or 1 (copysignf would give +-1 at zero).
-__device__ __forceinline__ float sign0(float v) {
-  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
-}
-
+// jnp.nan_to_num: NaN -> 0, +-inf -> +-FLT_MAX.
 __device__ __forceinline__ float nan_to_num(float v) {
   if (isnan(v)) return 0.0f;
   if (isinf(v)) return v > 0.0f ? FLT_MAX : -FLT_MAX;
   return v;
 }
 
-// In-plane spring force on node (y, x) plus the capped k0 spring to prev.
-__device__ void node_force(const float* __restrict__ x, const float* __restrict__ prev,
-                           int gy, int gx, int y, int xx, float cap,
-                           const FireParams& P, float* f0, float* f1) {
+// In-plane spring force on node (y, x) of a [2, gy, gx] mesh.
+__device__ void spring_force_2d(const float* __restrict__ x, int gy, int gx,
+                                int y, int xx, const FireParams& P,
+                                float f[2]) {
   const int n = gy * gx;
   const int i = y * gx + xx;
   const float x0 = x[i], x1 = x[n + i];
@@ -78,8 +86,8 @@ __device__ void node_force(const float* __restrict__ x, const float* __restrict_
       const float inv_l = rsqrtf(fmaxf(dd, 0.0f));
       float g0, g1;
       if (P.prefer_orig_order) {
-        const float fac0 = ex != 0 ? (float)ex * sign0(d0) : 1.0f;
-        const float fac1 = ey != 0 ? (float)ey * sign0(d1) : 1.0f;
+        const float fac0 = ex != 0 ? (float)ex * sofima::sign0(d0) : 1.0f;
+        const float fac1 = ey != 0 ? (float)ey * sofima::sign0(d1) : 1.0f;
         g0 = k_eff * (1.0f - l0 * fac0 * inv_l) * d0;
         g1 = k_eff * (1.0f - l0 * fac1 * inv_l) * d1;
       } else {
@@ -93,14 +101,33 @@ __device__ void node_force(const float* __restrict__ x, const float* __restrict_
       }
     }
   }
-  if (P.has_prev) {
-    const float c0 = -P.k0 * nan_to_num(x0 - prev[i]);
-    const float c1 = -P.k0 * nan_to_num(x1 - prev[n + i]);
-    acc0 += fminf(fmaxf(c0, -cap), cap);
-    acc1 += fminf(fmaxf(c1, -cap), cap);
+  f[0] = acc0;
+  f[1] = acc1;
+}
+
+// Spring force plus the capped k0 spring to prev on node i of a
+// [D, nz, gy, gx] mesh (nz = 1 in 2d).
+template <int D>
+__device__ __forceinline__ void node_force(const float* __restrict__ x,
+                                           const float* __restrict__ prev,
+                                           int nz, int gy, int gx, int i,
+                                           float cap, const FireParams& P,
+                                           float f[D]) {
+  const int n = nz * gy * gx;
+  const int xx = i % gx;
+  const int y = (i / gx) % gy;
+  if constexpr (D == 2) {
+    spring_force_2d(x, gy, gx, y, xx, P, f);
+  } else {
+    sofima::force3d_node(x, n, nz, gy, gx, i / (gx * gy), y, xx, P.links,
+                         P.prefer_orig_order != 0, f);
   }
-  *f0 = acc0;
-  *f1 = acc1;
+  if (P.has_prev) {
+    for (int c = 0; c < D; ++c) {
+      const float s = -P.k0 * nan_to_num(x[c * n + i] - prev[c * n + i]);
+      f[c] += fminf(fmaxf(s, -cap), cap);
+    }
+  }
 }
 
 __device__ float warp_sum(float v) {
@@ -144,15 +171,17 @@ __device__ float grid_total(const float* part, float* bcast) {
   return r;
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 fused_fire_kernel(float* __restrict__ x, const float* __restrict__ prev,
                   float* __restrict__ v, float* __restrict__ a,
                   float* __restrict__ part, float* __restrict__ ehist,
-                  int* __restrict__ steps, int gy, int gx, FireParams P) {
+                  int* __restrict__ steps, int nz, int gy, int gx,
+                  FireParams P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float red[32];
   __shared__ float bcast;
-  const int n = gy * gx;
+  const int n = nz * gy * gx;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int gsize = gridDim.x * blockDim.x;
   float* part_p = part;                  // power
@@ -164,13 +193,15 @@ fused_fire_kernel(float* __restrict__ x, const float* __restrict__ prev,
 
   // a0 = force(x, prev, start_cap); v0 = 0.
   for (int i = gtid; i < n; i += gsize) {
-    float f0, f1;
-    node_force(x, prev, gy, gx, i / gx, i % gx, cap, P, &f0, &f1);
-    a[i] = f0;
-    a[n + i] = f1;
-    v[i] = 0.0f;
-    v[n + i] = 0.0f;
+    float f[D];
+    node_force<D>(x, prev, nz, gy, gx, i, cap, P, f);
+    for (int c = 0; c < D; ++c) {
+      a[c * n + i] = f[c];
+      v[c * n + i] = 0.0f;
+    }
   }
+  // a0 reads neighbours' x, which the first position update rewrites.
+  grid.sync();
 
   int chunk = 0, streak = 0;
   while (streak < 2 && chunk < P.max_chunks) {
@@ -178,8 +209,9 @@ fused_fire_kernel(float* __restrict__ x, const float* __restrict__ prev,
       // Velocity-Verlet position update (own nodes only).
       const float half_dt2 = 0.5f * dt * dt;
       for (int i = gtid; i < n; i += gsize) {
-        x[i] = x[i] + dt * v[i] + half_dt2 * a[i];
-        x[n + i] = x[n + i] + dt * v[n + i] + half_dt2 * a[n + i];
+        for (int c = 0; c < D; ++c)
+          x[c * n + i] = x[c * n + i] + dt * v[c * n + i] +
+                         half_dt2 * a[c * n + i];
       }
       grid.sync();
 
@@ -188,19 +220,23 @@ fused_fire_kernel(float* __restrict__ x, const float* __restrict__ prev,
       const float d_out = 1.0f - 0.5f * dt * P.gamma;
       float pw = 0.0f;
       for (int i = gtid; i < n; i += gsize) {
-        float f0, f1;
-        node_force(x, prev, gy, gx, i / gx, i % gx, cap, P, &f0, &f1);
-        float v0 = d_in * (v[i] * d_out + 0.5f * dt * (a[i] + f0));
-        float v1 = d_in * (v[n + i] * d_out + 0.5f * dt * (a[n + i] + f1));
-        pw += f0 * v0 + f1 * v1;
-        const float a_norm = sqrtf(f0 * f0 + f1 * f1) + 1e-6f;
-        const float v_norm = sqrtf(v0 * v0 + v1 * v1);
-        v0 = v0 + alpha * (f0 / a_norm * v_norm - v0);
-        v1 = v1 + alpha * (f1 / a_norm * v_norm - v1);
-        a[i] = f0;
-        a[n + i] = f1;
-        v[i] = v0;
-        v[n + i] = v1;
+        float f[D], vn[D];
+        node_force<D>(x, prev, nz, gy, gx, i, cap, P, f);
+        float fv = 0.0f, ff = 0.0f, vv = 0.0f;
+        for (int c = 0; c < D; ++c) {
+          vn[c] = d_in * (v[c * n + i] * d_out + 0.5f * dt * (a[c * n + i] +
+                                                               f[c]));
+          fv += f[c] * vn[c];
+          ff += f[c] * f[c];
+          vv += vn[c] * vn[c];
+        }
+        pw += fv;
+        const float a_norm = sqrtf(ff) + 1e-6f;
+        const float v_norm = sqrtf(vv);
+        for (int c = 0; c < D; ++c) {
+          a[c * n + i] = f[c];
+          v[c * n + i] = vn[c] + alpha * (f[c] / a_norm * v_norm - vn[c]);
+        }
       }
       block_partial<false>(pw, red, part_p);
       grid.sync();
@@ -217,8 +253,7 @@ fused_fire_kernel(float* __restrict__ x, const float* __restrict__ prev,
       cap = fminf(up_cap ? P.cap_scale * cap : cap, P.final_cap);
       if (uphill) {
         for (int i = gtid; i < n; i += gsize) {
-          v[i] = 0.0f;
-          v[n + i] = 0.0f;
+          for (int c = 0; c < D; ++c) v[c * n + i] = 0.0f;
         }
       }
     }
@@ -226,7 +261,8 @@ fused_fire_kernel(float* __restrict__ x, const float* __restrict__ prev,
     // Chunk boundary: kinetic energy, v_max, two-streak stop, cap ramp.
     float e = 0.0f, m = 0.0f;
     for (int i = gtid; i < n; i += gsize) {
-      const float vs = v[i] * v[i] + v[n + i] * v[n + i];
+      float vs = 0.0f;
+      for (int c = 0; c < D; ++c) vs += v[c * n + i] * v[c * n + i];
       e += vs;
       m = fmaxf(m, vs);
     }
@@ -253,8 +289,9 @@ extern "C" {
 
 int fused_fire_threads() { return kThreads; }
 
-// Largest co-resident grid for the cooperative launch (0 on error).
-int fused_fire_max_blocks(int device) {
+// Largest co-resident grid for the cooperative launch of the `dim`-d
+// kernel (0 on error).
+int fused_fire_max_blocks(int device, int dim) {
   int per_sm = 0, sms = 0, coop = 0;
   if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device) !=
           cudaSuccess || !coop)
@@ -262,25 +299,32 @@ int fused_fire_max_blocks(int device) {
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
       cudaSuccess)
     return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_fire_kernel,
-                                                    kThreads, 0) != cudaSuccess)
+  const void* fn = dim == 3 ? (const void*)fused_fire_kernel<3>
+                            : (const void*)fused_fire_kernel<2>;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                    0) != cudaSuccess)
     return 0;
   return per_sm * sms;
 }
 
-// x: [2, gy, gx] relaxed in place; prev: [2, gy, gx] or NULL; v, a:
-// [2, gy, gx] scratch; part: [3 * nblocks]; ehist: [max_chunks] (pre-filled
-// with NaN by the caller); steps: [1]. Returns cudaGetLastError().
-int fused_fire_launch(float* x, const float* prev, float* v, float* a,
-                      float* part, float* ehist, int* steps, int gy, int gx,
-                      int nblocks, float dt, float gamma, float k0, float k, float k_diag,
-                      float stride_x, float stride_y, int num_iters,
-                      int max_chunks, float stop_v_max, float f_alpha,
-                      float f_inc, float f_dec, float alpha, int n_min,
-                      float dt_cap, float start_cap, float final_cap,
-                      float cap_scale, int cap_upscale_every,
-                      int prefer_orig_order, void* stream) {
-  FireParams P;
+// x: [dim, nz, gy, gx] relaxed in place (nz = 1 for dim 2); prev: the same
+// shape or NULL; v, a: the same shape, scratch; part: [3 * nblocks];
+// ehist: [max_chunks] (pre-filled with NaN by the caller); steps: [1].
+// table: host float[26 * 5] per-link constants (l0x, l0y, l0z, l0, k_eff)
+// for dim 3, NULL for dim 2. Returns the launch's cudaError_t.
+int fused_fire_launch(int dim, float* x, const float* prev, float* v,
+                      float* a, float* part, float* ehist, int* steps, int nz,
+                      int gy, int gx, int nblocks, float dt, float gamma,
+                      float k0, float k, float k_diag, float stride_x,
+                      float stride_y, int num_iters, int max_chunks,
+                      float stop_v_max, float f_alpha, float f_inc,
+                      float f_dec, float alpha, int n_min, float dt_cap,
+                      float start_cap, float final_cap, float cap_scale,
+                      int cap_upscale_every, int prefer_orig_order,
+                      const float* table, void* stream) {
+  if (dim != 2 && dim != 3) return (int)cudaErrorInvalidValue;
+  if (dim == 3 && table == nullptr) return (int)cudaErrorInvalidValue;
+  FireParams P = {};
   P.dt = dt; P.gamma = gamma; P.k0 = k0; P.k = k; P.k_diag = k_diag;
   P.stride_x = stride_x; P.stride_y = stride_y;
   P.f_alpha = f_alpha; P.f_inc = f_inc; P.f_dec = f_dec; P.alpha = alpha;
@@ -290,10 +334,21 @@ int fused_fire_launch(float* x, const float* prev, float* v, float* a,
   P.cap_upscale_every = cap_upscale_every;
   P.prefer_orig_order = prefer_orig_order;
   P.has_prev = prev != nullptr;
-  void* args[] = {&x, &prev, &v, &a, &part, &ehist, &steps, &gy, &gx, &P};
+  if (dim == 3) {
+    for (int l = 0; l < sofima::kLinks3d; ++l) {
+      P.links.l0v[l][0] = table[5 * l];
+      P.links.l0v[l][1] = table[5 * l + 1];
+      P.links.l0v[l][2] = table[5 * l + 2];
+      P.links.l0[l] = table[5 * l + 3];
+      P.links.k_eff[l] = table[5 * l + 4];
+    }
+  }
+  void* args[] = {&x, &prev, &v, &a, &part, &ehist, &steps, &nz, &gy, &gx,
+                  &P};
+  const void* fn = dim == 3 ? (const void*)fused_fire_kernel<3>
+                            : (const void*)fused_fire_kernel<2>;
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)fused_fire_kernel, dim3(nblocks), dim3(kThreads), args, 0,
-      (cudaStream_t)stream);
+      fn, dim3(nblocks), dim3(kThreads), args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

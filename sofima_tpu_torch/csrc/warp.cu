@@ -28,63 +28,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_weights.cuh"
+
 namespace {
 
+using sofima::kLanczos;
+using sofima::Planes;
+
 constexpr int kThreads = 256;
-constexpr float kPi = 3.14159265358979323846f;
-
-enum Method { kNearest = 0, kLinear = 1, kCubic = 2, kLanczos = 3 };
-
-// cos(pi m / 4), sin(pi m / 4) for m = s mod 8 (float64 values rounded to
-// float32, as the reference takes them from numpy).
-__constant__ float kCos8[8] = {1.0f, 0.7071067690849304f, 6.123234262925839e-17f,
-                               -0.7071067690849304f, -1.0f, -0.7071067690849304f,
-                               -1.8369701465288538e-16f, 0.7071067690849304f};
-__constant__ float kSin8[8] = {0.0f, 0.7071067690849304f, 1.0f, 0.7071067690849304f,
-                               1.2246468525851679e-16f, -0.7071067690849304f, -1.0f,
-                               -0.7071067690849304f};
-
-struct Planes {
-  float sin_pd, sin_pd4, cos_pd4;
-};
-
-__device__ __forceinline__ Planes lanczos_planes(float d) {
-  Planes q;
-  const float k_int = rintf(d);
-  const float m2 = k_int - 2.0f * floorf(k_int / 2.0f);
-  const float parity = 1.0f - 2.0f * m2;
-  q.sin_pd = parity * sinf(kPi * (d - k_int));
-  const float d8 = d - 8.0f * rintf(d / 8.0f);
-  q.sin_pd4 = sinf(kPi * d8 / 4.0f);
-  q.cos_pd4 = cosf(kPi * d8 / 4.0f);
-  return q;
-}
-
-__device__ __forceinline__ float weight(int method, float d, const Planes& q,
-                                        int s) {
-  const float t = d - (float)s;
-  const float at = fabsf(t);
-  switch (method) {
-    case kNearest:
-      return (t >= -0.5f && t < 0.5f) ? 1.0f : 0.0f;
-    case kLinear:
-      return fmaxf(0.0f, 1.0f - at);
-    case kCubic: {
-      const float a = -0.75f;
-      const float near = (a + 2.0f) * (at * at * at) - (a + 3.0f) * (at * at) + 1.0f;
-      const float far = a * (at * at * at) - 5.0f * a * (at * at) + 8.0f * a * at - 4.0f * a;
-      return at <= 1.0f ? near : (at < 2.0f ? far : 0.0f);
-    }
-    default: {
-      const int m = ((s % 8) + 8) % 8;
-      const float sign = (s & 1) ? -1.0f : 1.0f;
-      const float sin_pt4 = q.sin_pd4 * kCos8[m] - q.cos_pd4 * kSin8[m];
-      const float x2 = fmaxf((kPi * t) * (kPi * t), 1e-12f);
-      const float w = at < 1e-6f ? 1.0f : 4.0f * sign * q.sin_pd * sin_pt4 / x2;
-      return at < 4.0f ? w : 0.0f;
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 warp_gather_kernel(const float* __restrict__ img, const float* __restrict__ coords,
@@ -101,8 +52,8 @@ warp_gather_kernel(const float* __restrict__ img, const float* __restrict__ coor
     // NaN (and absurdly far) coordinates have no tap in range: 0.
     if (fabsf(cy - (float)y) < 1e8f && fabsf(cx - (float)x) < 1e8f) {
       const float dy = cy - (float)y, dx = cx - (float)x;
-      const Planes qy = method == kLanczos ? lanczos_planes(dy) : Planes{};
-      const Planes qx = method == kLanczos ? lanczos_planes(dx) : Planes{};
+      const Planes qy = method == kLanczos ? sofima::lanczos_planes(dy) : Planes{};
+      const Planes qx = method == kLanczos ? sofima::lanczos_planes(dx) : Planes{};
       // First tap: the lowest integer shift whose weight can be non-zero
       // (nearest scans floor(d) and floor(d) + 1; exactly one has weight 1).
       const int sy0 = (int)floorf(dy) - left;
@@ -111,12 +62,12 @@ warp_gather_kernel(const float* __restrict__ img, const float* __restrict__ coor
       float acc = 0.0f, norm_y = 0.0f, norm_x = 0.0f;
       float wx[8];
       for (int j = 0; j < taps; ++j) {
-        wx[j] = weight(method, dx, qx, sx0 + j);
+        wx[j] = sofima::weight(method, dx, qx, sx0 + j);
         norm_x += wx[j];
       }
       for (int i = 0; i < taps; ++i) {
         const int s = sy0 + i;
-        const float wy = weight(method, dy, qy, s);
+        const float wy = sofima::weight(method, dy, qy, s);
         norm_y += wy;
         const int row = y + s;
         float inner = 0.0f;

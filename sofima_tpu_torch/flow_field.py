@@ -1,9 +1,12 @@
-"""Dense flow estimation on the stack-alignment path (subset).
+"""Dense flow estimation on the alignment and stitching paths (subset).
 
 Twin of sofima_tpu/flow_field.py. Ported:
-  * the peak contract of `_batched_peaks` (ops.cuda_flow.batched_peaks);
-  * the circular, unmasked dense-grid branch of `dense_flow_field`,
-    backed by kernel K1 (ops.cuda_flow.dense_flow_peaks);
+  * the peak contract of `_batched_peaks`, 2d and 3d
+    (ops.cuda_flow.batched_peaks);
+  * the circular, unmasked dense-grid branch of `dense_flow_field`: 2d
+    backed by kernel K1 (ops.cuda_flow.dense_flow_peaks), 3d by the
+    strip path `_dense_flow_strips_3d` (patch-periodic FFT correlation,
+    torch.fft as the reference leaves it to XLA's FFT, then the peaks);
   * the targeted branch of `coarse_to_fine_flow`: coarse pass (K1),
     robustified prior, `rint(-coarse)` window offsets clipped to
     `max_displacement` (the `overflow` flag), the fine crop, and the fine
@@ -26,22 +29,96 @@ _TODO_MASKS = ('masked flow is not ported yet (ROADMAP.md Queue 1, '
                'Slice 1b: masked coarse-to-fine path)')
 
 
+def _strip_patches_3d(slab: torch.Tensor, grid_y: int, grid_x: int,
+                      patch, step) -> torch.Tensor:
+  """[pz, strip_h, strip_w] slab -> [gy * gx, pz, py, px] patch batch.
+
+  The slab's depth is the patch depth (one grid z-row); patches are
+  row-major over (gy, gx), as the reference's gather-free assembly
+  orders them.
+  """
+  _, py, px = patch
+  _, sy, sx = step
+  p = slab.unfold(1, py, sy).unfold(2, px, sx)  # [pz, gy, gx, py, px]
+  assert p.shape[1:3] == (grid_y, grid_x)
+  return p.permute(1, 2, 0, 3, 4).reshape(grid_y * grid_x, *patch)
+
+
+def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
+                          patch_size, step, mean: float | None,
+                          min_distance: int, threshold_rel: float,
+                          peak_radius: int) -> torch.Tensor:
+  """Dense circular 3d flow over grid z-rows -> [5, gz, gy, gx].
+
+  Per z-row: one [pz, strip_h, strip_w] slab of each image, its patches,
+  mean removal, the patch-periodic cross-correlation
+  irfftn(F(pre) conj(F(post))) with the zero shift rolled to the patch
+  centre, and the peak statistics (x, y, z, sharpness, ratio).
+  """
+  pz, py, px = patch_size
+  sz, sy, sx = step
+  d, h, w = pre_image.shape
+  gz = (d - (pz - sz)) // sz
+  gy = (h - (py - sy)) // sy
+  gx = (w - (px - sx)) // sx
+  strip_h = (gy - 1) * sy + py
+  strip_w = (gx - 1) * sx + px
+  center = (pz // 2, py // 2, px // 2)
+  axes = (-3, -2, -1)
+  pre_image = pre_image.to(torch.float32)
+  post_image = post_image.to(torch.float32)
+  rows = []
+  for iz in range(gz):
+    z0 = iz * sz
+
+    def patches(img):
+      return _strip_patches_3d(img[z0:z0 + pz, :strip_h, :strip_w], gy, gx,
+                               patch_size, step)
+
+    a, b = patches(pre_image), patches(post_image)
+    if mean is None:
+      a = a - a.mean(dim=axes, keepdim=True)
+      b = b - b.mean(dim=axes, keepdim=True)
+    else:
+      a, b = a - mean, b - mean
+    fa = torch.fft.rfftn(a, dim=axes)
+    fb = torch.fft.rfftn(b, dim=axes)
+    corr = torch.fft.irfftn(fa * torch.conj(fb), s=tuple(patch_size),
+                            dim=axes)
+    corr = torch.roll(corr, center, dims=axes)
+    rows.append(_batched_peaks(corr, center, min_distance, threshold_rel,
+                               peak_radius))
+  out = torch.stack(rows).reshape(gz, gy, gx, 5)
+  return out.permute(3, 0, 1, 2).contiguous()
+
+
 def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
                      patch_size, step, mean: float | None = None,
                      min_distance: int = 2, threshold_rel: float = 0.5,
                      peak_radius: int = 5, circular: bool = True,
                      pre_mask=None, post_mask=None) -> torch.Tensor:
-  """Flow over the full dense patch grid -> [4, gy, gx] (x, y, sharpness,
-  ratio), via kernel K1 (float32 correlation).
+  """Flow over the full dense patch grid.
 
-  Only the circular, unmasked 2d branch is ported.
+  2d: [4, gy, gx] (x, y, sharpness, ratio), via kernel K1 (float32
+  correlation). 3d: [5, gz, gy, gx] (x, y, z, sharpness, ratio), via the
+  strip path (stride must divide the patch size). Only the circular,
+  unmasked branches are ported.
   """
   if pre_mask is not None or post_mask is not None:
     raise NotImplementedError(_TODO_MASKS)
-  if not circular or pre_image.ndim != 2:
-    raise NotImplementedError('only circular 2d dense flow is ported')
+  if not circular:
+    raise NotImplementedError('only circular dense flow is ported')
   if tuple(pre_image.shape) != tuple(post_image.shape):
     raise ValueError('pre and post images must share a shape')
+  if pre_image.ndim == 3:
+    if any(p % s for p, s in zip(patch_size, step)):
+      raise NotImplementedError('3d dense flow needs the stride to divide '
+                                'the patch size (the strip path)')
+    return _dense_flow_strips_3d(pre_image, post_image, tuple(patch_size),
+                                 tuple(step), mean, min_distance,
+                                 threshold_rel, peak_radius)
+  if pre_image.ndim != 2:
+    raise ValueError('2d or 3d images expected')
   return cuda_flow.dense_flow_peaks(
       pre_image, post_image, tuple(patch_size), tuple(step), mean=mean,
       min_distance=min_distance, threshold_rel=threshold_rel,

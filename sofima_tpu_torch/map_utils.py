@@ -1,16 +1,20 @@
-"""Coordinate-map algebra on the stack-alignment path (subset).
+"""Coordinate-map algebra of the alignment and stitching paths (subset).
 
-Twin of sofima_tpu/map_utils.py. Ported: `compose_maps_fast` (2d) and
-`_invert_section` (2d, the damped fixed point, Newton rescue and the
-`shift_bound` sampling contract the pipeline uses). Maps are
-[2, z, y, x] relative offsets, channels (x, y), NaN where invalid.
-Plain PyTorch: these run on node grids (~250^2 at 10k^2 sections).
+Twin of sofima_tpu/map_utils.py. Ported: `compose_maps_fast` (2d, and 3d
+with a batched form that the stitching solver evaluates every step) and
+`_invert_section` (2d with the `shift_bound` sampling contract the
+stack pipeline uses; 3d on the general path, with the 3x3 adjugate
+Newton rescue, which the 3d stitch render uses). Maps are
+[2|3, z, y, x] relative offsets, channels (x, y[, z]), NaN where
+invalid. Plain PyTorch: these run on node grids (~250^2 at 10k^2
+sections, ~40^3 per stitched tile).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from sofima_tpu_torch.ops import interp
@@ -27,21 +31,25 @@ def _as_vec(value, dim: int) -> tuple[float, ...]:
 def compose_maps_fast(map1: torch.Tensor, start1: Sequence[float], stride1,
                       map2: torch.Tensor, start2: Sequence[float], stride2,
                       mode: str = 'nearest') -> torch.Tensor:
-  """Composes two 2d coordinate maps: result = map2 o map1.
+  """Composes two coordinate maps: result = map2 o map1.
 
   NaN entries of either map propagate (they are not interpolated).
 
   Args:
-    map1/map2: [2, z, y, x] relative maps
+    map1/map2: [2|3, z, y, x] relative maps
     start1/start2: [z]yx origins (node units)
     stride1/stride2: node spacing, scalar or [z]yx
     mode: 'nearest' (edge clamp) or 'constant' (outside -> NaN)
 
   Returns:
-    [2, z, y, x] composed map over map1's grid
+    [2|3, z, y, x] composed map over map1's grid
   """
-  if map1.shape[0] != 2 or map2.shape[0] != 2:
-    raise NotImplementedError('only 2d maps are ported')
+  if map1.shape[0] != map2.shape[0]:
+    raise ValueError('maps of different dimension')
+  if map1.shape[0] == 3:
+    plan = ComposePlan3d(map1[None], [start1], stride1, map2.shape[1:],
+                         [start2], stride2, mode)
+    return plan.apply(map2[None])[0]
   stride1 = _as_vec(stride1, 2)
   stride2 = _as_vec(stride2, 2)
   map1 = map1.to(torch.float32)
@@ -72,27 +80,162 @@ def compose_maps_fast(map1: torch.Tensor, start1: Sequence[float], stride1,
   return torch.stack(out, dim=1)
 
 
+class ComposePlan3d:
+  """Batched 3d `compose_maps_fast` with the sampling taps computed once.
+
+  map2 o map1 for P pairs at once: map1 [P, 3, z, y, x] (channels x, y,
+  z) with per-pair origins start1 [P] x (z, y, x); map2 grids of spatial
+  shape `shape2` with origins start2. The sampling positions depend on
+  map1 only, so `apply(map2)` (called every solver step when map2 is a
+  mesh being relaxed) is a fixed gather of the 8 linear taps.
+  """
+
+  def __init__(self, map1: torch.Tensor, start1, stride1, shape2,
+               start2, stride2, mode: str = 'nearest'):
+    dim = 3
+    stride1 = _as_vec(stride1, dim)
+    self.stride2 = _as_vec(stride2, dim)
+    map1 = map1.to(torch.float32)
+    dev = map1.device
+    self.ref1 = self._ref_grid(map1.shape[2:], start1, stride1, dev)
+    self.ref2 = self._ref_grid(shape2, start2, self.stride2, dev)
+    q = torch.stack([
+        (self.ref1[dim - 1 - c] + map1[:, c]) / self.stride2[dim - 1 - c]
+        - self._starts(start2, dev)[dim - 1 - c]
+        for c in reversed(range(dim))], dim=1)  # [P, zyx, *grid1]
+    self.taps, self.nan = interp.linear_taps(q, tuple(shape2), mode, lead=1)
+
+  @staticmethod
+  def _starts(starts, dev):
+    """[P] x (z, y, x) origins -> three [P, 1, 1, 1] float32 columns."""
+    s = torch.as_tensor(np.asarray([[float(v) for v in st][-3:]
+                                    for st in starts], np.float32),
+                        device=dev)
+    return [s[:, a].reshape(-1, 1, 1, 1) for a in range(3)]
+
+  def _ref_grid(self, shape, starts, stride, dev):
+    """Physical node coordinates (z, y, x), each [P, *shape]-broadcastable."""
+    st = self._starts(starts, dev)
+    ref = []
+    for a in range(3):
+      view = [1, 1, 1]
+      view[a] = shape[a]
+      r = torch.arange(shape[a], dtype=torch.float32, device=dev).reshape(
+          1, *view)
+      ref.append((r + st[a]) * stride[a])
+    return ref
+
+  def apply(self, map2: torch.Tensor) -> torch.Tensor:
+    """[P, 3, *shape2] relative maps -> [P, 3, *grid1] composed maps."""
+    dim = 3
+    absolute = torch.stack([map2[:, c].to(torch.float32)
+                            + self.ref2[dim - 1 - c] for c in range(dim)],
+                           dim=1)
+    vals = interp.apply_taps(absolute.flatten(2), self.taps, self.nan,
+                             float('nan'), lead=1)
+    return torch.stack([vals[:, c] - self.ref1[dim - 1 - c]
+                        for c in range(dim)], dim=1)
+
+
+def _invert_general_3d(abs_map_xy, src_start_yx, query_xy, stride_yx,
+                       num_iters, tol, newton_iters):
+  """The reference's general (gather-sampled) inversion path, in 3d."""
+  dim = 3
+  dev = abs_map_xy.device
+  abs_map_xy = abs_map_xy.to(torch.float32)
+  query_xy = query_xy.to(torch.float32)
+  src = [float(v) for v in src_start_yx]
+  strd = [float(v) for v in stride_yx]
+  grid = torch.meshgrid(*[torch.arange(n, dtype=torch.float32, device=dev)
+                          for n in abs_map_xy.shape[1:]], indexing='ij')
+  d_xy = torch.stack([abs_map_xy[c] - (grid[dim - 1 - c] + src[dim - 1 - c])
+                      * strd[dim - 1 - c] for c in range(dim)])
+
+  def to_idx(p_xy):
+    return torch.stack([p_xy[dim - 1 - a] / strd[a] - src[a]
+                        for a in range(dim)])
+
+  def sample_d(p_xy):
+    return interp.sample_channels(d_xy, to_idx(p_xy), 'linear', 'constant')
+
+  p = query_xy
+  for _ in range(num_iters):
+    p = p + 0.6 * (query_xy - (p + sample_d(p)))
+  max_stride = max(strd)
+
+  def residual_ok(p_cur):
+    resid = torch.abs(p_cur + sample_d(p_cur) - query_xy)
+    return torch.all(resid <= tol * max_stride, dim=0)
+
+  nan = torch.full_like(p, float('nan'))
+  if newton_iters <= 0:
+    ok = residual_ok(p)
+    return torch.where(ok[None], p, nan)
+  # Sampled 3x3 Jacobian J = I + M, M[c][j] = d(d_c)/d(axis_j) in
+  # pixel/pixel units (c, j in xyz order; array axes are zyx).
+  grads = [torch.gradient(d_xy[c]) for c in range(dim)]  # d/dz, d/dy, d/dx
+  jac_planes = torch.stack([grads[c][2 - j] / strd[2 - j]
+                            for c in range(dim) for j in range(dim)])
+  ok0 = residual_ok(p)
+  bad0 = ~ok0 | torch.isnan(p).any(dim=0)
+  p_n = torch.where(bad0[None], query_xy, p)
+  for _ in range(newton_iters):
+    r = query_xy - (p_n + sample_d(p_n))
+    m = interp.sample_channels(jac_planes, to_idx(p_n), 'linear', 'nearest')
+    j00, j01, j02 = 1.0 + m[0], m[1], m[2]
+    j10, j11, j12 = m[3], 1.0 + m[4], m[5]
+    j20, j21, j22 = m[6], m[7], 1.0 + m[8]
+    c00 = j11 * j22 - j12 * j21
+    c01 = j12 * j20 - j10 * j22
+    c02 = j10 * j21 - j11 * j20
+    c10 = j02 * j21 - j01 * j22
+    c11 = j00 * j22 - j02 * j20
+    c12 = j01 * j20 - j00 * j21
+    c20 = j01 * j12 - j02 * j11
+    c21 = j02 * j10 - j00 * j12
+    c22 = j00 * j11 - j01 * j10
+    det = j00 * c00 + j01 * c01 + j02 * c02
+    safe = torch.abs(det) > 3e-4
+    inv_det = torch.where(safe, 1.0 / torch.where(safe, det,
+                                                  torch.ones_like(det)),
+                          torch.zeros_like(det))
+    s0 = (c00 * r[0] + c10 * r[1] + c20 * r[2]) * inv_det
+    s1 = (c01 * r[0] + c11 * r[1] + c21 * r[2]) * inv_det
+    s2 = (c02 * r[0] + c12 * r[1] + c22 * r[2]) * inv_det
+    step = torch.where(safe[None], torch.stack([s0, s1, s2]), 0.6 * r)
+    step = torch.clamp(step, -8.0 * max_stride, 8.0 * max_stride)
+    p_n = p_n + step
+  ok_n = residual_ok(p_n)
+  p = torch.where(ok0[None], p, torch.where(ok_n[None], p_n, nan))
+  ok = ok0 | ok_n
+  return torch.where(ok[None], p, nan)
+
+
 def _invert_section(abs_map_xy: torch.Tensor, src_start_yx: torch.Tensor,
                     query_xy: torch.Tensor, stride_yx: torch.Tensor,
                     num_iters: int = 32, tol: float = 1e-2,
                     newton_iters: int = 8, shift_bound: int | None = None,
                     shift_origin: tuple[int, int] = (0, 0)) -> torch.Tensor:
-  """Fixed-point + Newton inversion of 2d absolute maps.
+  """Fixed-point + Newton inversion of 2d or 3d absolute maps.
 
   Solves F(p) = q for p, with F(p) = p + d(p) and d the relative offset
-  field sampled bilinearly from the map grid: damped fixed point
+  field sampled (bi/tri)linearly from the map grid: damped fixed point
   p <- p + 0.6 (q - F(p)), then failed queries are re-seeded at q and
-  refined with damped Newton steps (sampled Jacobian, 2x2 Cramer solve,
-  det gate 0.005, trust region 8 strides). Queries whose residual stays
-  above tol * stride give NaN. Leading dimensions of `abs_map_xy` are a
-  batch of sections (the reference vmaps this function over sections).
+  refined with damped Newton steps (sampled Jacobian; 2x2 Cramer solve
+  with det gate 0.005, or 3x3 adjugate solve with det gate 3e-4; trust
+  region 8 strides). Queries whose residual stays above tol * stride
+  give NaN. 2d maps take the `shift_bound` contract, and leading
+  dimensions of `abs_map_xy` are then a batch of sections (the
+  reference vmaps this function over sections); 3d maps ([3, z, y, x],
+  no `shift_bound`) take the general gather-sampled path.
 
   Args:
-    abs_map_xy: [..., 2, gy, gx] absolute maps (channels x, y)
-    src_start_yx: [2] grid origin (yx, node units)
-    query_xy: [2, oy, ox] or [..., 2, oy, ox] query points in physical
-      units (channels x, y)
-    stride_yx: [2] node spacing (yx)
+    abs_map_xy: [..., 2, gy, gx] or [3, gz, gy, gx] absolute maps
+      (channels x, y[, z])
+    src_start_yx: [2|3] grid origin ([z]yx, node units)
+    query_xy: [2|3, ...] or [..., 2, oy, ox] query points in physical
+      units (channels x, y[, z])
+    stride_yx: [2|3] node spacing ([z]yx)
     num_iters: fixed-point iterations
     tol: residual tolerance in units of stride
     newton_iters: Newton refinement iterations (0 disables)
@@ -104,11 +247,17 @@ def _invert_section(abs_map_xy: torch.Tensor, src_start_yx: torch.Tensor,
     shift_origin: integer origin of the query grid in map-index space
 
   Returns:
-    [..., 2, oy, ox] source positions (absolute, channels x, y), NaN
-    where the inversion failed.
+    source positions shaped like `query_xy` (absolute), NaN where the
+    inversion failed.
   """
-  if abs_map_xy.shape[-3] != 2 or shift_bound is None:
-    raise NotImplementedError('only the 2d shift_bound path is ported')
+  if shift_bound is None:
+    if abs_map_xy.ndim != 4 or abs_map_xy.shape[0] != 3:
+      raise NotImplementedError('the general path is ported for [3, z, y, '
+                                'x] maps; 2d maps take shift_bound')
+    return _invert_general_3d(abs_map_xy, src_start_yx, query_xy,
+                              stride_yx, num_iters, tol, newton_iters)
+  if abs_map_xy.shape[-3] != 2:
+    raise ValueError('shift_bound is the 2d sampling contract')
   dev = abs_map_xy.device
   abs_map_xy = abs_map_xy.to(torch.float32)
   lead = abs_map_xy.shape[:-3]

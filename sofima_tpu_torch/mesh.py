@@ -1,15 +1,20 @@
 """Elastic spring-mesh relaxation, plain PyTorch (subset).
 
-Twin of sofima_tpu/mesh.py. Ported: `IntegrationConfig`, `_make_step_fns`
-(velocity Verlet + FIRE, the k0 springs to `prev`, the force cap and its
-upscaling, drift removal), `inplane_force` and `relax_mesh_fused` (the
-chunked convergence loop; `lax.while_loop` becomes a Python loop with
+Twin of sofima_tpu/mesh.py. Ported: `IntegrationConfig`, the generic
+spring stencil `_spring_force` with `inplane_force` (2d, 8 neighbours)
+and `elastic_mesh_3d` (3d, 26 neighbours; on a CUDA tensor it launches
+kernel K9, ops.cuda_mesh.force_3d), `_make_step_fns` (velocity Verlet +
+FIRE, the k0 springs to `prev` or to `prev_fn(x)`, the force cap and its
+upscaling, drift removal), `velocity_verlet` (one chunk of steps),
+`relax_mesh` (the host-driven chunked loop) and `relax_mesh_fused` (the
+two-streak convergence loop; `lax.while_loop` becomes a Python loop with
 one host read per chunk). The stack-alignment solve runs the fused CUDA
-kernel instead (ops.cuda_mesh); this module is its plain reference and
-the solver for configurations that kernel does not take.
+kernel K3 instead (ops.cuda_mesh); `relax_mesh_fused` is its plain
+reference.
 
 Positions are relative: node (i, j) with value (dx, dy) sits at
-(i*stride + dx, j*stride + dy). Arrays are [2, ..., y, x] (channels x, y).
+(i*stride + dx, j*stride + dy). Arrays are [2|3, ..., (z,) y, x]
+(channels x, y[, z]).
 """
 
 from __future__ import annotations
@@ -22,9 +27,22 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from sofima_tpu_torch import placement
+
+# 13 link directions (xyz components) covering the 26-neighbourhood of a
+# node modulo inversion: 3 nearest, 6 next-nearest, 4 corner links.
+MESH_LINK_DIRECTIONS: tuple[tuple[int, int, int], ...] = tuple(
+    (dx, dy, dz)
+    for dz in (-1, 0, 1)
+    for dy in (-1, 0, 1)
+    for dx in (-1, 0, 1)
+    if (dz, dy, dx) > (0, 0, 0))  # one representative per +- pair
+
 INPLANE_LINK_DIRECTIONS: tuple[tuple[int, int], ...] = (
     (1, 0), (0, 1), (1, 1), (-1, 1))
 
+_TODO_LINKS = ('elastic_mesh_3d takes only the default links '
+               '(ROADMAP.md Queue 1: the `links` argument)')
 
 @dataclasses.dataclass(frozen=True)
 class IntegrationConfig:
@@ -71,23 +89,62 @@ class IntegrationConfig:
     return cls(**json.loads(text))
 
 
-def _link_slices(direction_yx: Sequence[int], ndim: int):
-  """Slices and pads of a shifted-difference stencil over the last 2 axes."""
+def _link_slices(direction_zyx: Sequence[int], ndim: int, spatial: int):
+  """Slices and pads of a shifted-difference stencil over trailing axes.
+
+  For a link from node i to node i+e: `hi` selects nodes i+e, `lo`
+  nodes i; `pad_hi` / `pad_lo` (torch.nn.functional.pad order) scatter a
+  quantity defined on the overlap back onto the i+e / i positions.
+  """
   hi = [slice(None)] * ndim
   lo = [slice(None)] * ndim
-  pad_hi = [0, 0] * 2
-  pad_lo = [0, 0] * 2
-  # torch pad order: (x_left, x_right, y_left, y_right).
-  for k, e in enumerate(direction_yx):
-    axis = ndim - 2 + k
-    p = 2 * (1 - k)
+  pad_hi = [0] * (2 * spatial)
+  pad_lo = [0] * (2 * spatial)
+  for k, e in enumerate(direction_zyx):
+    axis = ndim - spatial + k
+    p = 2 * (spatial - 1 - k)  # (left, right) of this axis in pad order
     if e == 1:
       hi[axis], lo[axis] = slice(1, None), slice(None, -1)
       pad_hi[p], pad_lo[p + 1] = 1, 1
     elif e == -1:
       hi[axis], lo[axis] = slice(None, -1), slice(1, None)
       pad_hi[p + 1], pad_lo[p] = 1, 1
+    elif e != 0:
+      raise ValueError('Link components must be in {-1, 0, 1}.')
   return tuple(hi), tuple(lo), pad_hi, pad_lo
+
+
+def _spring_force(x: torch.Tensor, links, k_eff, stride_xyz,
+                  prefer_orig_order: bool, spatial: int) -> torch.Tensor:
+  """Total Hookean force of a set of spring families on [dim, ..., grid].
+
+  Per link i -> i+e: dx = x[i+e] - x[i] + l0_vec, force
+  f = -k (1 - l0 / |dx|) dx (or the fold-preventing per-component form
+  with `prefer_orig_order`), NaN and inf mapped to 0; node i+e gets +f
+  and node i gets -f.
+  """
+  dim = x.shape[0]
+  total = torch.zeros_like(x)
+  for direction, k in zip(links, k_eff):
+    l0_np = np.asarray([stride_xyz[c] * direction[c] for c in range(dim)],
+                       np.float32)
+    l0_vec = torch.as_tensor(l0_np, device=x.device).reshape(
+        (dim,) + (1,) * (x.ndim - 1))
+    l0 = float(np.linalg.norm(l0_np))
+    hi, lo, pad_hi, pad_lo = _link_slices(direction[::-1], x.ndim, spatial)
+    dx = x[hi] - x[lo] + l0_vec
+    length = torch.linalg.vector_norm(dx, dim=0)
+    if prefer_orig_order:
+      factor = torch.stack([
+          direction[c] * torch.sign(dx[c]) if direction[c] != 0
+          else torch.ones_like(dx[c]) for c in range(dim)])
+      f = -k * (1.0 - l0 * factor / length) * dx
+    else:
+      f = -k * (1.0 - l0 / length) * dx
+    f = torch.nan_to_num(f, nan=0.0, posinf=0.0, neginf=0.0)
+    total = (total + torch.nn.functional.pad(f, pad_hi)
+             - torch.nn.functional.pad(f, pad_lo))
+  return total
 
 
 def inplane_force(x: torch.Tensor, k: float, stride: Sequence[float],
@@ -99,28 +156,47 @@ def inplane_force(x: torch.Tensor, k: float, stride: Sequence[float],
   if len(stride) != 2:
     raise ValueError('stride must be 2D (XY).')
   k_diag = k / np.sqrt(2.0)
-  total = torch.zeros_like(x)
-  for direction, k_eff in zip(INPLANE_LINK_DIRECTIONS,
-                              (k, k, k_diag, k_diag)):
-    l0_vec = torch.tensor([stride[c] * direction[c] for c in range(2)],
-                          dtype=torch.float32, device=x.device)
-    l0_vec = l0_vec.reshape((2,) + (1,) * (x.ndim - 1))
-    l0 = float(np.linalg.norm(np.asarray(
-        [stride[c] * direction[c] for c in range(2)], np.float32)))
-    hi, lo, pad_hi, pad_lo = _link_slices(direction[::-1], x.ndim)
-    dx = x[hi] - x[lo] + l0_vec
-    length = torch.linalg.vector_norm(dx, dim=0)
-    if prefer_orig_order:
-      factor = torch.stack([
-          direction[c] * torch.sign(dx[c]) if direction[c] != 0
-          else torch.ones_like(dx[c]) for c in range(2)])
-      f = -k_eff * (1.0 - l0 * factor / length) * dx
-    else:
-      f = -k_eff * (1.0 - l0 / length) * dx
-    f = torch.nan_to_num(f, nan=0.0, posinf=0.0, neginf=0.0)
-    total = (total + torch.nn.functional.pad(f, pad_hi)
-             - torch.nn.functional.pad(f, pad_lo))
-  return total
+  return _spring_force(x, INPLANE_LINK_DIRECTIONS, (k, k, k_diag, k_diag),
+                       tuple(stride), prefer_orig_order, spatial=2)
+
+
+def link_constants_3d(k: float, stride) -> list[float]:
+  """Per-link k_eff = k * stride_x / l0 (constant elasticity across the
+  13 link families), in MESH_LINK_DIRECTIONS order."""
+  stride = _stride3(stride)
+  return [k * stride[0] / float(np.linalg.norm(
+      [stride[c] * d[c] for c in range(3)])) for d in MESH_LINK_DIRECTIONS]
+
+
+def _stride3(stride) -> tuple[float, float, float]:
+  if not isinstance(stride, (tuple, list)):
+    return (float(stride),) * 3
+  return tuple(float(s) for s in stride)
+
+
+def elastic_mesh_3d_plain(x: torch.Tensor, k: float, stride,
+                          prefer_orig_order: bool = False) -> torch.Tensor:
+  """Plain PyTorch 26-neighbour force of [3, ..., z, y, x] positions."""
+  assert x.shape[0] == 3
+  stride = _stride3(stride)
+  return _spring_force(x, MESH_LINK_DIRECTIONS, link_constants_3d(k, stride),
+                       stride, prefer_orig_order, spatial=3)
+
+
+def elastic_mesh_3d(x: torch.Tensor, k: float, stride,
+                    prefer_orig_order: bool = False,
+                    links=MESH_LINK_DIRECTIONS) -> torch.Tensor:
+  """Internal forces of a 3d spring mesh ([3, ..., z, y, x] positions).
+
+  Batch axes may sit between the channels and the grid. A CPU tensor
+  takes the plain version; a CUDA tensor launches kernel K9.
+  """
+  if tuple(map(tuple, links)) != MESH_LINK_DIRECTIONS:
+    raise NotImplementedError(_TODO_LINKS)
+  if x.device.type == 'cpu':
+    return elastic_mesh_3d_plain(x, k, stride, prefer_orig_order)
+  from sofima_tpu_torch.ops import cuda_mesh  # imports this module
+  return cuda_mesh.force_3d(x, k, stride, prefer_orig_order)
 
 
 def _nanmean(v: torch.Tensor, dims) -> torch.Tensor:
@@ -129,15 +205,18 @@ def _nanmean(v: torch.Tensor, dims) -> torch.Tensor:
   return s / ok.sum(dim=dims, keepdim=True)
 
 
-def _make_step_fns(config: IntegrationConfig, mesh_force):
+def _make_step_fns(config: IntegrationConfig, mesh_force, prev_fn=None):
   """Builds the force, velocity-Verlet and FIRE step functions.
 
   FIRE state: (x, v, a, dt, alpha, n_pos, cap), scalars as 0-d tensors so
-  a step never reads the device back.
+  a step never reads the device back. With `prev_fn`, the k0 springs pull
+  toward `prev_fn(x)`, re-evaluated at every force evaluation.
   """
 
   def force(x, prev, cap):
     a = mesh_force(x, config.k, config.stride, config.prefer_orig_order)
+    if prev_fn is not None:
+      prev = prev_fn(x)
     if prev is not None:
       a = a + torch.clamp(-config.k0 * torch.nan_to_num(x - prev),
                           -cap, cap)
@@ -222,6 +301,80 @@ def run_chunks(state, fire_step, prev, config: IntegrationConfig,
     state = state[:-1] + (cap,)
     chunk += 1
   return state, e_hist, chunk * config.num_iters
+
+
+def velocity_verlet(x: torch.Tensor, v: torch.Tensor,
+                    prev: torch.Tensor | None, config: IntegrationConfig,
+                    force_cap, fire_dt=None, fire_alpha=None,
+                    mesh_force=inplane_force, prev_fn=None):
+  """Runs `config.num_iters` integration steps.
+
+  Returns (x, v, a) for plain damped Verlet, or
+  (x, v, a, dt, alpha, n_pos, cap) when FIRE is enabled (scalars as 0-d
+  tensors; `fire_dt` / `fire_alpha` may be tensors from the last chunk).
+  """
+  force, vv_step, fire_step = _make_step_fns(config, mesh_force, prev_fn)
+  f32 = dict(dtype=torch.float32, device=x.device)
+  cap = torch.as_tensor(force_cap, **f32)
+  a = force(x, prev, cap)
+  if config.fire:
+    state = (x, v, a,
+             torch.as_tensor(config.dt if fire_dt is None else fire_dt, **f32),
+             torch.as_tensor(config.alpha if fire_alpha is None
+                             else fire_alpha, **f32),
+             torch.tensor(0, dtype=torch.int32, device=x.device), cap)
+    for _ in range(config.num_iters):
+      state = fire_step(state, prev)
+    return state
+  state = (x, v, a)
+  for _ in range(config.num_iters):
+    state = vv_step(state, config.dt, cap, prev)
+  return state
+
+
+def relax_mesh(x, prev, config: IntegrationConfig, mesh_force=inplane_force,
+               prev_fn=None, device=None):
+  """Relaxes the mesh until convergence (host-driven chunked loop).
+
+  Each chunk is one `velocity_verlet` call (n_pos restarts at 0, as in
+  the reference); after it the host reads v_max and the FIRE cap, stops
+  at the first converged boundary with the cap at its final value, and
+  otherwise escalates the cap. Host (numpy) inputs go to `device`
+  (default: the CUDA card); tensors stay where they are.
+
+  Returns (final positions, kinetic-energy history, steps executed).
+  """
+  if config.start_cap != config.final_cap:
+    if not config.fire:
+      raise NotImplementedError(
+          'Adaptive force capping requires the FIRE integrator.')
+    if config.cap_scale <= 1:
+      raise ValueError('cap_scale must be > 1 for adaptive capping.')
+  if prev is not None and prev_fn is not None:
+    raise ValueError('Only one of "prev" and "prev_fn" may be given.')
+  x = placement.place(x, device, torch.float32)
+  if prev is not None:
+    prev = placement.place(prev, x.device, torch.float32)
+  t = 0
+  v = torch.zeros_like(x)
+  dt, alpha, cap = config.dt, config.alpha, config.start_cap
+  e_kin: list[float] = []
+  while t < config.max_iters:
+    state = velocity_verlet(x, v, prev, config, cap, dt, alpha, mesh_force,
+                            prev_fn)
+    t += config.num_iters
+    x, v = state[:2]
+    v_mag = torch.linalg.vector_norm(v, dim=0)
+    stats = torch.stack([torch.sum(v_mag ** 2), torch.max(v_mag)]).tolist()
+    e_kin.append(stats[0])
+    v_max = stats[1]
+    if config.fire:
+      dt, alpha, cap = state[3], state[4], float(state[6])
+    if v_max < config.stop_v_max:
+      if cap >= config.final_cap:
+        break
+      cap = min(cap * config.cap_scale, config.final_cap)
+  return x, e_kin, t
 
 
 def relax_mesh_fused(x: torch.Tensor, prev: torch.Tensor | None,

@@ -2,17 +2,19 @@
 
 No `sofima_tpu` twin: the reference's Pallas kernels compile inside jit.
 Here every `csrc/*.cu` is compiled at first use, on the machine with the
-card, into ONE shared library with a plain C interface:
+card, into ONE shared library with a plain C interface. The sources
+compile in parallel, one nvcc each, then link:
 
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-       -Xcompiler -fPIC -o <build>/<hash>/libsofima_kernels.so csrc/*.cu
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+       -Xcompiler -fPIC -Xptxas -v -c -o <build>/<hash>/<name>.o <name>.cu
+  nvcc -shared -o <build>/<hash>/libsofima_kernels.so <build>/<hash>/*.o
 
-The build directory is keyed by a hash of the sources and flags, so an
-edited kernel rebuilds and an unchanged one loads in milliseconds. It
-lives under `build/` beside the package (listed in .gitignore), or under
-$SOFIMA_TORCH_BUILD_DIR. `--use_fast_math` is deliberately absent: it
-changes the NaN, inf and rsqrt behaviour that the mesh solver and the
-peak chain depend on.
+The build directory is keyed by a hash of the sources (`*.cu`, `*.cuh`)
+and flags, so an edited kernel rebuilds and an unchanged one loads in
+milliseconds. It lives under `build/` beside the package (listed in
+.gitignore), or under $SOFIMA_TORCH_BUILD_DIR. `--use_fast_math` is
+deliberately absent: it changes the NaN, inf and rsqrt behaviour that
+the mesh solvers and the peak chain depend on.
 
 Importing this module needs no nvcc and no card; only `library()` does.
 """
@@ -32,7 +34,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lock = threading.Lock()
 _lib = None
@@ -48,6 +50,9 @@ launch_counts: dict[str, int] = {
     'targeted_flow_peaks': 0,   # K2: fine pass
     'fused_fire': 0,            # K3: mesh solve
     'warp_gather': 0,           # K4: render
+    'force3d': 0,               # K9: 3d mesh force
+    'fused_fire_3d': 0,         # K11: 3d mesh solve
+    'warp_gather_3d': 0,        # K13: 3d render
 }
 
 
@@ -90,18 +95,43 @@ def library() -> ctypes.CDLL:
     log_path = out_dir / 'build.log'
     if not so_path.exists():
       out_dir.mkdir(parents=True, exist_ok=True)
-      tmp = out_dir / f'.tmp{os.getpid()}.so'
-      cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources)]
-      proc = subprocess.run(cmd, capture_output=True, text=True)
-      log_path.write_text(proc.stdout + proc.stderr)
-      if proc.returncode != 0:
-        raise RuntimeError('nvcc failed:\n' + ' '.join(cmd) + '\n'
-                           + proc.stdout + proc.stderr)
-      os.replace(tmp, so_path)
+      _compile(sources, out_dir, so_path, log_path)
     build_log = log_path.read_text() if log_path.exists() else ''
     _lib = ctypes.CDLL(str(so_path))
     build_seconds = time.perf_counter() - t0
     return _lib
+
+
+def _compile(sources, out_dir: pathlib.Path, so_path: pathlib.Path,
+             log_path: pathlib.Path) -> None:
+  """One nvcc per source, all started together, then one link."""
+  nvcc = _nvcc()
+  tag = f'.tmp{os.getpid()}'
+  jobs = []
+  for src in sources:
+    obj = out_dir / f'{src.stem}{tag}.o'
+    cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+    jobs.append((cmd, obj, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+  log, failed = [], []
+  for cmd, _, proc in jobs:
+    out, _ = proc.communicate()
+    log.append(' '.join(cmd) + '\n' + out)
+    if proc.returncode != 0:
+      failed.append(log[-1])
+  if failed:
+    log_path.write_text('\n'.join(log))
+    raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
+  tmp = out_dir / f'libsofima_kernels{tag}.so'
+  cmd = [nvcc, '-shared', '-o', str(tmp), *(str(o) for _, o, _ in jobs)]
+  proc = subprocess.run(cmd, capture_output=True, text=True)
+  log.append(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+  log_path.write_text('\n'.join(log))
+  if proc.returncode != 0:
+    raise RuntimeError('nvcc link failed:\n' + log[-1])
+  os.replace(tmp, so_path)
+  for _, obj, _ in jobs:
+    obj.unlink()
 
 
 def check(rc: int, name: str) -> None:

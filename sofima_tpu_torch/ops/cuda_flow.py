@@ -129,16 +129,22 @@ def circular_xcorr(pre_b: torch.Tensor, post_b: torch.Tensor) -> torch.Tensor:
 def batched_peaks(img: torch.Tensor, center, min_distance: int = 2,
                   threshold_rel: float = 0.5,
                   peak_radius: int = 5) -> torch.Tensor:
-  """Top-2 local maxima + stats of [b, n1, n2] surfaces -> [b, 4].
+  """Top-2 local maxima + stats of [b, n1, n2(, n3)] surfaces.
 
-  Twin of flow_field._batched_peaks: rows of (x, y offset from `center`,
-  sharpness, peak ratio), ratio 0 with one peak, NaN rows with none.
+  Twin of flow_field._batched_peaks (2d or 3d): rows [b, dim + 2] of
+  (x, y[, z] offset from `center`, sharpness, peak ratio), ratio 0 with
+  one peak, NaN rows with none.
   """
-  b, n1, n2 = img.shape
+  b = img.shape[0]
+  spatial = img.shape[1:]
+  dim = len(spatial)
+  pool = {2: torch.nn.functional.max_pool2d,
+          3: torch.nn.functional.max_pool3d}[dim]
   size = 2 * int(min_distance) + 1
-  img_max = torch.nn.functional.max_pool2d(
-      img[:, None], size, stride=1, padding=int(min_distance))[:, 0]
-  thr = threshold_rel * img.amax(dim=(1, 2), keepdim=True)
+  img_max = pool(img[:, None], size, stride=1,
+                 padding=int(min_distance))[:, 0]
+  axes = tuple(range(1, dim + 1))
+  thr = threshold_rel * img.amax(dim=axes, keepdim=True)
   mask = (img == img_max) & (img > thr)
   flat = torch.where(mask, img, torch.full_like(img, float('-inf')))
   flat = flat.reshape(b, -1)
@@ -151,15 +157,17 @@ def batched_peaks(img: torch.Tensor, center, min_distance: int = 2,
 
   r = int(peak_radius)
   wsize = 2 * r + 1
-  minf = -torch.nn.functional.max_pool2d(-img[:, None], wsize, stride=1)[:, 0]
-  py, px = idx1 // n2, idx1 % n2
-  sy = torch.clamp(py - r, 0, n1 - wsize)
-  sx = torch.clamp(px - r, 0, n2 - wsize)
-  wmin = minf[torch.arange(b, device=img.device), sy, sx]
+  minf = -pool(-img[:, None], wsize, stride=1)[:, 0]
+  inds, rem = [], idx1
+  for n in reversed(spatial):  # unravel, last axis first
+    inds.insert(0, rem % n)
+    rem = rem // n
+  starts = [torch.clamp(i - r, 0, n - wsize) for i, n in zip(inds, spatial)]
+  wmin = minf[(torch.arange(b, device=img.device), *starts)]
   sharp = val1 / wmin
   ratio = torch.where(torch.isinf(val2), torch.zeros_like(val1), val1 / val2)
-  rows = torch.stack([px.to(torch.float32) - center[1],
-                      py.to(torch.float32) - center[0], sharp, ratio], dim=-1)
+  centered = [i.to(torch.float32) - c for i, c in zip(inds, center)]
+  rows = torch.stack(centered[::-1] + [sharp, ratio], dim=-1)
   return torch.where(torch.isinf(val1)[:, None],
                      torch.full_like(rows, float('nan')), rows)
 

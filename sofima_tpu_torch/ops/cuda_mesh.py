@@ -1,17 +1,30 @@
-"""Kernel K3, the fused FIRE mesh solver: CUDA wrapper and plain twin.
+"""Kernels K3, K9 and K11: the mesh solvers' CUDA wrappers and plain twins.
 
-Twin of sofima_tpu/ops/pallas_mesh.py `relax_mesh_fused_pallas` (Pallas
-body `_fused_fire_kernel` with `_roll_force_2d`). The CUDA kernel is
-csrc/fire.cu: one cooperative launch runs the whole chunked convergence
-loop with the state in device memory. It takes any grid size (the
-Pallas kernel's VMEM bound, and the pipeline's size fallback, do not
-apply here).
+Twin of sofima_tpu/ops/pallas_mesh.py:
+  * K3 `relax_mesh_fused`: `relax_mesh_fused_pallas` (Pallas body
+    `_fused_fire_kernel` with `_roll_force_2d`), the fused 2d FIRE solve;
+  * K9 `force_3d`: `elastic_mesh_3d_pallas` (`_kernel_3d_loop`,
+    `_kernel_3d_rolls`) and its slab twin `elastic_mesh_3d_pallas_slab`
+    (K10), the 26-neighbour force with the contract of
+    mesh.elastic_mesh_3d; csrc/force3d.cu;
+  * K11 `relax_mesh_fused_3d`: `relax_mesh_fused_pallas_3d`, the fused
+    3d FIRE solve.
+K3 and K11 are one cooperative kernel in csrc/fire.cu, templated on the
+dimension: one launch runs the whole chunked convergence loop with the
+state in device memory. It takes any grid size (the Pallas kernels'
+VMEM bound, and the pipeline's size fallback, do not apply here).
 
-Contract, as the reference's: [2, 1, gy, gx] state, FIRE required;
+Contract of the fused solvers, as the reference's: FIRE required;
 returns (x, e_kin history [min(max_chunks, 128)], steps). Nodes outside
 the grid or with NaN positions carry no springs. Drift removal is in
 neither the kernel nor its plain version: `remove_drift=True` raises
 NotImplementedError on every device rather than run another solver.
+The 3d reference's `link_loop`, `symmetric` and `guard` options select
+Mosaic workarounds with one result, and have no counterpart here.
+
+Each wrapper launches its kernel for CUDA tensors (and counts the
+launch in `_build.launch_counts`) and takes the plain version only for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -65,6 +78,50 @@ def roll_force_2d(xp: torch.Tensor, k: float, stride,
   return torch.stack([acc0, acc1])
 
 
+def _links_table(k: float, stride) -> np.ndarray:
+  """Per-link (l0x, l0y, l0z, l0, k_eff) float32 [26, 5] in the kernels'
+  (ez, ey, ex) loop order, k_eff = k * stride_x / l0."""
+  sx, sy, sz = (float(s) for s in stride)
+  rows = []
+  for ez in (-1, 0, 1):
+    for ey in (-1, 0, 1):
+      for ex in (-1, 0, 1):
+        if ex == 0 and ey == 0 and ez == 0:
+          continue
+        l0v = np.asarray([sx * ex, sy * ey, sz * ez], np.float32)
+        l0 = float(np.linalg.norm(l0v))
+        rows.append([*l0v, l0, k * sx / l0])
+  return np.ascontiguousarray(np.asarray(rows, np.float32))
+
+
+def force_3d(x: torch.Tensor, k: float, stride,
+             prefer_orig_order: bool = False) -> torch.Tensor:
+  """K9: 26-neighbour force of [3, ..., z, y, x] positions (the contract
+  of mesh.elastic_mesh_3d). CPU tensors take the plain version."""
+  if x.ndim < 4 or x.shape[0] != 3:
+    raise ValueError(f'[3, ..., z, y, x] positions expected, got '
+                     f'{tuple(x.shape)}')
+  if x.device.type == 'cpu':
+    return mesh_lib.elastic_mesh_3d_plain(x, k, stride, prefer_orig_order)
+  stride = mesh_lib._stride3(stride)
+  x = x.to(torch.float32).contiguous()
+  _build.require_cuda('force_3d', x)
+  table = _links_table(k, stride)
+  lib = _build.library()
+  fn = lib.force3d_launch
+  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  nz, ny, nx = x.shape[-3:]
+  nb = int(np.prod(x.shape[1:-3], dtype=np.int64))
+  out = torch.empty_like(x)
+  rc = fn(x.data_ptr(), out.data_ptr(), nb, nz, ny, nx, table.ctypes.data,
+          int(prefer_orig_order), _build.stream_of(x))
+  _build.launch_counts['force3d'] += 1
+  _build.check(rc, 'force3d')
+  return out
+
+
 def _max_chunks(config) -> int:
   return min(int(math.ceil(config.max_iters / config.num_iters)), MAX_HISTORY)
 
@@ -91,27 +148,30 @@ def relax_mesh_fused_plain(x: torch.Tensor, prev: torch.Tensor | None,
   return state[0][:, 1:-1, 1:-1], e_hist, steps
 
 
-def _launch(x, prev, config):
-  _build.require_cuda('relax_mesh_fused', *([x] if prev is None
-                                            else [x, prev]))
+def _launch(x, prev, config, counter):
+  """One cooperative launch of csrc/fire.cu on [dim, (z,) y, x] state."""
+  dim = x.shape[0]
+  _build.require_cuda(counter, *([x] if prev is None else [x, prev]))
   lib = _build.library()
-  lib.fused_fire_max_blocks.argtypes = [ctypes.c_int]
+  lib.fused_fire_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
   lib.fused_fire_max_blocks.restype = ctypes.c_int
   lib.fused_fire_threads.restype = ctypes.c_int
   fn = lib.fused_fire_launch
-  fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+  fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                  + [ctypes.c_float] * 7 + [ctypes.c_int] * 2
                  + [ctypes.c_float] * 5 + [ctypes.c_int]
                  + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p])
+                 + [ctypes.c_void_p] * 2)
   fn.restype = ctypes.c_int
-  _, gy, gx = x.shape
-  n = gy * gx
+  nz, gy, gx = (1,) * (4 - x.ndim) + tuple(x.shape[1:])
+  n = nz * gy * gx
   dev = x.device
-  max_blocks = lib.fused_fire_max_blocks(dev.index or 0)
+  max_blocks = lib.fused_fire_max_blocks(dev.index or 0, dim)
   if max_blocks <= 0:
     raise RuntimeError('cooperative launch unavailable on this device')
   nblocks = max(1, min(max_blocks, -(-n // lib.fused_fire_threads())))
+  c = config
+  table = _links_table(c.k, c.stride) if dim == 3 else None
   xw = x.clone()
   v = torch.empty_like(xw)
   a = torch.empty_like(xw)
@@ -120,32 +180,33 @@ def _launch(x, prev, config):
   ehist = torch.full((max_chunks,), float('nan'), dtype=torch.float32,
                      device=dev)
   steps = torch.zeros(1, dtype=torch.int32, device=dev)
-  c = config
-  rc = fn(xw.data_ptr(), _build.ptr(prev), v.data_ptr(), a.data_ptr(),
-          part.data_ptr(), ehist.data_ptr(), steps.data_ptr(), gy, gx,
+  rc = fn(dim, xw.data_ptr(), _build.ptr(prev), v.data_ptr(), a.data_ptr(),
+          part.data_ptr(), ehist.data_ptr(), steps.data_ptr(), nz, gy, gx,
           nblocks, c.dt, c.gamma, c.k0, c.k, float(c.k / np.sqrt(2.0)),
           float(c.stride[0]), float(c.stride[1]), c.num_iters, max_chunks,
           c.stop_v_max, c.f_alpha, c.f_inc, c.f_dec, c.alpha, c.n_min,
           float(np.float32(c.dt_max * c.dt)), c.start_cap, c.final_cap,
           c.cap_scale, c.cap_upscale_every, int(c.prefer_orig_order),
-          _build.stream_of(x))
-  _build.launch_counts['fused_fire'] += 1
-  _build.check(rc, 'fused_fire')
+          None if table is None else table.ctypes.data, _build.stream_of(x))
+  _build.launch_counts[counter] += 1
+  _build.check(rc, counter)
   return xw, ehist, steps[0]
 
 
-def relax_mesh_fused(x: torch.Tensor, prev: torch.Tensor | None,
-                     config: mesh_lib.IntegrationConfig):
-  """Fused FIRE relaxation -> (x, e_kin history, steps).
-
-  CPU tensors take the plain version; CUDA tensors launch the kernel.
-  """
+def _check_fused(config):
   if not config.fire:
-    raise NotImplementedError('relax_mesh_fused requires FIRE.')
+    raise NotImplementedError('the fused solvers require FIRE.')
   if config.remove_drift:
     raise NotImplementedError(
         'drift removal is not in the fused solver (ROADMAP.md Queue 1, '
         'item 8: drift removal inside the fused kernel)')
+
+
+def relax_mesh_fused(x: torch.Tensor, prev: torch.Tensor | None,
+                     config: mesh_lib.IntegrationConfig):
+  """K3: fused 2d FIRE relaxation of [2, 1, gy, gx] state ->
+  (x, e_kin history, steps). CPU tensors take the plain version."""
+  _check_fused(config)
   if x.ndim != 4 or x.shape[:2] != (2, 1):
     raise ValueError('[2, 1, gy, gx] state expected')
   x = x[:, 0].to(torch.float32).contiguous()
@@ -153,5 +214,42 @@ def relax_mesh_fused(x: torch.Tensor, prev: torch.Tensor | None,
   if x.device.type == 'cpu':
     out, ehist, steps = relax_mesh_fused_plain(x, prev, config)
   else:
-    out, ehist, steps = _launch(x, prev, config)
+    out, ehist, steps = _launch(x, prev, config, 'fused_fire')
   return out[:, None], ehist, steps
+
+
+def relax_mesh_fused_3d_plain(x: torch.Tensor, prev: torch.Tensor | None,
+                              config: mesh_lib.IntegrationConfig):
+  """Plain PyTorch version of the fused 3d solver on [3, z, y, x] state,
+  with the force of mesh.elastic_mesh_3d."""
+  x = x.to(torch.float32)
+  prev = None if prev is None else prev.to(torch.float32)
+  force, _, fire_step = mesh_lib._make_step_fns(
+      config, mesh_lib.elastic_mesh_3d_plain)
+  a0 = force(x, prev, torch.tensor(config.start_cap, dtype=torch.float32,
+                                   device=x.device))
+  state = mesh_lib.fire_state0(x, a0, config)
+
+  def v_stats(v):
+    v_sq = v[0] * v[0] + v[1] * v[1] + v[2] * v[2]
+    return torch.sum(v_sq), torch.sqrt(torch.max(v_sq))
+
+  state, e_hist, steps = mesh_lib.run_chunks(
+      state, fire_step, prev, config, _max_chunks(config), v_stats)
+  return state[0], e_hist, steps
+
+
+def relax_mesh_fused_3d(x: torch.Tensor, prev: torch.Tensor | None,
+                        config: mesh_lib.IntegrationConfig):
+  """K11: fused 3d FIRE relaxation of [3, z, y, x] state ->
+  (x, e_kin history, steps). CPU tensors take the plain version."""
+  _check_fused(config)
+  if x.ndim != 4 or x.shape[0] != 3:
+    raise ValueError('[3, z, y, x] state expected')
+  if len(config.stride) != 3:
+    raise ValueError('the 3d solver needs an xyz stride')
+  x = x.to(torch.float32).contiguous()
+  prev = None if prev is None else prev.to(torch.float32).contiguous()
+  if x.device.type == 'cpu':
+    return relax_mesh_fused_3d_plain(x, prev, config)
+  return _launch(x, prev, config, 'fused_fire_3d')

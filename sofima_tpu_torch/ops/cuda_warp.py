@@ -1,8 +1,11 @@
-"""Kernel K4, the section render: a gather resampler and its plain twin.
+"""Kernels K4 and K13, the renders: gather resamplers and their plain twins.
 
-Twin of sofima_tpu/ops/pallas_warp.py `pallas_shift_warp_tiled` (Pallas
-bodies `_warp_tiled_kernel` and, for two_pass=True,
-`_warp_tiled_sep_kernel`). The CUDA kernel is csrc/warp.cu.
+Twin of sofima_tpu/ops/pallas_warp.py:
+  * K4 `shift_warp`: `pallas_shift_warp_tiled` (Pallas bodies
+    `_warp_tiled_kernel` and, for two_pass=True, `_warp_tiled_sep_kernel`),
+    the section render; csrc/warp.cu;
+  * K13 `shift_warp_3d`: `pallas_shift_warp_3d` (`_warp3d_kernel`), the
+    volume render of 3d stitching; csrc/warp3d.cu.
 
 `shift_warp` resamples [z, h, w] images at [z, 2, oy, ox] (y, x) sampling
 positions with nearest, linear, cubic or normalized Lanczos4 weights.
@@ -12,6 +15,12 @@ envelope and per-tile bases, this gather reaches every tap: it equals
 the TPU kernel wherever that kernel's `overflow` plan flag is False.
 The two-pass separable TPU variant is an approximation of this exact
 render (held to it by mean <= 0.05 and max <= 4.0 gray levels).
+
+`shift_warp_3d` resamples a [d, h, w] volume at [3, oz, oy, ox] (z, y, x)
+positions with the TPU kernel's contract: static per-axis displacement
+bounds (a tap whose integer shift leaves [lo - left, hi + taps - 1 -
+left] adds nothing), raw (unnormalized) weights, 0 outside the volume
+and at NaN coordinates.
 """
 
 from __future__ import annotations
@@ -24,8 +33,10 @@ from sofima_tpu_torch.ops import _build
 from sofima_tpu_torch.ops import shift_warp as sw
 
 _METHODS = {'nearest': 0, 'linear': 1, 'cubic': 2, 'lanczos': 3}
-# The plain version resamples this many output rows at a time.
+# The plain versions resample this many output rows (2d) or about this
+# many voxels (3d) at a time.
 _PLAIN_ROWS = 256
+_PLAIN_VOXELS = 1 << 21
 
 
 def shift_warp_plain(images: torch.Tensor, coords: torch.Tensor,
@@ -108,4 +119,109 @@ def shift_warp(images: torch.Tensor, coords: torch.Tensor,
           oy, ox, _METHODS[method], _build.stream_of(images))
   _build.launch_counts['warp_gather'] += 1
   _build.check(rc, 'warp_gather')
+  return out
+
+
+def _shift_range(method: str, bounds):
+  """Inclusive per-axis shift ranges [(s0, s1)] x 3 of the TPU lattice."""
+  left = sw._LEFT[method]
+  taps = sw._TAPS[method]
+  lo_hi = [(int(bounds[2 * a]), int(bounds[2 * a + 1])) for a in range(3)]
+  return [(lo - left, hi + taps - 1 - left) for lo, hi in lo_hi]
+
+
+def shift_warp_3d_plain(volume: torch.Tensor, coords: torch.Tensor,
+                        method: str, bounds, origin) -> torch.Tensor:
+  """Plain PyTorch version of the 3d render kernel (same arithmetic order:
+  z outermost, x innermost, increasing shift)."""
+  d, h, w = volume.shape
+  oz, oy, ox = coords.shape[1:]
+  taps = 2 if method == 'nearest' else sw._TAPS[method]
+  left = sw._LEFT[method]
+  ranges = _shift_range(method, bounds)
+  span = max(abs(v) for r in ranges for v in r) + 16
+  dev = volume.device
+  flat = volume.to(torch.float32).reshape(-1)
+  out = torch.empty((oz, oy, ox), dtype=torch.float32, device=dev)
+  zc = max(1, _PLAIN_VOXELS // max(1, oy * ox))
+  for z0 in range(0, oz, zc):
+    z1 = min(oz, z0 + zc)
+    pos = [torch.arange(z0, z1, device=dev)[:, None, None] + origin[0],
+           torch.arange(oy, device=dev)[None, :, None] + origin[1],
+           torch.arange(ox, device=dev)[None, None, :] + origin[2]]
+    ds = [coords[a, z0:z1].to(torch.float32) - pos[a].to(torch.float32)
+          for a in range(3)]
+    ok = ((torch.abs(ds[0]) < span) & (torch.abs(ds[1]) < span)
+          & (torch.abs(ds[2]) < span))
+    axes = []
+    for a, n in enumerate((d, h, w)):
+      da = torch.where(ok, ds[a], torch.zeros_like(ds[a]))
+      wfn = sw.make_weight_fn(da, method)
+      base = torch.floor(da).to(torch.int64) - left
+      s0, s1 = ranges[a]
+      ws, idx = [], []
+      for t in range(taps):
+        s = base + t
+        live = (s >= s0) & (s <= s1)
+        ws.append(torch.where(live, wfn(s), torch.zeros_like(da)))
+        p = pos[a] + s
+        idx.append(torch.where(live & (p >= 0) & (p < n), p,
+                               torch.full_like(p, -1)))
+      axes.append((ws, idx))
+    (wz, iz), (wy, iy), (wx, ix) = axes
+    acc = torch.zeros_like(ds[0])
+    for i in range(taps):
+      acc_y = torch.zeros_like(acc)
+      for j in range(taps):
+        acc_x = torch.zeros_like(acc)
+        row_ok = (iz[i] >= 0) & (iy[j] >= 0)
+        row = (iz[i] * h + iy[j]) * w
+        for k in range(taps):
+          inb = row_ok & (ix[k] >= 0)
+          lin = torch.where(inb, row + ix[k], torch.zeros_like(row))
+          v = torch.where(inb, flat[lin], torch.zeros_like(acc))
+          acc_x = acc_x + wx[k] * v
+        acc_y = acc_y + wy[j] * acc_x
+      acc = acc + wz[i] * acc_y
+    out[z0:z1] = torch.where(ok, acc, torch.zeros_like(acc))
+  return out
+
+
+def shift_warp_3d(volume: torch.Tensor, coords: torch.Tensor, method: str,
+                  dz_lo: int, dz_hi: int, dy_lo: int, dy_hi: int,
+                  dx_lo: int, dx_hi: int, origin_z: int = 0,
+                  origin_y: int = 0, origin_x: int = 0) -> torch.Tensor:
+  """K13: warps a [d, h, w] volume by per-voxel (z, y, x) coords.
+
+  Same contract as sofima_tpu's pallas_shift_warp_3d: the inclusive
+  static bounds of the displacement coords[c] - (output position[c] +
+  origin[c]) per axis, 0 outside the volume, the bounds or at NaN
+  coords. CPU tensors take the plain version; CUDA tensors launch the
+  kernel. Returns [oz, oy, ox] float32.
+  """
+  if method not in _METHODS:
+    raise ValueError(f'Unknown method {method!r}')
+  if volume.ndim != 3 or coords.ndim != 4 or coords.shape[0] != 3:
+    raise ValueError(f'bad shapes {tuple(volume.shape)}, '
+                     f'{tuple(coords.shape)}')
+  bounds = (dz_lo, dz_hi, dy_lo, dy_hi, dx_lo, dx_hi)
+  origin = (int(origin_z), int(origin_y), int(origin_x))
+  if volume.device.type == 'cpu':
+    return shift_warp_3d_plain(volume, coords, method, bounds, origin)
+  volume = volume.to(torch.float32).contiguous()
+  coords = coords.to(torch.float32).contiguous()
+  _build.require_cuda('shift_warp_3d', volume, coords)
+  lib = _build.library()
+  fn = lib.warp_gather_3d_launch
+  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+  fn.restype = ctypes.c_int
+  d, h, w = volume.shape
+  oz, oy, ox = coords.shape[1:]
+  out = torch.empty((oz, oy, ox), dtype=torch.float32, device=volume.device)
+  (s0z, s1z), (s0y, s1y), (s0x, s1x) = _shift_range(method, bounds)
+  rc = fn(volume.data_ptr(), coords.data_ptr(), out.data_ptr(), d, h, w, oz,
+          oy, ox, *origin, s0z, s1z, s0y, s1y, s0x, s1x, _METHODS[method],
+          _build.stream_of(volume))
+  _build.launch_counts['warp_gather_3d'] += 1
+  _build.check(rc, 'warp_gather_3d')
   return out

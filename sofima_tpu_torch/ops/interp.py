@@ -1,14 +1,94 @@
 """Dense interpolation on small grids (subset).
 
-Twin of sofima_tpu/ops/interp.py. Ported: `sample` for the linear method
-(the coordinate-map algebra in map_utils uses it), `grid_sample_linear`
-and `upsample_map_linear`. Plain PyTorch: these run on small node grids
-or are simple streaming passes, with no kernel of their own.
+Twin of sofima_tpu/ops/interp.py. Ported: `sample` (2d) and
+`sample_channels` (2d or 3d) for the linear method (the coordinate-map
+algebra in map_utils uses them), `grid_sample_linear` (bilinear or trilinear, with
+linear edge extrapolation) and `upsample_map_linear`. Plain PyTorch:
+these run on small node grids or are simple streaming passes, with no
+kernel of their own.
+
+`linear_taps` / `apply_taps` split `sample` in two, so that a caller
+sampling many images at the same coordinates (the stitching solver's
+spring targets, every step) computes the taps once.
 """
 
 from __future__ import annotations
 
+import itertools
+from typing import Sequence
+
 import torch
+
+
+def linear_taps(coords: torch.Tensor, spatial: Sequence[int], mode: str,
+                lead: int = 0):
+  """The 2^dim linear taps of `coords` on a grid of shape `spatial`.
+
+  Args:
+    coords: [*lead, dim, *out] sample coordinates in grid index space,
+      ordered like the grid axes
+    spatial: grid shape (dim entries)
+    mode: 'constant' (out-of-bounds taps are flagged) or 'nearest'
+      (indices clamp to the edge)
+    lead: number of leading batch dimensions of `coords`
+
+  Returns:
+    (taps, nan_coords): taps is a list of (flat index [*lead, *out],
+    weight, out-of-bounds mask or None), in the reference's corner order.
+  """
+  if mode not in ('constant', 'nearest'):
+    raise ValueError(f'Unknown mode {mode!r}')
+  dim = len(spatial)
+  coords = coords.to(torch.float32)
+  nan_coords = torch.isnan(coords).any(dim=lead)
+  coords = torch.nan_to_num(coords)
+  base = torch.floor(coords)
+  frac = (coords - base).unbind(dim=lead)
+  base = base.to(torch.int64).unbind(dim=lead)
+  taps = []
+  for corner in itertools.product((0, 1), repeat=dim):
+    weight, lin, oob = None, None, None
+    for a, off in enumerate(corner):
+      n = int(spatial[a])
+      raw = base[a] + off
+      w = frac[a] if off else 1.0 - frac[a]
+      weight = w if weight is None else weight * w
+      idx = raw.clamp(0, n - 1)
+      lin = idx if lin is None else lin * n + idx
+      if mode == 'constant':
+        bad = (raw < 0) | (raw >= n)
+        oob = bad if oob is None else oob | bad
+    taps.append((lin, weight, oob))
+  return taps, nan_coords
+
+
+def apply_taps(flat: torch.Tensor, taps, nan_coords: torch.Tensor,
+               cval: float = float('nan'), lead: int = 0) -> torch.Tensor:
+  """Linear interpolation from precomputed taps.
+
+  `flat` is [*lead, *channels, N] (the grid flattened; leading dimensions
+  match the taps' batch, channels share its coordinates). Zero-weight
+  taps never poison the output, and NaN coordinates give NaN.
+  """
+  out_shape = nan_coords.shape
+  chan = flat.shape[lead:-1]
+  out = None
+  for lin, weight, oob in taps:
+    idx = lin.reshape(*lin.shape[:lead], *([1] * len(chan)), -1)
+    idx = idx.expand(*flat.shape[:-1], idx.shape[-1])
+    g = torch.gather(flat, -1, idx)
+    g = g.reshape(*out_shape[:lead], *chan, *out_shape[lead:])
+    w = weight.reshape(*out_shape[:lead], *([1] * len(chan)),
+                       *out_shape[lead:])
+    if oob is not None:
+      o = oob.reshape(w.shape)
+      g = torch.where(o, torch.full_like(g, cval), g)
+    contrib = w * g
+    contrib = torch.where(w == 0.0, torch.zeros_like(contrib), contrib)
+    out = contrib if out is None else out + contrib
+  nan = nan_coords.reshape(*out_shape[:lead], *([1] * len(chan)),
+                           *out_shape[lead:])
+  return torch.where(nan, torch.full_like(out, float('nan')), out)
 
 
 def sample(image: torch.Tensor, coords: torch.Tensor, method: str = 'linear',
@@ -22,74 +102,65 @@ def sample(image: torch.Tensor, coords: torch.Tensor, method: str = 'linear',
   """
   if method != 'linear':
     raise NotImplementedError('only linear sampling is ported')
-  lead = image.shape[:-2]
-  if coords.shape[:len(lead)] != lead or coords.shape[len(lead)] != 2:
+  lead = image.ndim - 2
+  if coords.shape[:lead] != image.shape[:lead] or coords.shape[lead] != 2:
     raise ValueError('[..., h, w] images and [..., 2, ...] coords expected')
-  image = image.to(torch.float32)
-  coords = coords.to(torch.float32)
-  nan_coords = torch.isnan(coords).any(dim=len(lead))
-  coords = torch.nan_to_num(coords)
-  base = torch.floor(coords)
-  frac = (coords - base).unbind(dim=len(lead))
-  base = base.to(torch.int64).unbind(dim=len(lead))
-  h, w = image.shape[-2:]
-  out = torch.zeros(nan_coords.shape, dtype=torch.float32,
-                    device=image.device)
-  flat = image.reshape(*lead, h * w)
-
-  def gather(lin):
-    return torch.gather(flat, -1, lin.reshape(*lead, -1)).reshape(lin.shape)
-
-  for off0, w0 in ((0, 1.0 - frac[0]), (1, frac[0])):
-    r = base[0] + off0
-    for off1, w1 in ((0, 1.0 - frac[1]), (1, frac[1])):
-      c = base[1] + off1
-      weight = w0 * w1
-      g = gather(r.clamp(0, h - 1) * w + c.clamp(0, w - 1))
-      if mode == 'constant':
-        oob = (r < 0) | (r >= h) | (c < 0) | (c >= w)
-        g = torch.where(oob, torch.full_like(g, cval), g)
-      contrib = weight * g
-      out = out + torch.where(weight == 0.0, torch.zeros_like(contrib),
-                              contrib)
-  return torch.where(nan_coords, torch.full_like(out, float('nan')), out)
+  spatial = image.shape[lead:]
+  taps, nan_coords = linear_taps(coords, spatial, mode, lead)
+  flat = image.to(torch.float32).reshape(*image.shape[:lead], -1)
+  return apply_taps(flat, taps, nan_coords, cval, lead)
 
 
-def grid_sample_linear(values: torch.Tensor, coords: torch.Tensor,
+def sample_channels(image: torch.Tensor, coords: torch.Tensor,
+                    method: str = 'linear', mode: str = 'constant',
+                    cval: float = float('nan')) -> torch.Tensor:
+  """Samples a [c, *spatial] array at [dim, *out] coords -> [c, *out]."""
+  if method != 'linear':
+    raise NotImplementedError('only linear sampling is ported')
+  dim = coords.shape[0]
+  taps, nan_coords = linear_taps(coords, image.shape[1:], mode)
+  flat = image.to(torch.float32).reshape(image.shape[0], -1)
+  assert image.ndim == dim + 1
+  return apply_taps(flat, taps, nan_coords, cval)
+
+
+def grid_sample_linear(values: torch.Tensor, coords,
                        extrapolate: bool = True) -> torch.Tensor:
-  """Bilinear sampling of a 2d grid with linear edge-cell extrapolation.
+  """Bi/trilinear sampling of a grid with linear edge-cell extrapolation.
 
   Args:
-    values: [d0, d1] grid values
-    coords: [2, *out] query coordinates in grid index space
+    values: [d0, d1(, d2)] grid values
+    coords: [dim, *out] query coordinates in grid index space, or a
+      sequence of `dim` tensors broadcastable to one output shape (a
+      separable query grid)
     extrapolate: if False, out-of-range queries clamp to the edge value
 
   Returns:
     [*out] sampled values
   """
   values = values.to(torch.float32)
-  coords = coords.to(torch.float32)
+  dim = values.ndim
+  coords = [c.to(torch.float32) for c in coords]
+  if len(coords) != dim:
+    raise ValueError(f'{dim}-d grid needs {dim} coordinate planes')
   shape = values.shape
   if not extrapolate:
-    coords = torch.stack([torch.clamp(coords[a], 0.0, shape[a] - 1.0)
-                          for a in range(2)])
+    coords = [torch.clamp(coords[a], 0.0, shape[a] - 1.0)
+              for a in range(dim)]
   base = [torch.clamp(torch.floor(coords[a]).to(torch.int64), 0,
-                      shape[a] - 2) for a in range(2)]
-  frac = [coords[a] - base[a].to(torch.float32) for a in range(2)]
-  out = torch.zeros(coords.shape[1:], dtype=torch.float32,
-                    device=values.device)
-  for corner in range(4):
+                      shape[a] - 2) for a in range(dim)]
+  frac = [coords[a] - base[a].to(torch.float32) for a in range(dim)]
+  out = None
+  for corner in range(2 ** dim):
     idx = []
-    wgt = torch.ones(coords.shape[1:], dtype=torch.float32,
-                     device=values.device)
-    for axis in range(2):
-      if corner & (1 << axis):
-        idx.append(base[axis] + 1)
-        wgt = wgt * frac[axis]
-      else:
-        idx.append(base[axis])
-        wgt = wgt * (1.0 - frac[axis])
-    out = out + wgt * values[idx[0], idx[1]]
+    wgt = None
+    for axis in range(dim):
+      hi = bool(corner & (1 << axis))
+      idx.append(base[axis] + 1 if hi else base[axis])
+      w = frac[axis] if hi else 1.0 - frac[axis]
+      wgt = w if wgt is None else wgt * w
+    term = wgt * values[tuple(idx)]
+    out = term if out is None else out + term
   return out
 
 

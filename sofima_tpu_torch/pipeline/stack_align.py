@@ -16,9 +16,9 @@ adjacent section pair:
 Only the solve carries state from section to section (a [2, 1, G, G]
 mesh), so `align_stack_pipelined` runs the flow of every pair first,
 then the sequential solves, then invert (all sections as one batch) and
-render. Tensors
-stay on the stack's device throughout; the host reads one scalar per
-solver chunk.
+render. A host (numpy) stack goes to `device` (default: the CUDA card;
+without one, pass device='cpu'); a tensor stays on its device, and the
+work stays there throughout.
 
 Not ported yet: `warm_start` (with its stale-prior refresh) and drift
 removal in the solve (`mesh.remove_drift`) raise NotImplementedError;
@@ -37,6 +37,7 @@ from sofima_tpu_torch import flow_field
 from sofima_tpu_torch import flow_utils
 from sofima_tpu_torch import map_utils
 from sofima_tpu_torch import mesh
+from sofima_tpu_torch import placement
 from sofima_tpu_torch.ops import cuda_mesh
 from sofima_tpu_torch.ops import cuda_warp
 from sofima_tpu_torch.ops import fill as fill_ops
@@ -192,8 +193,8 @@ def _to_out(img: torch.Tensor, out_dtype):
   return torch.clamp(torch.round(img.to(torch.float32)), 0, 255).to(out_dtype)
 
 
-def align_step(sec_prev: torch.Tensor, sec_cur: torch.Tensor,
-               solved_prev: torch.Tensor, cfg: StackAlignConfig):
+def align_step(sec_prev, sec_cur, solved_prev, cfg: StackAlignConfig,
+               device=None):
   """One per-section step: returns (solved, rendered, overflow).
 
   Args:
@@ -201,6 +202,7 @@ def align_step(sec_prev: torch.Tensor, sec_cur: torch.Tensor,
     solved_prev: [2, 1, G, G] relative mesh of the previous section
       (zeros for the first moving section); G = n // stride
     cfg: configuration
+    device: where host (numpy) inputs go (default: the CUDA card)
 
   Returns:
     solved: [2, 1, G, G] relative mesh for sec_cur
@@ -208,6 +210,8 @@ def align_step(sec_prev: torch.Tensor, sec_cur: torch.Tensor,
     overflow: bool tensor, a static envelope was exceeded somewhere
   """
   _check(cfg)
+  sec_prev, sec_cur, solved_prev = (placement.place(v, device) for v in
+                                    (sec_prev, sec_cur, solved_prev))
   grid_n = sec_cur.shape[-1] // cfg.stride
   flow_full, ov_flow = _flow_phase(sec_prev, sec_cur, cfg, grid_n)
   solved = _solve_phase(flow_full, solved_prev, cfg)
@@ -216,9 +220,9 @@ def align_step(sec_prev: torch.Tensor, sec_cur: torch.Tensor,
   return solved, rendered, ov_flow | ov_render
 
 
-def align_stack_pipelined(stack: torch.Tensor,
-                          cfg: StackAlignConfig = StackAlignConfig(),
-                          out_dtype=None, timings: dict | None = None):
+def align_stack_pipelined(stack, cfg: StackAlignConfig = StackAlignConfig(),
+                          out_dtype=None, timings: dict | None = None,
+                          device=None):
   """Whole-stack alignment with the phases run stack-wide in turn.
 
   Phase 1 runs flow + clean for every adjacent pair, phase 2 the
@@ -228,9 +232,11 @@ def align_stack_pipelined(stack: torch.Tensor,
   rendered[0] = stack[0] and solved[0] = 0 (the anchor section).
   `out_dtype=torch.uint8` stores clip-rounded renders. If `timings` is
   a dict, it receives the wall seconds of each phase (synchronizing the
-  device at each phase boundary).
+  device at each phase boundary). A host (numpy) stack goes to `device`
+  (default: the CUDA card).
   """
   _check(cfg)
+  stack = placement.place(stack, device)
   z_dim, n, _ = stack.shape
   if z_dim < 2:
     raise ValueError('a stack needs at least two sections')
@@ -295,13 +301,15 @@ class _PhaseClock:
 
 
 def align_stack(stack, cfg: StackAlignConfig = StackAlignConfig(),
-                pipelined: bool = True, out_dtype=None):
+                pipelined: bool = True, out_dtype=None, device=None):
   """Aligns a [Z, n, n] stack; returns (rendered, solved, overflow).
 
   `pipelined=True` runs `align_stack_pipelined`; `pipelined=False`
-  streams section by section through `align_step`.
+  streams section by section through `align_step`. A host (numpy) stack
+  goes to `device` (default: the CUDA card; without one, pass
+  device='cpu'); a tensor stays where it is.
   """
-  stack = torch.as_tensor(stack)
+  stack = placement.place(stack, device)
   if pipelined:
     return align_stack_pipelined(stack, cfg, out_dtype)
   _check(cfg)

@@ -7,7 +7,9 @@ inside the fixture, never at import). Run on a machine with a card:
 
 Tolerances: integer flow peaks and NaN placement exact, sharpness /
 ratio rtol = atol = 3e-4 on these well-conditioned inputs; fused solver
-steps equal and nodes within 1e-3 px; render within 1e-2 gray levels.
+steps equal and nodes within 1e-3 px (2d and 3d); 3d force within 1e-4;
+renders (2d and 3d) within 1e-2 gray levels; the small 3d stitch on the
+card within 0.01 * stride of the CPU plain path.
 """
 
 import dataclasses
@@ -22,6 +24,7 @@ from sofima_tpu_torch.ops import cuda_flow
 from sofima_tpu_torch.ops import cuda_mesh
 from sofima_tpu_torch.ops import cuda_warp
 from sofima_tpu_torch.pipeline import stack_align
+from sofima_tpu_torch.pipeline import stitch3d
 
 pytestmark = pytest.mark.gpu
 
@@ -138,3 +141,91 @@ def test_wrong_device_or_dtype_raises(dev):
   with pytest.raises(ValueError):
     cuda_warp.shift_warp(torch.zeros(1, 64, 64, device=dev),
                          torch.zeros(1, 2, 8, 8))
+
+
+@pytest.mark.parametrize('prefer', [False, True])
+def test_force_3d(dev, prefer):
+  rng = np.random.RandomState(4)
+  x = torch.from_numpy((rng.randn(3, 2, 5, 20, 24) * 5).astype(np.float32))
+  x[:, 0, 1, 3:5, 7] = float('nan')
+  before = _build.launch_counts['force3d']
+  got = mesh.elastic_mesh_3d(x.to(dev), 0.1, (40.0, 30.0, 20.0), prefer)
+  assert _build.launch_counts['force3d'] == before + 1
+  ref = mesh.elastic_mesh_3d(x, 0.1, (40.0, 30.0, 20.0), prefer)
+  assert float((got.cpu() - ref).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize('prefer', [False, True])
+def test_fused_fire_3d(dev, prefer):
+  rng = np.random.RandomState(2)
+  prev = np.full((3, 6, 20, 24), np.nan, np.float32)
+  prev[:, 1:-1, 2:-2, 2:-2] = rng.randn(3, 4, 16, 20) * 3
+  cfg = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.1, k=0.1, stride=(40.0, 30.0, 20.0),
+      num_iters=100, max_iters=1000, stop_v_max=0.005, dt_max=100.0,
+      start_cap=0.01, final_cap=10.0, cap_scale=1.1,
+      prefer_orig_order=prefer)
+  x0 = torch.zeros(prev.shape)
+  pv = torch.from_numpy(prev)
+  before = _build.launch_counts['fused_fire_3d']
+  got, _, steps = cuda_mesh.relax_mesh_fused_3d(x0.to(dev), pv.to(dev), cfg)
+  assert _build.launch_counts['fused_fire_3d'] == before + 1
+  again = cuda_mesh.relax_mesh_fused_3d(x0.to(dev), pv.to(dev), cfg)[0]
+  assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+  ref, _, steps_ref = cuda_mesh.relax_mesh_fused_3d(x0, pv, cfg)
+  assert int(steps) == int(steps_ref)
+  got = got.cpu()
+  assert torch.equal(torch.isnan(got), torch.isnan(ref))
+  assert float(torch.nan_to_num((got - ref).abs()).max()) < 1e-3
+
+
+@pytest.mark.parametrize('method', ['nearest', 'linear', 'cubic', 'lanczos'])
+def test_warp_gather_3d(dev, method):
+  rng = np.random.RandomState(1)
+  vol = torch.from_numpy((rng.rand(20, 40, 60) * 255).astype(np.float32))
+  zz, yy, xx = torch.meshgrid(torch.arange(24.) - 2, torch.arange(44.) - 2,
+                              torch.arange(64.) - 2, indexing='ij')
+  coords = torch.stack([zz + 0.7 * torch.sin(yy / 7), yy + 2.3 * torch.cos(
+      xx / 9) - 0.4, xx + 3.1 * torch.sin(zz / 5 + yy / 11) + 0.2])
+  coords[:, 3, 4, 5] = float('nan')
+  bounds = (-1, 1, -2, 2, -2, 2)
+  before = _build.launch_counts['warp_gather_3d']
+  got = cuda_warp.shift_warp_3d(vol.to(dev), coords.to(dev), method,
+                                *bounds, -2, -2, -2)
+  assert _build.launch_counts['warp_gather_3d'] == before + 1
+  # The plain version on the card: raw Lanczos weights near integer
+  # displacements are ill-conditioned (the reference's hoisted form), so
+  # the comparison needs the card's own sin.
+  ref = cuda_warp.shift_warp_3d_plain(vol.to(dev), coords.to(dev), method,
+                                      bounds, (-2, -2, -2))
+  assert float((got - ref).abs().max()) < 1e-2
+  assert float(got[3, 4, 5]) == 0.0
+
+
+def test_stitch3d_small(dev):
+  rng = np.random.RandomState(3)
+  f = np.fft.rfftn(rng.rand(24, 48, 80).astype(np.float32))
+  fr = np.meshgrid(np.fft.fftfreq(24), np.fft.fftfreq(48),
+                   np.fft.rfftfreq(80), indexing='ij')
+  f *= np.exp(-sum(a ** 2 for a in fr) / (2 * 0.12 ** 2))
+  vol = np.fft.irfftn(f, s=(24, 48, 80), axes=(0, 1, 2)).astype(np.float32)
+  vol = (vol - vol.min()) / np.ptp(vol) * 255
+  tiles = {(0, 0): vol[:, :, :48].copy(), (1, 0): vol[:, :, 32:].copy()}
+  cx = np.full((3, 1, 1, 2), np.nan)
+  cx[:, 0, 0, 0] = (-16, 0, 0)
+  cy = np.full((3, 1, 1, 2), np.nan)
+  coarse = np.zeros((3, 1, 1, 2), np.float32)
+  coarse[0, 0, 0, 1] = -16
+  cfg = stitch3d.Stitch3dConfig(
+      stride=(8, 8, 8), patch_size=(16, 16, 16), flow_batch=8, margin=2,
+      mesh_cfg=mesh.IntegrationConfig(
+          dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(8, 8, 8),
+          num_iters=200, max_iters=5000, stop_v_max=0.01, dt_max=100.0))
+  _build.reset_launch_counts()
+  got = stitch3d.stitch_and_render_3d(tiles, cx, cy, coarse, cfg)
+  assert got['canvas'].device.type == 'cuda'
+  assert _build.launch_counts['force3d'] > 0
+  assert _build.launch_counts['warp_gather_3d'] == 2
+  ref = stitch3d.stitch_and_render_3d(tiles, cx, cy, coarse, cfg,
+                                      device='cpu')
+  assert float((got['solved'].cpu() - ref['solved']).abs().max()) < 0.08

@@ -102,7 +102,7 @@ class TestSlice:
     # the JAX chain: it must land on the reference's next mesh.
     tcfg = convert.config_from_jax(case['jcfg'])
     stack = torch.from_numpy(case['stack'])
-    prev = convert.map_from_numpy(case['solved'][1])
+    prev = convert.map_from_numpy(case['solved'][1], device='cpu')
     solved, rendered, overflow = tsa.align_step(stack[1], stack[2], prev,
                                                 tcfg)
     assert solved.shape == prev.shape and rendered.shape == (N, N)
@@ -154,13 +154,13 @@ class TestConvert:
       m = rng.randn(*shape).astype(dtype)
       m[:, 0, 1, 2] = np.nan
       jm = jnp.asarray(m)
-      t = convert.map_from_numpy(jm)
+      t = convert.map_from_numpy(jm, device='cpu')
       assert tuple(t.shape) == shape
       back = convert.map_to_numpy(t)
       assert back.dtype == np.asarray(jm).dtype
       np.testing.assert_array_equal(back, np.asarray(jm))
     with pytest.raises(ValueError):
-      convert.map_from_numpy(np.zeros((4, 1, 2, 2)))
+      convert.map_from_numpy(np.zeros((4, 1, 2, 2)), device='cpu')
 
 
 class TestStructure:
