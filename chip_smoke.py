@@ -15,6 +15,13 @@ call that computes the same function):
     as bench.py's pipeline stage builds it) aligned by
     `align_stack_pipelined` at bench.py's headline configuration and
     checked against the known ground truth;
+  * masked flow and warm start: K5 on bench.py's `flow_masked` input
+    (10k^2, p = 160, s = 40, its crack band + blob mask), then the masked
+    coarse-to-fine path on the stack's first pair (all-valid mask against
+    the unmasked targeted path; bench's mask against the same path with
+    K5 and K4 swapped for their plain versions), the warm-start stack
+    path on the same stack, and a forced
+    stale-prior refresh at 640^2;
   * 3d tile stitching: K9 (3d force; also on path (a)'s tile meshes),
     K11 (fused 3d FIRE) and K13 (3d render); then (a) `stitch_and_render_3d` on bench.py's LICONN
     geometry (2 x 2 tiles of 64 x 576 x 576, seeded band-limited
@@ -33,6 +40,7 @@ before any work.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,6 +59,20 @@ FLOW_STAT_TOL = 3e-4    # rtol = atol for sharpness / ratio (tests' bar)
 # Share of statistics that must meet it: just below the shares read on
 # an H100 at these inputs (0.9987 for K1, 0.9993 for K2).
 STAT_FRACTION = 0.998
+# K5's share: near masked regions the Padfield surfaces divide by
+# correlation values close to 0, so summation order moves more of the
+# statistics; the bar is the GPU tests' (99%), with every quality-gate
+# decision equal as for K1/K2.
+STAT_FRACTION_MASKED = 0.99
+MASK_BAND, MASK_PERIOD = 900, 7919   # bench.py's flow_masked crack band
+MASK_BLOB = (3000, 7000, 1500)       # and blob (centre y, x, radius)
+# Masked c2f, card against the plain path: summation order can flip an
+# integer peak where two candidates tie to float rounding (1 node of
+# 50 661 against the CPU plain path on an H100): at most this share, by
+# at most 1 px, with the NaN pattern equal.
+MASKED_TIE_SHARE = 1e-4
+TRANSPORT_EXACT = 0.95  # all-valid masked c2f vs targeted on an integer
+                        # shift (tests/test_shift_warp.py's bar)
 MESH_TOL = 1e-3         # px, fused solver vs plain solver
 RENDER_TOL = 1e-2       # gray levels, render kernel vs plain render
 MAX_ERR = 3.5           # bench.py's pipeline ground-truth gate
@@ -141,6 +163,26 @@ def xcorr_flops(p: int) -> float:
   return 3 * 2.5 * n * np.log2(n) + 8 * n
 
 
+def masked_flops(p: int, n_pure: int, n_impure: int) -> float:
+  """K5's operations for a mix of branches (a dead pair does none).
+
+  A pure pair is one circular xcorr plus its four moments (4 per point);
+  an impure pair 12 real 2d FFTs (6 forward, 6 inverse: four times the 3
+  of an xcorr) plus the Padfield combination (~20 per point)."""
+  n = p * p
+  return n_pure * (xcorr_flops(p) + 4 * n) + n_impure * (
+      4 * xcorr_flops(p) + 20 * n)
+
+
+def bench_mask(n: int, dev) -> torch.Tensor:
+  """bench.py's flow_masked tissue mask (True = invalid), ~17%."""
+  yy = torch.arange(n, device=dev)[:, None]
+  xx = torch.arange(n, device=dev)[None, :]
+  cy, cx, r = MASK_BLOB
+  return (((yy + xx) % MASK_PERIOD < MASK_BAND)
+          | ((yy - cy) ** 2 + (xx - cx) ** 2 < r * r))
+
+
 def texture(n: int, dev) -> torch.Tensor:
   """bench.py's band-limited EM-like texture in [0, 255] (float32)."""
   rng = np.random.RandomState(SEED)
@@ -191,7 +233,7 @@ def headline_config():
                                                            num_iters=125))
 
 
-def compare_flow(got, ref, name):
+def compare_flow(got, ref, name, fraction=STAT_FRACTION):
   xy_bad = int((torch.nan_to_num(got[:2], nan=9e9)
                 != torch.nan_to_num(ref[:2], nan=9e9)).any(0).sum())
   print(f'  {name}: patches whose x/y peak or NaN differs: {xy_bad}')
@@ -215,7 +257,7 @@ def compare_flow(got, ref, name):
   print(f'  {name}: x/y and NaN exact over {ref[0].numel()} patches; '
         f'statistics within rtol=atol={FLOW_STAT_TOL}: {frac:.6f} '
         f'(max rel {rel:.3g}); quality-gate flips {flips}')
-  check(frac >= STAT_FRACTION, f'{name}: sharpness/ratio disagree')
+  check(frac >= fraction, f'{name}: sharpness/ratio disagree')
   check(flips == 0, f'{name}: quality-gate decisions differ')
   # max_abs_err is the flow itself (x/y peaks, NaN rows excluded); the
   # statistics' agreement is reported beside it.
@@ -358,6 +400,35 @@ def stack_slice(dev, report, _build) -> dict:
         f'{lib_err:.3g}')
   del coords, img, grid
 
+  # K5: bench.py's flow_masked stage, the dense masked grid (p = 160,
+  # s = 40) with its tissue mask on both planes.
+  print('K5 masked_flow_peaks, 10k^2, p = 160, s = 40, bench.py\'s mask')
+  valid = (~bench_mask(N, dev)).to(torch.float32)
+  gm = (N - (160 - 40)) // 40
+  cls = cuda_flow.masked_patch_classes(valid, valid, 160, (40, 40))
+  n_impure, n_pure, n_dead = (int((cls == c).sum()) for c in range(3))
+  print(f'  {gm * gm} patches: {n_dead} dead, {n_pure} pure, {n_impure} '
+        f'impure; invalid share {1 - float(valid.mean()):.3f}')
+  check(min(n_dead, n_pure, n_impure) > 0, 'K5: a branch is missing')
+  k5 = lambda: cuda_flow.masked_dense_flow_peaks(pre, post, valid, valid,
+                                                 (160, 160), (40, 40))
+  k5p = lambda: cuda_flow.masked_flow_peaks_plain(
+      pre, post, valid, valid, (gm, gm), 160, (40, 40), None, 2, 0.5, 5)
+  got = k5()
+  check(same_bits(got, k5()), 'K5 does not repeat bit for bit')
+  print('  a second launch repeats the first bit for bit')
+  ref = k5p()
+  check(bool(torch.isnan(got[0][cls == 2]).all()), 'K5: dead rows not NaN')
+  report['K5'] = dict(compare_flow(got, ref, 'K5', STAT_FRACTION_MASKED),
+                      ms=cuda_ms(k5), plain_ms=wall_ms(k5p), library_ms=None,
+                      dead=n_dead, pure=n_pure, impure=n_impure,
+                      **least_time(4 * N * N * 4 + 16 * gm * gm,
+                                   masked_flops(160, n_pure, n_impure)))
+  print(f'  kernel {report["K5"]["ms"]:.3f} ms, plain '
+        f'{report["K5"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K5"]["bound_ms"]:.3f} ms ({report["K5"]["bound_by"]})')
+  del valid, cls, got, ref
+
   print(f'stack: {N_Z} sections of {N}^2 (bench.py runs 16; cut for time)')
   stack = make_stack(post, N_Z)
   del pre, post, tex
@@ -395,6 +466,9 @@ def stack_slice(dev, report, _build) -> dict:
   for k in ('dense_flow_peaks', 'targeted_flow_peaks', 'fused_fire',
             'warp_gather'):
     check(launches[k] > 0, f'kernel {k} was not launched on the stack path')
+  report['stack_cold'] = dict(wall_s=wall, mpix_s=mpix, max_err=max(errs),
+                              **timings)
+  del rendered, solved
 
   # Small input: the card's run against the plain versions on the CPU.
   n_s = 480
@@ -408,6 +482,184 @@ def stack_slice(dev, report, _build) -> dict:
   check(d < SMALL_MESH_TOL, 'small-input meshes differ')
   check(bool(o_gpu) == bool(o_cpu), 'small-input overflow flags differ')
   check(bool(torch.isfinite(r_gpu).all()), 'small-input render not finite')
+  return launches, stack
+
+
+@contextlib.contextmanager
+def plain_kernels():
+  """Routes K5 and K4 to their plain versions on the card's tensors, so
+  that a path can be run once with its kernels and once without."""
+  from sofima_tpu_torch.ops import cuda_flow
+  from sofima_tpu_torch.ops import cuda_warp
+  k5, k4 = cuda_flow.masked_dense_flow_peaks, cuda_warp.shift_warp
+
+  def k5_plain(pre, post, pre_valid, post_valid, patch_size, step,
+               mean=None, min_distance=2, threshold_rel=0.5, peak_radius=5):
+    p, (sy, sx) = patch_size[0], step
+    h, w = pre.shape
+    pre = pre.to(torch.float32).contiguous()
+    return cuda_flow.masked_flow_peaks_plain(
+        pre, post.to(torch.float32).contiguous(),
+        cuda_flow._valid_plane(pre_valid, pre),
+        cuda_flow._valid_plane(post_valid, pre),
+        ((h - (p - sy)) // sy, (w - (p - sx)) // sx), p, (sy, sx), mean,
+        min_distance, threshold_rel, peak_radius)
+
+  cuda_flow.masked_dense_flow_peaks = k5_plain
+  cuda_warp.shift_warp = (
+      lambda images, coords, method='lanczos':
+      cuda_warp.shift_warp_plain(images, coords, method))
+  try:
+    yield
+  finally:
+    cuda_flow.masked_dense_flow_peaks, cuda_warp.shift_warp = k5, k4
+
+
+def masked_warm_slice(dev, report, _build, stack) -> dict:
+  """The masked coarse-to-fine path and the warm-start stack path.
+
+  Returns K5's launch count from the masked path's run."""
+  from sofima_tpu_torch import flow_field
+  from sofima_tpu_torch.ops import cuda_warp
+  from sofima_tpu_torch.pipeline import stack_align
+
+  # Masked coarse-to-fine on the stack's first pair. The transport's
+  # residual envelope is sized for the stack's wobble (7 px over 2500).
+  kw = dict(max_displacement=128, residual=16, return_overflow=True)
+  pre, post = stack[0].float(), stack[1].float()
+  print('masked coarse-to-fine, pair (0, 1) of the 10k^2 stack')
+  none = torch.zeros((N, N), dtype=torch.bool, device=dev)
+  # An all-valid mask against the unmasked targeted path, on the pair
+  # and on section 0 against itself rolled by (23, -31) px as the JAX
+  # test does: both paths measure integer peaks, so on the stack's
+  # fractional flows they split rounding ties differently (never by
+  # more than 1 px), and on an integer shift they agree.
+  exact = {}
+  for name, q in (('pair (0, 1)', post),
+                  ('integer shift', torch.roll(pre, (23, -31), (0, 1)))):
+    masked, ov_m = flow_field.coarse_to_fine_flow(pre, q, pre_mask=none,
+                                                  post_mask=none, **kw)
+    targeted, ov_t = flow_field.coarse_to_fine_flow(pre, q, **kw)
+    sl = (slice(2, -2), slice(2, -2))
+    dx = (masked[0][sl] - targeted[0][sl]).abs()
+    dy = (masked[1][sl] - targeted[1][sl]).abs()
+    fin = torch.isfinite(dx) & torch.isfinite(dy)
+    exact[name] = float(((dx == 0) & (dy == 0))[fin].float().mean())
+    worst = float(torch.maximum(dx, dy)[fin].max())
+    print(f'  all-valid mask vs the unmasked targeted path, {name}: exact '
+          f'{exact[name]:.4f}, worst {worst:.1f} px (bar 1), overflow '
+          f'{bool(ov_m)} / {bool(ov_t)}')
+    check(worst <= 1.0, 'masked transport: more than 1 px from targeted')
+    check(not bool(ov_m) and not bool(ov_t), 'masked c2f overflow')
+  check(exact['integer shift'] >= TRANSPORT_EXACT,
+        f'masked transport: exact share below {TRANSPORT_EXACT}')
+  mask = bench_mask(N, dev)
+  flow_field.coarse_to_fine_flow(pre, post, pre_mask=mask, post_mask=mask,
+                                 **kw)  # warm-up
+  sync()
+  _build.reset_launch_counts()
+  t0 = time.perf_counter()
+  got, ov = flow_field.coarse_to_fine_flow(pre, post, pre_mask=mask,
+                                           post_mask=mask, **kw)
+  sync()
+  wall = time.perf_counter() - t0
+  launches = dict(_build.launch_counts)
+  t0 = time.perf_counter()
+  with plain_kernels():
+    ref, ov_ref = flow_field.coarse_to_fine_flow(pre, post, pre_mask=mask,
+                                                 post_mask=mask, **kw)
+  sync()
+  wall_plain = time.perf_counter() - t0
+  both = torch.isfinite(got[:2]).all(0) & torch.isfinite(ref[:2]).all(0)
+  same_nan = torch.equal(torch.isnan(got[0]), torch.isnan(ref[0]))
+  bad = (got[:2] != ref[:2]).any(0) & both
+  xy_bad = int(bad.sum())
+  worst = float((got[:2] - ref[:2]).abs()[:, both].max())
+  print(f'  bench mask: card {wall:.3f} s, plain path on the card '
+        f'{wall_plain:.1f} s; {int(both.sum())} nodes finite in both, x/y '
+        f'differ at {xy_bad} (worst {worst:.0f} px), NaN pattern equal '
+        f'{same_nan}, valid share {float(both.float().mean()):.3f}, overflow '
+        f'{bool(ov)} / {bool(ov_ref)}; launches {launches}')
+  for i, j in bad.nonzero().tolist()[:5]:
+    print(f'    node ({i}, {j}): card {got[:, i, j].tolist()}, plain '
+          f'{ref[:, i, j].tolist()}')
+  check(same_nan and worst <= 1.0
+        and xy_bad <= MASKED_TIE_SHARE * int(both.sum()),
+        'masked c2f differs from the plain path')
+  check(not bool(ov) and not bool(ov_ref), 'masked c2f overflow')
+  check(launches['masked_flow_peaks'] == 2, 'K5 launches on the masked path')
+  check(launches['warp_gather'] == 2, 'K4 (nearest) launches on masked path')
+  report['path_masked'] = dict(wall_s=wall, plain_s=wall_plain,
+                               xy_differ=xy_bad,
+                               exact_all_valid_pair=exact['pair (0, 1)'],
+                               exact_all_valid_int=exact['integer shift'],
+                               valid_share=float(both.float().mean()))
+  del masked, targeted, got, ref, none, mask, pre, post
+
+  # Warm-start stack path: the headline config with warm_start.
+  cfg = dataclasses.replace(headline_config(), warm_start=True)
+  _build.reset_launch_counts()
+  timings = {}
+  t0 = time.perf_counter()
+  rendered, solved, overflow = stack_align.align_stack_pipelined(
+      stack, cfg, out_dtype=torch.uint8, timings=timings)
+  sync()
+  wall = time.perf_counter() - t0
+  warm_l = dict(_build.launch_counts)
+  inter = (slice(320, -320), slice(320, -320))
+  base_i = stack[0][inter].float()
+  errs = [float((rendered[z][inter].float() - base_i).abs().mean())
+          for z in range(1, N_Z)]
+  refreshes = warm_l['dense_flow_peaks'] - 1
+  cold = report['stack_cold']
+  print('warm-start stack path: align_stack_pipelined, headline config, '
+        'warm_start=True')
+  print('  phase seconds (cold): ' + ', '.join(
+      f'{k} {timings[k]:.3f} ({cold[k]:.3f})' for k in timings))
+  print(f'  wall {wall:.3f} s ({cold["wall_s"]:.3f} cold), '
+        f'{(N_Z - 1) * N * N / wall / 1e6:.1f} Mpix/s; worst interior error '
+        f'{max(errs):.3f} ({cold["max_err"]:.3f} cold; gate {MAX_ERR}), '
+        f'overflow {bool(overflow)}; refreshes {refreshes}; launches {warm_l}')
+  check(max(errs) <= MAX_ERR, f'warm interior error {max(errs)} > {MAX_ERR}')
+  check(not bool(overflow), 'envelope overflow on the warm path')
+  check(refreshes >= 0 and warm_l['targeted_flow_peaks'] == N_Z - 1
+        + refreshes, 'K1 launched beyond pair 0 and the refreshes')
+  report['stack_warm'] = dict(wall_s=wall, max_err=max(errs),
+                              refreshes=refreshes,
+                              k1_launches=warm_l['dense_flow_peaks'],
+                              k2_launches=warm_l['targeted_flow_peaks'],
+                              **timings)
+  del rendered, solved
+
+  # A forced refresh: pair 1 jumps 52/-48 px past the fine capture range
+  # (tests/test_stack_align.py's case), so pair 0's flow is stale.
+  n_s = 640
+  base = stack[0][:n_s, :n_s].float()
+  yy = torch.arange(n_s, dtype=torch.float32, device=dev)[:, None]
+  xx = torch.arange(n_s, dtype=torch.float32, device=dev)[None, :]
+
+  def shifted(dy, dx):
+    coords = torch.stack([(yy + dy).expand(n_s, n_s),
+                          (xx + dx).expand(n_s, n_s)])[None].contiguous()
+    return cuda_warp.shift_warp(base[None].contiguous(), coords, 'linear')[0]
+
+  small = torch.stack([base, shifted(2.0, -3.0), shifted(54.0, -51.0)])
+  small = torch.clamp(small + 0.5, 0, 255).to(torch.uint8)
+  cfg_s = stack_align.StackAlignConfig(max_displacement=96, residual=16)
+  _, s_cold, _ = stack_align.align_stack_pipelined(small, cfg_s)
+  _build.reset_launch_counts()
+  _, s_warm, _ = stack_align.align_stack_pipelined(
+      small, dataclasses.replace(cfg_s, warm_start=True))
+  forced = dict(_build.launch_counts)
+  d = float((s_warm - s_cold).abs().max())
+  print(f'forced refresh ({n_s}^2 x 3, 52/-48 px jump): K1 launches '
+        f'{forced["dense_flow_peaks"]} (pair 0 + refresh), K2 '
+        f'{forced["targeted_flow_peaks"]}; meshes vs the cold chain {d:.3g} '
+        f'px (bar {SMALL_MESH_TOL})')
+  check(forced['dense_flow_peaks'] == 2, 'the stale prior was not refreshed')
+  check(forced['targeted_flow_peaks'] == 3, 'K2 launches on the refresh')
+  check(d < SMALL_MESH_TOL, 'refreshed meshes differ from the cold chain')
+  report['refresh'] = dict(mesh_max_diff=d)
   return launches
 
 
@@ -726,7 +978,11 @@ def main() -> int:
   print(f'kernel build + load: {_build.build_seconds:.2f} s')
   print(_build.build_log.strip())
   report = {}
-  launches = stack_slice(dev, report, _build)
+  launches, stack = stack_slice(dev, report, _build)
+  torch.cuda.empty_cache()
+  launches['masked_flow_peaks'] = masked_warm_slice(
+      dev, report, _build, stack)['masked_flow_peaks']
+  del stack
   torch.cuda.empty_cache()
   launches.update(stitch_slice(dev, report, _build))
   print(f'total {time.perf_counter() - t_start:.1f} s')
@@ -737,6 +993,8 @@ def main() -> int:
        'sofima_tpu/ops/pallas_flow.py:732'),
       ('K2', 'targeted_flow_peaks', 'sofima_tpu_torch/csrc/flow_peaks.cu',
        'sofima_tpu/ops/pallas_flow.py:797'),
+      ('K5', 'masked_flow_peaks', 'sofima_tpu_torch/csrc/masked_flow.cu',
+       'sofima_tpu/ops/pallas_flow.py:876'),
       ('K3', 'fused_fire', 'sofima_tpu_torch/csrc/fire.cu',
        'sofima_tpu/ops/pallas_mesh.py:852'),
       ('K4', 'warp_gather', 'sofima_tpu_torch/csrc/warp.cu',
@@ -751,15 +1009,17 @@ def main() -> int:
   main_keys = ('err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
   for key, name, src, rep in meta:
     r = report[key]
-    # For K1/K2, max_abs_err is the integer x/y peaks; the sharpness and
-    # ratio agreement follows as stat_frac / stat_max_rel / stat_max_abs.
+    # For K1/K2/K5, max_abs_err is the integer x/y peaks; the sharpness
+    # and ratio agreement follows as stat_frac / stat_max_rel /
+    # stat_max_abs.
     extra = {k: v for k, v in r.items() if k not in main_keys}
     kernels.append(dict(name=name, route='cuda', source=src, replaces=rep,
                         launches=launches[name], max_abs_err=r['err'],
                         ms=r['ms'], plain_ms=r['plain_ms'],
                         bound_ms=r['bound_ms'], bound_by=r['bound_by'],
                         library_ms=r['library_ms'], **extra))
-  paths = {k: report[k] for k in ('path_a', 'path_b', 'path_c')}
+  paths = {k: report[k] for k in ('stack_cold', 'path_masked', 'stack_warm',
+                                   'refresh', 'path_a', 'path_b', 'path_c')}
   print(json.dumps({'paths': paths}))
   print(smi())
   print(json.dumps({'kernels': kernels}))

@@ -3,10 +3,15 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 profile_stack.py              # stack alignment
+    python3 profile_stack.py --warm       # the same, warm_start=True
+    python3 profile_stack.py --masked     # masked coarse-to-fine flow
     python3 profile_stack.py --stitch3d   # 3d tile stitching
 
 Stack alignment: chip_smoke.py's synthetic 10k^2 stack through
-`align_stack_pipelined` at bench.py's headline configuration. 3d
+`align_stack_pipelined` at bench.py's headline configuration (cold, or
+with `warm_start`). Masked flow: `coarse_to_fine_flow` on the stack's
+first pair with bench.py's `flow_masked` mask, as chip_smoke.py runs it.
+3d
 stitching: chip_smoke.py's LICONN input (bench.py's geometry) through
 `stitch_and_render_3d`, plus one `mesh.relax_mesh` of its joint solve on
 its own, under the profiler, to count the device launches per solver
@@ -32,12 +37,14 @@ import torch
 
 # The hand-written kernels by their CUDA function names (csrc/*.cu).
 KERNELS = ('flow_peaks_kernel', 'fused_fire_kernel', 'warp_gather_kernel')
+KERNELS_MASKED = ('masked_flow_kernel', 'warp_gather_kernel')
 KERNELS_3D = ('force3d_kernel', 'warp3d_kernel')
 SECTIONS = 4    # as chip_smoke.py's main path
 RUNS = 3
 TOP_OPS = 8     # other device ops listed by time
 OUT = os.path.join('build', 'profile_stack.txt')  # git-ignored
 OUT_3D = os.path.join('build', 'profile_stitch3d.txt')
+OUT_MASKED = os.path.join('build', 'profile_masked.txt')
 
 
 def _device_us(evt) -> float:
@@ -45,34 +52,64 @@ def _device_us(evt) -> float:
   return float(evt.self_cuda_time_total if t is None else t)
 
 
-def main() -> int:
+def main(warm: bool = False) -> int:
+  import dataclasses
   import chip_smoke
   from sofima_tpu_torch.pipeline import stack_align
 
   dev = torch.device('cuda', 0)
   n = chip_smoke.N
   stack = chip_smoke.make_stack(chip_smoke.texture(n, dev), SECTIONS)
-  cfg = chip_smoke.headline_config()
+  cfg = dataclasses.replace(chip_smoke.headline_config(), warm_start=warm)
   pixels = (SECTIONS - 1) * n * n
-
-  stack_align.align_stack_pipelined(stack, cfg, out_dtype=torch.uint8)
+  run = lambda **kw: stack_align.align_stack_pipelined(
+      stack, cfg, out_dtype=torch.uint8, **kw)
+  run()
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats(dev)
   walls = []
   for i in range(RUNS):
     timings = {}
     t0 = time.perf_counter()
-    stack_align.align_stack_pipelined(stack, cfg, out_dtype=torch.uint8,
-                                      timings=timings)
+    run(timings=timings)
     torch.cuda.synchronize()
     walls.append(time.perf_counter() - t0)
     print(f'run {i + 1}: wall {walls[-1]:.3f} s, '
           f'{pixels / walls[-1] / 1e6:.1f} Mpix/s; phases '
           + ', '.join(f'{k} {v:.3f}' for k, v in timings.items()))
   peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+  summarize(run, walls, KERNELS, OUT)
+  print(f'peak device memory {peak_gb:.2f} GB')
+  return 0
 
-  summarize(lambda: stack_align.align_stack_pipelined(
-      stack, cfg, out_dtype=torch.uint8), walls, KERNELS, OUT)
+
+def masked_main() -> int:
+  """chip_smoke.py's masked coarse-to-fine run on the stack's first pair."""
+  import chip_smoke
+  from sofima_tpu_torch import flow_field
+
+  dev = torch.device('cuda', 0)
+  n = chip_smoke.N
+  stack = chip_smoke.make_stack(chip_smoke.texture(n, dev), 2)
+  pre, post = stack[0].float(), stack[1].float()
+  del stack
+  mask = chip_smoke.bench_mask(n, dev)
+  run = lambda: flow_field.coarse_to_fine_flow(
+      pre, post, pre_mask=mask, post_mask=mask, max_displacement=128,
+      residual=16)
+  run()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats(dev)
+  walls = []
+  for i in range(RUNS):
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    print(f'run {i + 1}: wall {walls[-1]:.3f} s, '
+          f'{n * n / walls[-1] / 1e6:.1f} Mpix/s')
+  peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+  summarize(run, walls, KERNELS_MASKED, OUT_MASKED)
   print(f'peak device memory {peak_gb:.2f} GB')
   return 0
 
@@ -202,4 +239,7 @@ def setup() -> bool:
 if __name__ == '__main__':
   if not setup():
     sys.exit(2)
-  sys.exit(stitch3d_main() if '--stitch3d' in sys.argv[1:] else main())
+  args = sys.argv[1:]
+  if '--stitch3d' in args:
+    sys.exit(stitch3d_main())
+  sys.exit(masked_main() if '--masked' in args else main('--warm' in args))

@@ -4,11 +4,13 @@ A second package beside `sofima_tpu` (the JAX reference, which stays as
 it is). The layout mirrors the reference so each module's twin is easy
 to find; every module docstring names its `sofima_tpu` counterpart.
 
-Slice ported so far: serial-section stack alignment
-(`pipeline.stack_align`): flow -> clean -> solve -> invert -> render.
-The four Pallas kernels on that path are hand-written CUDA kernels for
-Hopper (`csrc/*.cu`, built with nvcc at first use by `ops._build`);
-each has a plain PyTorch version beside it that serves CPU tensors.
+Ported so far: serial-section stack alignment (`pipeline.stack_align`:
+flow -> clean -> solve -> invert -> render, cold or warm-started, with
+masked flow in `flow_field`) and 3d tile stitching
+(`pipeline.stitch3d`) with the 3d mesh solvers. The Pallas kernels on
+those paths are hand-written CUDA kernels for Hopper (`csrc/*.cu`,
+built with nvcc at first use by `ops._build`); each has a plain PyTorch
+version beside it that serves CPU tensors.
 
 Module map:
   flow_field, flow_utils   — coarse-to-fine dense flow and its cleaning
@@ -16,7 +18,7 @@ Module map:
   map_utils                — map composition and inversion
   convert                  — configs and state to and from sofima_tpu
   ops                      — kernels (cuda_*) and small-grid algebra
-  pipeline                 — the stack-alignment pipeline
+  pipeline                 — the stack-alignment and 3d stitching pipelines
 """
 
 __version__ = '0.1.0'

@@ -28,86 +28,17 @@
 //
 // Numerics follow the reference exactly where it matters: per-patch mean
 // removal (the Pallas kernel's DC-bin zeroing is the same operation in
-// exact arithmetic), the zero shift at p/2, a local max over the clipped
-// (2r+1)^2 window (-inf past the edges), threshold_rel * max, first peak
-// at the smallest linear index, sharpness over the clamped window, ratio
-// 0 without a second peak, and a NaN row without a peak.
+// exact arithmetic), the zero shift at p/2, and the peak chain of
+// flow_peaks.cuh (shared with K5, masked_flow.cu).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flow_peaks.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load_zero(const float* __restrict__ img,
                                            int h, int w, int y, int x) {
   return (y >= 0 && y < h && x >= 0 && x < w)
              ? __ldg(img + (int64_t)y * w + x) : 0.0f;
-}
-
-// Block-wide reductions. Every thread returns the same value, summed in
-// the same order in every block (deterministic).
-template <typename Op>
-__device__ float block_reduce(float v, float* red, Op op, float init) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kFull, v, o));
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  v = (lane < (int)(blockDim.x >> 5)) ? red[lane] : init;
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-struct Add { __device__ float operator()(float a, float b) const { return a + b; } };
-struct Max { __device__ float operator()(float a, float b) const { return fmaxf(a, b); } };
-struct Min { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
-
-// Best candidate (value, smallest linear index on ties) and the best value
-// among all other candidates.
-struct Top2 {
-  float v1;
-  int i1;
-  float v2;
-};
-
-__device__ __forceinline__ Top2 merge(Top2 a, Top2 b) {
-  const bool a_first = a.v1 > b.v1 || (a.v1 == b.v1 && a.i1 < b.i1);
-  Top2 r;
-  r.v1 = a_first ? a.v1 : b.v1;
-  r.i1 = a_first ? a.i1 : b.i1;
-  r.v2 = fmaxf(fmaxf(a.v2, b.v2), a_first ? b.v1 : a.v1);
-  return r;
-}
-
-__device__ Top2 block_top2(Top2 t, float* redf, int* redi, float* redf2) {
-  for (int o = 16; o > 0; o >>= 1) {
-    Top2 u;
-    u.v1 = __shfl_xor_sync(kFull, t.v1, o);
-    u.i1 = __shfl_xor_sync(kFull, t.i1, o);
-    u.v2 = __shfl_xor_sync(kFull, t.v2, o);
-    t = merge(t, u);
-  }
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) { redf[wid] = t.v1; redi[wid] = t.i1; redf2[wid] = t.v2; }
-  __syncthreads();
-  if (lane < (int)(blockDim.x >> 5)) {
-    t.v1 = redf[lane]; t.i1 = redi[lane]; t.v2 = redf2[lane];
-  } else {
-    t.v1 = -INFINITY; t.i1 = INT32_MAX; t.v2 = -INFINITY;
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    Top2 u;
-    u.v1 = __shfl_xor_sync(kFull, t.v1, o);
-    u.i1 = __shfl_xor_sync(kFull, t.i1, o);
-    u.v2 = __shfl_xor_sync(kFull, t.v2, o);
-    t = merge(t, u);
-  }
-  return t;
 }
 
 // ctab[j * p + k] = cos(2 pi jk / p), stab[j * p + k] = sin(2 pi jk / p).
@@ -246,69 +177,9 @@ flow_peaks_kernel(const float* __restrict__ pre, const float* __restrict__ post,
     }
     __syncthreads();
 
-    // 6. Peak chain on the [crop, crop] surface.
-    float lmax = -INFINITY, lnan = 0.0f;
-    for (int e = tid; e < n1 * n1; e += nt) {
-      const float v = corr[e];
-      if (isnan(v)) lnan = 1.0f;
-      lmax = fmaxf(lmax, v);
-    }
-    const float gmax = block_reduce(lmax, redf, Max(), -INFINITY);
-    const float any_nan = block_reduce(lnan, redf, Max(), 0.0f);
-    const float thr = threshold_rel * gmax;
-    Top2 t;
-    t.v1 = -INFINITY; t.i1 = INT32_MAX; t.v2 = -INFINITY;
-    for (int e = tid; e < n1 * n1; e += nt) {
-      const int r = e / n1, c = e - r * n1;
-      const float v = corr[e];
-      float m = -INFINITY;
-      for (int dy = -min_distance; dy <= min_distance; ++dy) {
-        const int rr = r + dy;
-        if (rr < 0 || rr >= n1) continue;
-        for (int dx = -min_distance; dx <= min_distance; ++dx) {
-          const int cc = c + dx;
-          if (cc < 0 || cc >= n1) continue;
-          m = fmaxf(m, corr[rr * n1 + cc]);
-        }
-      }
-      if (v == m && v > thr) {
-        Top2 u;
-        u.v1 = v; u.i1 = e; u.v2 = -INFINITY;
-        t = merge(t, u);
-      }
-    }
-    t = block_top2(t, redf, redi, redf2);
-    const bool no_peak = any_nan != 0.0f || t.v1 == -INFINITY;
-    const int size = 2 * peak_radius + 1;
-    int py = 0, px = 0, wy0 = 0, wx0 = 0;
-    if (!no_peak) {
-      py = t.i1 / n1;
-      px = t.i1 - py * n1;
-      wy0 = min(max(py - peak_radius, 0), n1 - size);
-      wx0 = min(max(px - peak_radius, 0), n1 - size);
-    }
-    float lmin = INFINITY;
-    if (!no_peak) {
-      for (int e = tid; e < size * size; e += nt) {
-        const int yy = wy0 + e / size, xx = wx0 + e % size;
-        if (yy >= 0 && yy < n1 && xx >= 0 && xx < n1)
-          lmin = fminf(lmin, corr[yy * n1 + xx]);
-      }
-    }
-    const float wmin = block_reduce(lmin, redf, Min(), INFINITY);
-    if (tid == 0) {
-      float ox = NAN, oy = NAN, sharp = NAN, ratio = NAN;
-      if (!no_peak) {
-        ox = (float)(px - n1 / 2);
-        oy = (float)(py - n1 / 2);
-        sharp = t.v1 / wmin;
-        ratio = (t.v2 == -INFINITY) ? 0.0f : t.v1 / t.v2;
-      }
-      out[pidx] = ox;
-      out[plane + pidx] = oy;
-      out[2 * plane + pidx] = sharp;
-      out[3 * plane + pidx] = ratio;
-    }
+    // 6. Peak chain on the [crop, crop] surface (flow_peaks.cuh).
+    peak_chain(corr, n1, min_distance, threshold_rel, peak_radius, out,
+               plane, pidx, redf, redi, redf2);
     __syncthreads();
   }
 }

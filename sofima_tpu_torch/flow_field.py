@@ -3,30 +3,43 @@
 Twin of sofima_tpu/flow_field.py. Ported:
   * the peak contract of `_batched_peaks`, 2d and 3d
     (ops.cuda_flow.batched_peaks);
-  * the circular, unmasked dense-grid branch of `dense_flow_field`: 2d
-    backed by kernel K1 (ops.cuda_flow.dense_flow_peaks), 3d by the
-    strip path `_dense_flow_strips_3d` (patch-periodic FFT correlation,
-    torch.fft as the reference leaves it to XLA's FFT, then the peaks);
-  * the targeted branch of `coarse_to_fine_flow`: coarse pass (K1),
-    robustified prior, `rint(-coarse)` window offsets clipped to
-    `max_displacement` (the `overflow` flag), the fine crop, and the fine
-    pass (K2) with `peak_crop`.
-Masks, the masked coarse-to-fine fallback and warm-start priors are
-still to be ported (ROADMAP.md, Queue 1 "Slice 1b") and raise
+  * the circular dense-grid branch of `dense_flow_field`: 2d backed by
+    kernel K1 (ops.cuda_flow.dense_flow_peaks) and, with masks, K5
+    (ops.cuda_flow.masked_dense_flow_peaks, masked Padfield NCC); 3d by
+    the strip path `_dense_flow_strips_3d` (patch-periodic FFT
+    correlation, torch.fft as the reference leaves it to XLA's FFT, the
+    masked Padfield twin `_masked_xcorr_circular_fft`, then the peaks);
+  * `coarse_to_fine_flow`: the coarse pass (K1, or K5 with masks) or a
+    warm-start `prior`, the robustified prior, and then
+      - unmasked, the targeted fine pass: `rint(-coarse)` window offsets
+        clipped to `max_displacement` (the `overflow` flag), the fine
+        crop and K2 with `peak_crop`;
+      - masked, the integer-shift transport of `post` and its mask (K4 in
+        'nearest' mode), the fine masked pass (K5) and the add-back of
+        the rounded shift (`overflow` from the transport's plan);
+  * `JAXMaskedXCorrWithStatsCalculator`, its dense branch (mode other
+    than 'padfield', no targeting fields), with the host-side occupancy
+    and selection deselection.
+The calculator's padfield mode and targeting fields are still to be
+ported (ROADMAP.md Queue 1, Slice 2 item 5) and raise
 NotImplementedError.
 """
 
 from __future__ import annotations
 
+import collections.abc
+
+import numpy as np
 import torch
 
+from sofima_tpu_torch import placement
 from sofima_tpu_torch.ops import cuda_flow
+from sofima_tpu_torch.ops import cuda_warp
 from sofima_tpu_torch.ops import interp as interp_ops
+from sofima_tpu_torch.ops import shift_warp
+from sofima_tpu_torch.utils import geom
 
 _batched_peaks = cuda_flow.batched_peaks
-
-_TODO_MASKS = ('masked flow is not ported yet (ROADMAP.md Queue 1, '
-               'Slice 1b: masked coarse-to-fine path)')
 
 
 def _strip_patches_3d(slab: torch.Tensor, grid_y: int, grid_x: int,
@@ -44,16 +57,40 @@ def _strip_patches_3d(slab: torch.Tensor, grid_y: int, grid_x: int,
   return p.permute(1, 2, 0, 3, 4).reshape(grid_y * grid_x, *patch)
 
 
+def _masked_xcorr_circular_fft(pre_b: torch.Tensor, post_b: torch.Tensor,
+                               pre_valid: torch.Tensor,
+                               post_valid: torch.Tensor,
+                               patch_size) -> torch.Tensor:
+  """Dim-generic circular masked NCC (Padfield) via FFTs.
+
+  Twin of flow_field._masked_xcorr_circular_fft: the six Padfield terms as
+  circular correlations on the patch-periodic torus (torch.fft), with the
+  reference's batch rules: the denominator tolerance and the 0.3 x max
+  overlap cut are taken over the whole batch (one grid z-row).
+  """
+  axes = tuple(range(-len(patch_size), 0))
+  return cuda_flow.padfield_ncc(
+      torch.where(pre_valid, pre_b, torch.zeros_like(pre_b)),
+      torch.where(post_valid, post_b, torch.zeros_like(post_b)),
+      pre_valid, post_valid, lambda x: torch.fft.rfftn(x, dim=axes),
+      lambda a, b: torch.fft.irfftn(a * torch.conj(b), s=tuple(patch_size),
+                                    dim=axes),
+      per_patch=False)
+
+
 def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
                           patch_size, step, mean: float | None,
                           min_distance: int, threshold_rel: float,
-                          peak_radius: int) -> torch.Tensor:
+                          peak_radius: int, pre_mask=None,
+                          post_mask=None) -> torch.Tensor:
   """Dense circular 3d flow over grid z-rows -> [5, gz, gy, gx].
 
   Per z-row: one [pz, strip_h, strip_w] slab of each image, its patches,
-  mean removal, the patch-periodic cross-correlation
-  irfftn(F(pre) conj(F(post))) with the zero shift rolled to the patch
-  centre, and the peak statistics (x, y, z, sharpness, ratio).
+  mean removal (over valid voxels where masked), the patch-periodic
+  cross-correlation irfftn(F(pre) conj(F(post))), or with masks (True =
+  invalid) the Padfield NCC `_masked_xcorr_circular_fft`, with the zero
+  shift rolled to the patch centre, and the peak statistics (x, y, z,
+  sharpness, ratio).
   """
   pz, py, px = patch_size
   sz, sy, sx = step
@@ -76,15 +113,33 @@ def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
                                patch_size, step)
 
     a, b = patches(pre_image), patches(post_image)
+    va = vb = None
+    if pre_mask is not None:
+      va = patches(pre_mask.to(torch.float32)) <= 0
+    if post_mask is not None:
+      vb = patches(post_mask.to(torch.float32)) <= 0
+
+    def masked_mean(batch, valid):
+      if valid is None:
+        return batch.mean(dim=axes, keepdim=True)
+      count = torch.clamp(valid.sum(dim=axes, keepdim=True), min=1)
+      return (torch.where(valid, batch, torch.zeros_like(batch))
+              .sum(dim=axes, keepdim=True) / count)
+
     if mean is None:
-      a = a - a.mean(dim=axes, keepdim=True)
-      b = b - b.mean(dim=axes, keepdim=True)
+      a = a - masked_mean(a, va)
+      b = b - masked_mean(b, vb)
     else:
       a, b = a - mean, b - mean
-    fa = torch.fft.rfftn(a, dim=axes)
-    fb = torch.fft.rfftn(b, dim=axes)
-    corr = torch.fft.irfftn(fa * torch.conj(fb), s=tuple(patch_size),
-                            dim=axes)
+    if va is not None or vb is not None:
+      va = torch.ones_like(a, dtype=torch.bool) if va is None else va
+      vb = torch.ones_like(b, dtype=torch.bool) if vb is None else vb
+      corr = _masked_xcorr_circular_fft(a, b, va, vb, patch_size)
+    else:
+      fa = torch.fft.rfftn(a, dim=axes)
+      fb = torch.fft.rfftn(b, dim=axes)
+      corr = torch.fft.irfftn(fa * torch.conj(fb), s=tuple(patch_size),
+                              dim=axes)
     corr = torch.roll(corr, center, dims=axes)
     rows.append(_batched_peaks(corr, center, min_distance, threshold_rel,
                                peak_radius))
@@ -99,13 +154,12 @@ def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
                      pre_mask=None, post_mask=None) -> torch.Tensor:
   """Flow over the full dense patch grid.
 
-  2d: [4, gy, gx] (x, y, sharpness, ratio), via kernel K1 (float32
-  correlation). 3d: [5, gz, gy, gx] (x, y, z, sharpness, ratio), via the
-  strip path (stride must divide the patch size). Only the circular,
-  unmasked branches are ported.
+  2d: [4, gy, gx] (x, y, sharpness, ratio), via kernel K1, or K5 when a
+  mask is given (float32 correlation; any geometry). 3d: [5, gz, gy, gx]
+  (x, y, z, sharpness, ratio), via the strip path (stride must divide
+  the patch size). Masks are True (or > 0) where a pixel is invalid.
+  Only the circular branches are ported.
   """
-  if pre_mask is not None or post_mask is not None:
-    raise NotImplementedError(_TODO_MASKS)
   if not circular:
     raise NotImplementedError('only circular dense flow is ported')
   if tuple(pre_image.shape) != tuple(post_image.shape):
@@ -116,9 +170,16 @@ def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
                                 'the patch size (the strip path)')
     return _dense_flow_strips_3d(pre_image, post_image, tuple(patch_size),
                                  tuple(step), mean, min_distance,
-                                 threshold_rel, peak_radius)
+                                 threshold_rel, peak_radius,
+                                 pre_mask=pre_mask, post_mask=post_mask)
   if pre_image.ndim != 2:
     raise ValueError('2d or 3d images expected')
+  if pre_mask is not None or post_mask is not None:
+    valid = [None if m is None else ~(m > 0) for m in (pre_mask, post_mask)]
+    return cuda_flow.masked_dense_flow_peaks(
+        pre_image, post_image, valid[0], valid[1], tuple(patch_size),
+        tuple(step), mean=mean, min_distance=min_distance,
+        threshold_rel=threshold_rel, peak_radius=peak_radius)
   return cuda_flow.dense_flow_peaks(
       pre_image, post_image, tuple(patch_size), tuple(step), mean=mean,
       min_distance=min_distance, threshold_rel=threshold_rel,
@@ -141,32 +202,37 @@ def _nanmedian(c: torch.Tensor) -> torch.Tensor:
 def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
                         patch_size=(160, 160), step=(40, 40),
                         coarse_step=None, fine_patch=None,
-                        max_displacement: int = 96, pre_mask=None,
-                        post_mask=None, min_distance: int = 2,
+                        max_displacement: int = 96, residual: int = 8,
+                        pre_mask=None, post_mask=None, min_distance: int = 2,
                         threshold_rel: float = 0.5, peak_radius: int = 5,
                         return_overflow: bool = False,
-                        peak_crop: int | None = None, prior=None):
+                        peak_crop: int | None = None, prior=None,
+                        prior_step=None, prior_origin=None):
   """Coarse-to-fine dense flow on the `dense_flow_field(patch_size, step)`
   grid -> [4, gy, gx] (and the overflow flag with `return_overflow`).
 
-  1. COARSE: full patches on a `coarse_step` grid (K1);
+  1. COARSE: full patches on a `coarse_step` grid (K1; K5 with masks),
+     or a warm-start `prior` in its place;
   2. the coarse field is NaN-filled with its median, 3x3-median filtered
      and clipped to +-max_displacement;
-  3. FINE: `fine_patch` patches at `step` on the image cropped so their
-     centers land on the target grid; each rows x group block of patches
-     correlates a post window shifted by rint(-coarse) at the block
-     center (K2; `peak_crop` restricts the peak search);
-  4. flow = fine peak - window shift.
+  3. unmasked, the TARGETED fine pass: `fine_patch` patches at `step` on
+     the image cropped so their centers land on the target grid; each
+     rows x group block of patches correlates a post window shifted by
+     rint(-coarse) at the block center (K2; `peak_crop` restricts the
+     peak search); flow = fine peak - window shift. `overflow` flags a
+     coarse prior beyond `max_displacement`;
+  4. masked (masks True where a pixel is invalid), the integer-shift
+     transport: `post` and its mask move by the rounded dense prior (K4,
+     'nearest', an exact gather), the fine masked pass (K5) measures the
+     residual on the cropped pair, and the same rounded shift is added
+     back at the node centers. `overflow` flags the transport's
+     residual-lattice envelope (`residual`, reference's static plan).
 
-  `overflow` flags a coarse prior beyond `max_displacement` (the window
-  was targeted at the clipped offset).
+  `prior`: [2+, ny, nx] (dx, dy) flow on a grid of spacing `prior_step`
+  (default `coarse_step`) whose node (0, 0) sits at pixel
+  `prior_origin` (default: the patch center). On the masked path the
+  origin must not exceed the step (ValueError).
   """
-  if pre_mask is not None or post_mask is not None:
-    raise NotImplementedError(_TODO_MASKS)
-  if prior is not None:
-    raise NotImplementedError(
-        'warm-start priors are not ported yet (ROADMAP.md Queue 1, '
-        'Slice 1b: warm_start with its stale-prior refresh)')
   py, px = patch_size
   sy, sx = step
   if coarse_step is None:
@@ -185,10 +251,18 @@ def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
   pre_image = pre_image.to(torch.float32)
   post_image = post_image.to(torch.float32)
 
-  coarse = dense_flow_field(pre_image, post_image, patch_size, coarse_step,
-                            min_distance=min_distance,
-                            threshold_rel=threshold_rel,
-                            peak_radius=peak_radius)
+  if prior is not None:
+    cx, cy = prior[0], prior[1]
+    csy, csx = prior_step if prior_step is not None else coarse_step
+    if csy != csx:
+      raise ValueError('prior_step must be isotropic')
+  else:
+    coarse = dense_flow_field(pre_image, post_image, patch_size, coarse_step,
+                              min_distance=min_distance,
+                              threshold_rel=threshold_rel,
+                              peak_radius=peak_radius, pre_mask=pre_mask,
+                              post_mask=post_mask)
+    cx, cy = coarse[0], coarse[1]
 
   def robustify(c):
     med = torch.nan_to_num(_nanmedian(c))
@@ -202,9 +276,12 @@ def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
     c = torch.sort(stacked, dim=0).values[4]
     return torch.clamp(c, -max_displacement, max_displacement)
 
-  cx = robustify(coarse[0])
-  cy = robustify(coarse[1])
-  cy0, cx0 = py // 2, px // 2  # first coarse node center
+  cx = robustify(cx.to(torch.float32))
+  cy = robustify(cy.to(torch.float32))
+  if prior is not None and prior_origin is not None:
+    cy0, cx0 = prior_origin
+  else:
+    cy0, cx0 = py // 2, px // 2  # first node center
 
   gy = (h - (py - sy)) // sy
   gx = (w - (px - sx)) // sx
@@ -212,36 +289,187 @@ def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
   k0x = (px // 2 - fx // 2 - crop_x) // sx
   hc, wc = h - crop_y, w - crop_x
 
-  gy_f = (hc - (fine_patch[0] - sy)) // sy
-  rows_f = 4 if ((3 * sy + fine_patch[0]) % 8 == 0 and gy_f >= 4) else None
-  geo = cuda_flow.targeted_geometry((hc, wc), fine_patch, step, rows=rows_f)
-  dev = pre_image.device
-  ctr_y = ((torch.arange(geo['nrsteps'], dtype=torch.float32, device=dev)
-            * (geo['rows'] * sy) + geo['win_r'] / 2.0 + crop_y - cy0) / csy)
-  ctr_x = ((torch.arange(geo['ngroups'], dtype=torch.float32, device=dev)
-            * (geo['group'] * sx) + geo['win_c'] / 2.0 + crop_x - cx0) / csx)
-  nr, ng = geo['nrsteps'], geo['ngroups']
-  mesh2 = torch.stack([ctr_y[:, None].expand(nr, ng),
-                       ctr_x[None, :].expand(nr, ng)])
-  fx_c = interp_ops.grid_sample_linear(cx, mesh2)
-  fy_c = interp_ops.grid_sample_linear(cy, mesh2)
-  offs_raw = torch.stack([torch.round(-fy_c), torch.round(-fx_c)], dim=-1)
-  offs = torch.clamp(offs_raw, -max_displacement,
-                     max_displacement).to(torch.int32)
-  overflow = torch.any(torch.abs(offs_raw) > max_displacement)
-
   def fine_crop(img):
-    return img[crop_y:, crop_x:] if (crop_y or crop_x) else img
+    if img is None or not (crop_y or crop_x):
+      return img
+    return img[crop_y:, crop_x:]
 
-  fine = cuda_flow.dense_flow_peaks_targeted(
-      fine_crop(pre_image), fine_crop(post_image), offs, tuple(fine_patch),
-      tuple(step), max_offset=max_displacement, min_distance=min_distance,
-      threshold_rel=threshold_rel, peak_radius=peak_radius,
-      peak_crop=peak_crop, rows=rows_f)
-  off = torch.repeat_interleave(offs.to(torch.float32), geo['rows'], dim=0)
-  off = torch.repeat_interleave(off, geo['group'], dim=1)
-  off = off[:geo['gy'], :geo['gx']]
-  total = torch.stack([fine[0] - off[..., 1], fine[1] - off[..., 0],
-                       fine[2], fine[3]])
-  total = total[:, k0y:k0y + gy, k0x:k0x + gx]
-  return (total, overflow) if return_overflow else total
+  def result(flow, overflow):
+    return (flow, overflow) if return_overflow else flow
+
+  if pre_mask is None and post_mask is None:
+    gy_f = (hc - (fine_patch[0] - sy)) // sy
+    rows_f = 4 if ((3 * sy + fine_patch[0]) % 8 == 0 and gy_f >= 4) else None
+    geo = cuda_flow.targeted_geometry((hc, wc), fine_patch, step,
+                                      rows=rows_f)
+    dev = pre_image.device
+    ctr_y = ((torch.arange(geo['nrsteps'], dtype=torch.float32, device=dev)
+              * (geo['rows'] * sy) + geo['win_r'] / 2.0 + crop_y - cy0) / csy)
+    ctr_x = ((torch.arange(geo['ngroups'], dtype=torch.float32, device=dev)
+              * (geo['group'] * sx) + geo['win_c'] / 2.0 + crop_x - cx0)
+             / csx)
+    nr, ng = geo['nrsteps'], geo['ngroups']
+    mesh2 = torch.stack([ctr_y[:, None].expand(nr, ng),
+                         ctr_x[None, :].expand(nr, ng)])
+    fx_c = interp_ops.grid_sample_linear(cx, mesh2)
+    fy_c = interp_ops.grid_sample_linear(cy, mesh2)
+    offs_raw = torch.stack([torch.round(-fy_c), torch.round(-fx_c)], dim=-1)
+    offs = torch.clamp(offs_raw, -max_displacement,
+                       max_displacement).to(torch.int32)
+    overflow = torch.any(torch.abs(offs_raw) > max_displacement)
+    fine = cuda_flow.dense_flow_peaks_targeted(
+        fine_crop(pre_image), fine_crop(post_image), offs, tuple(fine_patch),
+        tuple(step), max_offset=max_displacement, min_distance=min_distance,
+        threshold_rel=threshold_rel, peak_radius=peak_radius,
+        peak_crop=peak_crop, rows=rows_f)
+    off = torch.repeat_interleave(offs.to(torch.float32), geo['rows'], dim=0)
+    off = torch.repeat_interleave(off, geo['group'], dim=1)
+    off = off[:geo['gy'], :geo['gx']]
+    total = torch.stack([fine[0] - off[..., 1], fine[1] - off[..., 0],
+                         fine[2], fine[3]])
+    return result(total[:, k0y:k0y + gy, k0x:k0x + gx], overflow)
+
+  # MASKED: transport post toward pre (post_w(q) = post(q - f)) by the
+  # rounded dense prior, then the fine masked pass on the resampled pair.
+  if cy0 > csy or cx0 > csx:
+    # The one-node extrapolation below covers a phase deficit of at most
+    # one prior cell; an earlier origin would need a negative phase.
+    raise ValueError('masked coarse_to_fine requires the coarse/prior '
+                     'grid origin to be <= its step '
+                     f'(origin ({cy0}, {cx0}), step ({csy}, {csx}))')
+  g = torch.stack([-cy, -cx])  # (y, x) displacement at the prior's nodes
+
+  def prepend(v, axis):
+    first, second = v.narrow(axis, 0, 1), v.narrow(axis, 1, 1)
+    return torch.cat([2.0 * first - second, v], dim=axis)
+
+  # Integer shifts: the nearest gather below copies whole pixels, and the
+  # add-back reads the same rounded field, so rounding cancels exactly.
+  dense_g = torch.round(interp_ops.upsample_map_linear(
+      prepend(prepend(g, 1), 2), csy, (csy - cy0, csx - cx0), (h, w)))
+  dev = pre_image.device
+  yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+  xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+  coords = torch.stack([yy + dense_g[0], xx + dense_g[1]])[None].contiguous()
+  node_y = cy0 + np.arange(cy.shape[0], dtype=np.float64) * csy
+  node_x = cx0 + np.arange(cx.shape[1], dtype=np.float64) * csx
+  md = -(-max_displacement // 64) * 64
+  plan = shift_warp.tiled_plan_device(
+      g[0][None], g[1][None], node_y, node_x, (h, w),
+      (-residual, residual, -residual, residual), (-md, md, -md, md))
+
+  def warp_nearest(plane):
+    return cuda_warp.shift_warp(plane.to(torch.float32)[None].contiguous(),
+                                coords, 'nearest')[0]
+
+  post_w = warp_nearest(post_image)
+  # Pixels pulled from outside the image read 0 (valid).
+  post_mask_w = None if post_mask is None else warp_nearest(post_mask) > 0.5
+  fine = dense_flow_field(
+      fine_crop(pre_image), fine_crop(post_w), fine_patch, step,
+      min_distance=min_distance, threshold_rel=threshold_rel,
+      peak_radius=peak_radius, pre_mask=fine_crop(pre_mask),
+      post_mask=fine_crop(post_mask_w))
+  fine_c = fine[:, k0y:k0y + gy, k0x:k0x + gx]
+  # The applied (rounded) shift at each node center (py//2 + i sy, ...).
+  gi_c = dense_g[:, py // 2::sy, px // 2::sx][:, :gy, :gx]
+  total = torch.stack([fine_c[0] - gi_c[1], fine_c[1] - gi_c[0], fine_c[2],
+                       fine_c[3]])
+  return result(total, plan['overflow'])
+
+
+def _tuple(v, ndim: int):
+  if v is None:
+    return None
+  if isinstance(v, collections.abc.Sequence):
+    return tuple(int(i) for i in v)
+  return (int(v),) * ndim
+
+
+def _host(v):
+  return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else (
+      np.asarray(v))
+
+
+class JAXMaskedXCorrWithStatsCalculator:
+  """Grid-driven flow-field estimator; the port keeps the reference's name.
+
+  Twin of flow_field.JAXMaskedXCorrWithStatsCalculator, its dense branch
+  (`mode` other than 'padfield', no targeting fields): the whole grid in
+  one `dense_flow_field` call (K1, or K5 with pixel masks), then host-side
+  deselection (NaN) of nodes whose patches are at least `max_masked`
+  masked or that `selection_mask` drops. Images go to `device` (default:
+  the CUDA card; tensors stay where they are). The result is numpy, as
+  the reference returns. Every mode correlates in float32
+  ('circular_dft_bf16' included).
+  """
+
+  non_spatial_flow_channels = 2  # peak sharpness, peak ratio
+
+  def __init__(self, mean: float | None = None, peak_min_distance: float = 2,
+               peak_radius: float = 5, device=None):
+    self._mean = mean
+    self._min_distance = peak_min_distance
+    self._peak_radius = peak_radius
+    self._device = device
+
+  def flow_field(self, pre_image, post_image, patch_size, step, pre_mask=None,
+                 post_mask=None, mask_only_for_patch_selection: bool = False,
+                 selection_mask=None, max_masked: float = 0.75,
+                 batch_size: int = 1024, post_patch_size=None,
+                 pre_targeting_field=None, pre_targeting_step=None,
+                 post_targeting_field=None, post_targeting_step=None,
+                 progress_fn=None, mode: str = 'padfield') -> np.ndarray:
+    """Flow from `post` to `pre` -> [dim+2, *grid] numpy, NaN where no
+    estimate was made (see the reference for the conventions).
+
+    `batch_size` and `progress_fn` only shape the reference's dispatch;
+    the dense branch here is one call.
+    """
+    del batch_size, progress_fn
+    ndim = pre_image.ndim
+    if mode == 'padfield':
+      raise NotImplementedError(
+          "the calculator's padfield mode is not ported yet (ROADMAP.md "
+          'Queue 1, Slice 2 item 5: masked_xcorr); use a circular mode')
+    if pre_targeting_field is not None or post_targeting_field is not None:
+      raise NotImplementedError(
+          'targeting fields are not ported yet (ROADMAP.md Queue 1, Slice 2 '
+          'item 5: the padfield calculator)')
+    if ndim != 2 and (pre_mask is not None or post_mask is not None
+                      or selection_mask is not None):
+      raise NotImplementedError(
+          'masked or selected 3d runs take the padfield calculator, not '
+          'ported yet (ROADMAP.md Queue 1, Slice 2 item 5)')
+    patch_t = _tuple(patch_size, ndim)
+    step_t = _tuple(step, ndim)
+    post_patch_t = _tuple(post_patch_size, ndim)
+    if post_patch_t is not None and post_patch_t != patch_t:
+      raise ValueError('circular mode requires equal pre/post patch sizes')
+
+    # Host-side deselection (occupancy + explicit selection mask).
+    out_shape = (np.array(post_image.shape) - (np.array(patch_t) - step_t)
+                 ) // step_t
+    out_sel = tuple(np.s_[:n] for n in out_shape)
+    keep = np.ones(out_shape, dtype=bool)
+    if selection_mask is not None:
+      keep &= np.array(_host(selection_mask)[out_sel], dtype=bool)
+    for mask in (pre_mask, post_mask):
+      if mask is not None:
+        occ = geom.query_integral_image(
+            geom.integral_image_np(_host(mask)), patch_t, step_t)
+        keep &= ~(occ / np.prod(patch_t) >= max_masked)[out_sel]
+
+    pixel_masks = not mask_only_for_patch_selection
+    dev = self._device
+    masks = [placement.place(m, dev) if pixel_masks and m is not None
+             else None for m in (pre_mask, post_mask)]
+    out = dense_flow_field(
+        placement.place(pre_image, dev, torch.float32),
+        placement.place(post_image, dev, torch.float32), patch_t, step_t,
+        mean=self._mean, min_distance=int(self._min_distance),
+        peak_radius=int(self._peak_radius), pre_mask=masks[0],
+        post_mask=masks[1])
+    result = out.cpu().numpy().copy()
+    result[:, ~keep] = np.nan
+    return result

@@ -48,6 +48,7 @@ build_log: str = ''
 launch_counts: dict[str, int] = {
     'dense_flow_peaks': 0,      # K1: coarse pass
     'targeted_flow_peaks': 0,   # K2: fine pass
+    'masked_flow_peaks': 0,     # K5: masked passes
     'fused_fire': 0,            # K3: mesh solve
     'warp_gather': 0,           # K4: render
     'force3d': 0,               # K9: 3d mesh force

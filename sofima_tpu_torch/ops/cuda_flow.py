@@ -1,12 +1,17 @@
-"""Kernels K1 and K2, dense-grid flow peaks: CUDA wrappers and plain twin.
+"""Kernels K1, K2 and K5, dense-grid flow peaks: CUDA wrappers and plain twins.
 
 Twin of sofima_tpu/ops/pallas_flow.py: `dense_flow_peaks_pallas` (K1,
-Pallas body `_grid_kernel`, unmasked) and `dense_flow_peaks_targeted`
-(K2, `_grid_kernel_targeted`), plus `targeted_geometry`, ported only as
-the rule for the granularity of the fine-pass window offsets. Both
-entries launch the one kernel in csrc/flow_peaks.cu: K1 with no offsets,
-K2 with per-patch post-window offsets expanded from the per-block
-[nrsteps, ngroups, 2] offsets and an optional centered `peak_crop`.
+Pallas body `_grid_kernel`, unmasked), `dense_flow_peaks_targeted`
+(K2, `_grid_kernel_targeted`) and `dense_flow_peaks_pallas` with valid
+planes (K5, `_grid_kernel_masked`), plus `targeted_geometry`, ported only
+as the rule for the granularity of the fine-pass window offsets. K1 and
+K2 launch the one kernel in csrc/flow_peaks.cu: K1 with no offsets, K2
+with per-patch post-window offsets expanded from the per-block
+[nrsteps, ngroups, 2] offsets and an optional centered `peak_crop`. K5
+(`masked_dense_flow_peaks`, csrc/masked_flow.cu) computes the circular
+Padfield NCC of each patch pair under its valid masks and shares the
+peak chain (csrc/flow_peaks.cuh); its denominator tolerance is per patch
+(see `padfield_ncc` and the kernel's source note).
 
 For every patch pair on the grid (pre at (i*sy, j*sx), post at the same
 position plus its offset, zeros outside the image) the kernel removes
@@ -33,9 +38,10 @@ from sofima_tpu_torch.ops import _build
 
 # Patches per chunk in the plain version (bounds its memory).
 _PLAIN_CHUNK = 512
-# Largest per-block working set the kernel keeps in shared memory (of the
-# H100's 227 KB); above it each block works in global scratch instead.
-_MAX_SMEM_BYTES = 200 * 1024
+# Largest per-block working set the kernels keep in dynamic shared memory
+# (of the H100's 227 KB, less the static reduction arrays); above it each
+# block works in global scratch instead.
+_MAX_SMEM_BYTES = 226 * 1024
 
 
 def targeted_geometry(shape, patch_size, step, group=None, rows=None):
@@ -94,36 +100,97 @@ def _dft_mats_np(n: int):
   return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
-def circular_xcorr(pre_b: torch.Tensor, post_b: torch.Tensor) -> torch.Tensor:
-  """irfft2(F(pre) conj(F(post))) of [b, n, n] batches via DFT matmuls.
+def _rdft2(img: torch.Tensor):
+  """Half-spectrum 2d DFT of [b, n1, n2] via DFT matmuls -> (re, im).
 
-  Plain-version transcription of flow_field._circular_xcorr_matmul (f32).
+  Plain-version transcription of flow_field._rdft2 (f32).
   """
-  n1, n2 = pre_b.shape[-2:]
-  dev = pre_b.device
+  n1, n2 = img.shape[-2:]
+  dev = img.device
   wr1, wi1 = (torch.as_tensor(m, device=dev) for m in _dft_mats_np(n1))
-  fr2, fi2, br2, bi2 = (torch.as_tensor(m, device=dev)
-                        for m in _rdft_mats_np(n2))
-
-  def rdft2(img):
-    ar = torch.einsum('bnm,mh->bnh', img, fr2)
-    ai = torch.einsum('bnm,mh->bnh', img, fi2)
-    fr = (torch.einsum('kn,bnh->bkh', wr1, ar)
-          - torch.einsum('kn,bnh->bkh', wi1, ai))
-    fi = (torch.einsum('kn,bnh->bkh', wr1, ai)
+  fr2, fi2 = (torch.as_tensor(m, device=dev) for m in _rdft_mats_np(n2)[:2])
+  ar = torch.einsum('bnm,mh->bnh', img, fr2)
+  ai = torch.einsum('bnm,mh->bnh', img, fi2)
+  return (torch.einsum('kn,bnh->bkh', wr1, ar)
+          - torch.einsum('kn,bnh->bkh', wi1, ai),
+          torch.einsum('kn,bnh->bkh', wr1, ai)
           + torch.einsum('kn,bnh->bkh', wi1, ar))
-    return fr, fi
 
-  pr, pi = rdft2(pre_b)
-  qr, qi = rdft2(post_b)
-  cr = pr * qr + pi * qi
-  ci = pi * qr - pr * qi
+
+def _irdft2_of_product(a, b, n1: int, n2: int) -> torch.Tensor:
+  """real(iDFT2(A conj(B))) of half spectra (re, im); flow_field's twin."""
+  dev = a[0].device
+  wr1, wi1 = (torch.as_tensor(m, device=dev) for m in _dft_mats_np(n1))
+  br2, bi2 = (torch.as_tensor(m, device=dev) for m in _rdft_mats_np(n2)[2:])
+  (ar, ai), (br, bi) = a, b
+  cr = ar * br + ai * bi
+  ci = ai * br - ar * bi
   gr = (torch.einsum('kn,bnh->bkh', wr1, cr)
         + torch.einsum('kn,bnh->bkh', wi1, ci)) / n1
   gi = (torch.einsum('kn,bnh->bkh', wr1, ci)
         - torch.einsum('kn,bnh->bkh', wi1, cr)) / n1
   return (torch.einsum('bkh,hm->bkm', gr, br2)
           + torch.einsum('bkh,hm->bkm', gi, bi2)) / n2
+
+
+def circular_xcorr(pre_b: torch.Tensor, post_b: torch.Tensor) -> torch.Tensor:
+  """irfft2(F(pre) conj(F(post))) of [b, n, n] batches via DFT matmuls.
+
+  Plain-version transcription of flow_field._circular_xcorr_matmul (f32).
+  """
+  n1, n2 = pre_b.shape[-2:]
+  return _irdft2_of_product(_rdft2(pre_b), _rdft2(post_b), n1, n2)
+
+
+def padfield_ncc(pre_z: torch.Tensor, post_z: torch.Tensor,
+                 pre_valid: torch.Tensor, post_valid: torch.Tensor,
+                 rfft, icorr, per_patch: bool) -> torch.Tensor:
+  """Circular masked NCC (Padfield) of [b, *patch] batches.
+
+  Twin of flow_field._masked_xcorr_circular (2d, DFT matmuls) and
+  `_masked_xcorr_circular_fft` (any rank, FFTs): `pre_z` / `post_z` are
+  the mean-removed patches, zero where invalid; `rfft(x)` gives a
+  spectrum and `icorr(a, b)` the real surface of a * conj(b). The
+  denominator tolerance 1e3 eps max|denom| and the low-overlap cut are
+  taken per patch (`per_patch`: the cut at 0.3 x the patch area, K5's
+  rule) or over the whole batch (the cut at 0.3 x the batch's largest
+  overlap, the reference's strip paths).
+  """
+  eps = float(np.finfo(np.float32).eps)
+  f_p, f_c = rfft(pre_z), rfft(post_z)
+  f_mp, f_mc = rfft(pre_valid.to(torch.float32)), rfft(
+      post_valid.to(torch.float32))
+  f_p2, f_c2 = rfft(pre_z * pre_z), rfft(post_z * post_z)
+  xcorr = icorr(f_p, f_c)
+  overlap = torch.clamp(torch.round(icorr(f_mp, f_mc)), min=eps)
+  inv_overlap = 1.0 / overlap
+  sum_p = icorr(f_p, f_mc)
+  sum_c = icorr(f_mp, f_c)
+  numerator = xcorr - sum_p * sum_c * inv_overlap
+  var_p = torch.clamp(icorr(f_p2, f_mc) - sum_p * sum_p * inv_overlap,
+                      min=0.0)
+  var_c = torch.clamp(icorr(f_mp, f_c2) - sum_c * sum_c * inv_overlap,
+                      min=0.0)
+  denom = torch.sqrt(var_p * var_c)
+  dims = tuple(range(1, denom.ndim)) if per_patch else tuple(
+      range(denom.ndim))
+  tol = 1e3 * eps * torch.amax(torch.abs(denom), dim=dims, keepdim=True)
+  out = torch.where(denom > tol,
+                    numerator / torch.where(denom > tol, denom,
+                                            torch.ones_like(denom)),
+                    torch.zeros_like(denom))
+  out = torch.clamp(out, -1.0, 1.0)
+  if per_patch:
+    cut = _overlap_cut(int(np.prod(pre_z.shape[1:])))
+  else:
+    cut = 0.3 * torch.amax(overlap)
+  return torch.where(overlap < cut, torch.zeros_like(out), out)
+
+
+def _overlap_cut(area: int) -> float:
+  """0.3 x the patch area, rounded once to float32 (as the reference's
+  Python-float threshold meets its float32 overlap)."""
+  return float(np.float32(0.3 * area))
 
 
 def batched_peaks(img: torch.Tensor, center, min_distance: int = 2,
@@ -218,6 +285,107 @@ def flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
     corr = corr[:, lo:lo + crop, lo:lo + crop]
     out.append(batched_peaks(corr, (crop // 2, crop // 2), min_distance,
                              threshold_rel, peak_radius))
+  return torch.cat(out).reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
+
+
+def masked_patch_classes(pre_valid: torch.Tensor, post_valid: torch.Tensor,
+                         patch: int, step) -> torch.Tensor:
+  """K5's branch of each dense-grid patch pair -> int [gy, gx].
+
+  0 impure, 1 pure (both patches fully valid), 2 dead (either patch
+  without a valid pixel); exact integer counts of `valid > 0` pixels
+  from integral images.
+  """
+  sy, sx = step
+  h, w = pre_valid.shape
+  gy, gx = (h - (patch - sy)) // sy, (w - (patch - sx)) // sx
+  dev = pre_valid.device
+  ys = torch.arange(gy, device=dev) * sy
+  xs = torch.arange(gx, device=dev) * sx
+
+  def counts(valid):
+    ii = torch.nn.functional.pad(
+        (valid > 0).to(torch.int64).cumsum(0).cumsum(1), (1, 0, 1, 0))
+    y1, x1 = ys + patch, xs + patch
+    return (ii[y1][:, x1] - ii[ys][:, x1] - ii[y1][:, xs] + ii[ys][:, xs])
+
+  ca, cb = counts(pre_valid), counts(post_valid)
+  area = patch * patch
+  dead = (ca == 0) | (cb == 0)
+  pure = (ca == area) & (cb == area)
+  return torch.where(dead, 2, pure.to(torch.int64))
+
+
+def masked_flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
+                            pre_valid: torch.Tensor, post_valid: torch.Tensor,
+                            grid: tuple[int, int], patch: int,
+                            step: tuple[int, int], mean: float | None,
+                            min_distance: int, threshold_rel: float,
+                            peak_radius: int) -> torch.Tensor:
+  """Plain PyTorch version of K5 -> [4, gy, gx].
+
+  Per patch pair, the branch of `masked_patch_classes`: dead pairs give
+  NaN rows; pure pairs the closed-form NCC of the plain cross-correlation
+  and the patch moments; impure pairs the Padfield chain of
+  flow_field._masked_xcorr_circular (`padfield_ncc`, per-patch
+  tolerance). Then the peak chain of `batched_peaks`.
+  """
+  gy, gx = grid
+  sy, sx = step
+  dev = pre.device
+  n = gy * gx
+  ii = torch.arange(n, device=dev)
+  y0 = (ii // gx) * sy
+  x0 = (ii % gx) * sx
+  classes = masked_patch_classes(pre_valid, post_valid, patch,
+                                 step).reshape(-1)[:n]
+  area = float(patch * patch)
+  eps = float(np.finfo(np.float32).eps)
+  icorr = functools.partial(_irdft2_of_product, n1=patch, n2=patch)
+  out = []
+  for c0 in range(0, n, _PLAIN_CHUNK):
+    sl = slice(c0, min(n, c0 + _PLAIN_CHUNK))
+    a = _patches(pre, y0[sl], x0[sl], patch)
+    b = _patches(post, y0[sl], x0[sl], patch)
+    va = _patches(pre_valid, y0[sl], x0[sl], patch) > 0
+    vb = _patches(post_valid, y0[sl], x0[sl], patch) > 0
+    zero = torch.zeros_like(a)
+    if mean is None:
+      ma = (torch.where(va, a, zero).sum(dim=(1, 2), keepdim=True)
+            / torch.clamp(va.sum(dim=(1, 2), keepdim=True), min=1))
+      mb = (torch.where(vb, b, zero).sum(dim=(1, 2), keepdim=True)
+            / torch.clamp(vb.sum(dim=(1, 2), keepdim=True), min=1))
+    else:
+      ma = mb = mean
+    pz = torch.where(va, a - ma, zero)
+    cz = torch.where(vb, b - mb, zero)
+    cls = classes[sl]
+    corr = torch.zeros_like(a)
+    pure = cls == 1
+    if bool(pure.any()):
+      p_, c_ = pz[pure], cz[pure]
+      s1, s3 = p_.sum(dim=(1, 2)), c_.sum(dim=(1, 2))
+      var_p = torch.clamp((p_ * p_).sum(dim=(1, 2)) - s1 * s1 / area, min=0.0)
+      var_c = torch.clamp((c_ * c_).sum(dim=(1, 2)) - s3 * s3 / area, min=0.0)
+      denom = torch.sqrt(var_p * var_c)[:, None, None]
+      tol = 1e3 * eps * denom
+      numc = (s1 * s3 / area)[:, None, None]
+      xc = circular_xcorr(p_, c_)
+      corr[pure] = torch.where(
+          denom > tol,
+          torch.clamp((xc - numc) / torch.where(denom > tol, denom,
+                                                torch.ones_like(denom)),
+                      -1.0, 1.0),
+          torch.zeros_like(xc))
+    impure = cls == 0
+    if bool(impure.any()):
+      corr[impure] = padfield_ncc(pz[impure], cz[impure], va[impure],
+                                  vb[impure], _rdft2, icorr, per_patch=True)
+    corr = torch.roll(corr, (patch // 2, patch // 2), dims=(1, 2))
+    rows = batched_peaks(corr, (patch // 2, patch // 2), min_distance,
+                         threshold_rel, peak_radius)
+    out.append(torch.where((cls == 2)[:, None],
+                           torch.full_like(rows, float('nan')), rows))
   return torch.cat(out).reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
 
 
@@ -333,3 +501,76 @@ def dense_flow_peaks_targeted(pre_image: torch.Tensor,
   return _launch(pre, post, offs, (gy, gx), p, (sy, sx), crop, mean,
                  min_distance, threshold_rel, peak_radius,
                  'targeted_flow_peaks')
+
+
+def _valid_plane(valid, like: torch.Tensor) -> torch.Tensor:
+  """float32 valid-pixel plane (> 0 = valid); None is all valid."""
+  if valid is None:
+    return torch.ones_like(like, dtype=torch.float32)
+  if tuple(valid.shape) != tuple(like.shape):
+    raise ValueError(f'valid plane shape {tuple(valid.shape)} != image '
+                     f'shape {tuple(like.shape)}')
+  return valid.to(torch.float32).contiguous()
+
+
+def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
+                            pre_valid: torch.Tensor | None,
+                            post_valid: torch.Tensor | None,
+                            patch_size=(160, 160), step=(40, 40),
+                            mean: float | None = None, min_distance: int = 2,
+                            threshold_rel: float = 0.5,
+                            peak_radius: int = 5) -> torch.Tensor:
+  """K5: masked flow peaks over the full dense grid -> [4, gy, gx].
+
+  `pre_valid` / `post_valid`: planes of the images' shape, > 0 where a
+  pixel is valid (None: all valid). Circular Padfield NCC per patch pair
+  with dead / pure / impure branches and a per-patch denominator
+  tolerance (csrc/masked_flow.cu), then the peak statistics of K1.
+  """
+  p = _check_square(patch_size)
+  sy, sx = step
+  h, w = pre_image.shape
+  grid = ((h - (p - sy)) // sy, (w - (p - sx)) // sx)
+  pre = pre_image.to(torch.float32).contiguous()
+  post = post_image.to(torch.float32).contiguous()
+  va = _valid_plane(pre_valid, pre)
+  vb = _valid_plane(post_valid, post)
+  if pre.device.type == 'cpu':
+    return masked_flow_peaks_plain(pre, post, va, vb, grid, p, (sy, sx), mean,
+                                   min_distance, threshold_rel, peak_radius)
+  _build.require_cuda('masked_flow_peaks', pre, post, va, vb)
+  lib = _build.library()
+  lib.masked_flow_per_block.argtypes = [ctypes.c_int]
+  lib.masked_flow_per_block.restype = ctypes.c_int64
+  fn = lib.masked_flow_launch
+  fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p] * 2
+                 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                    ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  gy, gx = grid
+  dev = pre.device
+  ctab, stab = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p))
+  per_block = int(lib.masked_flow_per_block(p))
+  npatch = gy * gx
+  out = torch.empty((4, gy, gx), dtype=torch.float32, device=dev)
+  if npatch == 0:
+    return out
+  scratch = None
+  if per_block * 4 <= _MAX_SMEM_BYTES:
+    nblocks = npatch
+  else:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblocks = min(npatch, 4 * sms)
+    scratch = torch.empty((nblocks, per_block), dtype=torch.float32,
+                          device=dev)
+  rc = fn(pre.data_ptr(), post.data_ptr(), va.data_ptr(), vb.data_ptr(), w,
+          gy, gx, p, sy, sx, ctab.data_ptr(), stab.data_ptr(),
+          int(mean is None), float(mean or 0.0), _overlap_cut(p * p),
+          int(min_distance), float(threshold_rel), int(peak_radius),
+          _build.ptr(scratch), nblocks, out.data_ptr(), _build.stream_of(pre))
+  _build.launch_counts['masked_flow_peaks'] += 1
+  _build.check(rc, 'masked_flow_peaks')
+  return out

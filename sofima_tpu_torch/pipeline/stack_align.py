@@ -16,13 +16,14 @@ adjacent section pair:
 Only the solve carries state from section to section (a [2, 1, G, G]
 mesh), so `align_stack_pipelined` runs the flow of every pair first,
 then the sequential solves, then invert (all sections as one batch) and
-render. A host (numpy) stack goes to `device` (default: the CUDA card;
-without one, pass device='cpu'); a tensor stays on its device, and the
-work stays there throughout.
+render. With `warm_start`, each pair after the first targets its fine
+pass from the previous pair's cleaned flow instead of a coarse pass, and
+a stale prior is re-measured cold. A host (numpy) stack goes to `device`
+(default: the CUDA card; without one, pass device='cpu'); a tensor stays
+on its device, and the work stays there throughout.
 
-Not ported yet: `warm_start` (with its stale-prior refresh) and drift
-removal in the solve (`mesh.remove_drift`) raise NotImplementedError;
-see ROADMAP.md.
+Not ported yet: drift removal in the solve (`mesh.remove_drift`) raises
+NotImplementedError; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -52,7 +53,9 @@ class StackAlignConfig:
   Same fields and defaults as sofima_tpu's StackAlignConfig (see its
   comments for the rationale of each default). `bf16` is kept for parity
   and not read: the port's flow kernels correlate in float32.
-  `residual` sizes only the `overflow` envelope check of the render.
+  `residual` sizes the `overflow` envelope checks of the render and of
+  the masked flow transport. `warm_start` and `warm_refresh_min_valid`
+  act in `align_stack_pipelined` only, as in the reference.
   """
   patch: int = 160
   stride: int = 40
@@ -93,16 +96,15 @@ def archival_em2d_config(**overrides) -> StackAlignConfig:
   return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-def _check(cfg: StackAlignConfig) -> None:
-  if cfg.warm_start:
-    raise NotImplementedError(
-        'warm_start is not ported yet (ROADMAP.md Queue 1, Slice 1b: '
-        'warm_start with its stale-prior refresh)')
-
-
 def _flow_phase(sec_prev: torch.Tensor, sec_cur: torch.Tensor,
-                cfg: StackAlignConfig, grid_n: int):
-  """FLOW + CLEAN for one section pair -> ([2, 1, G, G], overflow)."""
+                cfg: StackAlignConfig, grid_n: int, prior=None):
+  """FLOW + CLEAN for one section pair -> ([2, 1, G, G], overflow).
+
+  `prior` ([2, G, G] on the padded full grid, NaN border included)
+  warm-starts the fine pass in place of the coarse one: full-grid node j
+  sits at pixel j * stride (pad * stride == patch // 2 when the stride
+  divides patch // 2), hence the prior origin below.
+  """
   p, s = cfg.patch, cfg.stride
   pre = sec_prev.to(torch.float32)
   post = sec_cur.to(torch.float32)
@@ -110,10 +112,13 @@ def _flow_phase(sec_prev: torch.Tensor, sec_cur: torch.Tensor,
   if cfg.coarse_to_fine:
     fp = None if cfg.fine_patch is None else (cfg.fine_patch,) * 2
     cs = None if cfg.coarse_step is None else (cfg.coarse_step,) * 2
+    origin = p // 2 - (p // 2 // s) * s
     f4, overflow = flow_field.coarse_to_fine_flow(
         pre, post, (p, p), (s, s), coarse_step=cs, fine_patch=fp,
-        max_displacement=cfg.max_displacement, return_overflow=True,
-        peak_crop=cfg.peak_crop)
+        max_displacement=cfg.max_displacement, residual=cfg.residual,
+        return_overflow=True, peak_crop=cfg.peak_crop, prior=prior,
+        prior_step=None if prior is None else (s, s),
+        prior_origin=None if prior is None else (origin, origin))
   else:
     f4 = flow_field.dense_flow_field(pre, post, (p, p), (s, s))
   clean = flow_utils.clean_flow_device(
@@ -124,6 +129,28 @@ def _flow_phase(sec_prev: torch.Tensor, sec_cur: torch.Tensor,
                     dtype=torch.float32, device=pre.device)
   full[:, :, pad:pad + clean.shape[2], pad:pad + clean.shape[3]] = clean
   return full, overflow
+
+
+def _stale(flow: torch.Tensor, overflow: torch.Tensor, prev: torch.Tensor,
+           cfg: StackAlignConfig) -> torch.Tensor:
+  """The reference's three staleness signals of a warm pair (bool)."""
+  pad = cfg.patch // 2 // cfg.stride
+  fp = cfg.fine_patch if cfg.fine_patch is not None else cfg.patch // 2
+  # Capture half-range of the fine peak search: the peak_crop core, else
+  # a conservative quarter of the circular fine window.
+  cap_half = cfg.peak_crop // 2 if cfg.peak_crop is not None else fp // 4
+  n0, n1 = flow.shape[2:]
+  inner = (slice(None), slice(None), slice(pad, n0 - pad),
+           slice(pad, n1 - pad))
+  interior = flow[inner]
+  finite = torch.isfinite(interior[0, 0])
+  valid = finite.to(torch.float32).mean()
+  resid = torch.nan_to_num(
+      torch.abs(interior - prev[inner]).amax(dim=(0, 1)))
+  saturated = (finite & (resid > 0.75 * cap_half)).sum()
+  frac_sat = saturated / torch.clamp(finite.sum(), min=1)
+  return (overflow | (valid < cfg.warm_refresh_min_valid)
+          | (frac_sat > 0.05))
 
 
 def _solve_phase(flow_full: torch.Tensor, solved_prev: torch.Tensor,
@@ -197,6 +224,8 @@ def align_step(sec_prev, sec_cur, solved_prev, cfg: StackAlignConfig,
                device=None):
   """One per-section step: returns (solved, rendered, overflow).
 
+  Always a cold flow (`warm_start` is ignored, as in the reference).
+
   Args:
     sec_prev/sec_cur: [n, n] raw adjacent sections (uint8 or float)
     solved_prev: [2, 1, G, G] relative mesh of the previous section
@@ -209,7 +238,6 @@ def align_step(sec_prev, sec_cur, solved_prev, cfg: StackAlignConfig,
     rendered: [n, n] float32 sec_cur rendered into the aligned frame
     overflow: bool tensor, a static envelope was exceeded somewhere
   """
-  _check(cfg)
   sec_prev, sec_cur, solved_prev = (placement.place(v, device) for v in
                                     (sec_prev, sec_cur, solved_prev))
   grid_n = sec_cur.shape[-1] // cfg.stride
@@ -234,8 +262,18 @@ def align_stack_pipelined(stack, cfg: StackAlignConfig = StackAlignConfig(),
   a dict, it receives the wall seconds of each phase (synchronizing the
   device at each phase boundary). A host (numpy) stack goes to `device`
   (default: the CUDA card).
+
+  With `cfg.warm_start` (and coarse_to_fine, and Z > 2) pair 0 runs
+  cold and pair z targets its fine pass from pair z-1's cleaned flow
+  (no coarse pass). Unless `warm_refresh_min_valid` is None, a warm pair
+  whose prior looks stale is re-measured cold: its flow overflowed the
+  targeting clamp, fewer than `warm_refresh_min_valid` of the interior
+  nodes survived cleaning, or more than 5% of them measure a residual
+  |flow - prior| beyond 3/4 of the fine capture half-range (the sign of
+  a circular fine window aliasing a stale prior). That decision reads one
+  bool per warm pair back to the host: the alternative, measuring every
+  pair cold as well and selecting on the device, doubles the flow phase.
   """
-  _check(cfg)
   stack = placement.place(stack, device)
   z_dim, n, _ = stack.shape
   if z_dim < 2:
@@ -247,8 +285,13 @@ def align_stack_pipelined(stack, cfg: StackAlignConfig = StackAlignConfig(),
   clock = _PhaseClock(timings, dev)
 
   flows, ov_flow = [], []
+  warm = cfg.warm_start and cfg.coarse_to_fine and z_dim > 2
   for z in range(z_dim - 1):
-    f, ov = _flow_phase(stack[z], stack[z + 1], cfg, grid_n)
+    prior = flows[-1][:, 0] if warm and z > 0 else None
+    f, ov = _flow_phase(stack[z], stack[z + 1], cfg, grid_n, prior=prior)
+    if (prior is not None and cfg.warm_refresh_min_valid is not None
+        and bool(_stale(f, ov, flows[-1], cfg))):
+      f, ov = _flow_phase(stack[z], stack[z + 1], cfg, grid_n)
     flows.append(f)
     ov_flow.append(ov)
   clock.mark('flow')
@@ -305,24 +348,25 @@ def align_stack(stack, cfg: StackAlignConfig = StackAlignConfig(),
   """Aligns a [Z, n, n] stack; returns (rendered, solved, overflow).
 
   `pipelined=True` runs `align_stack_pipelined`; `pipelined=False`
-  streams section by section through `align_step`. A host (numpy) stack
-  goes to `device` (default: the CUDA card; without one, pass
-  device='cpu'); a tensor stays where it is.
+  streams section by section through `align_step` (cold flow, float32
+  renders: the reference's streamed loop reads neither `warm_start`
+  nor `out_dtype`). A host (numpy) stack goes to `device` (default: the
+  CUDA card; without one, pass device='cpu'); a tensor stays where it
+  is.
   """
   stack = placement.place(stack, device)
   if pipelined:
     return align_stack_pipelined(stack, cfg, out_dtype)
-  _check(cfg)
   z_dim, n, _ = stack.shape
   grid_n = n // cfg.stride
   solved = torch.zeros((2, 1, grid_n, grid_n), dtype=torch.float32,
                        device=stack.device)
-  rendered = [_to_out(stack[0], out_dtype)]
+  rendered = [stack[0].to(torch.float32)]
   solved_all = [solved]
   overflow = torch.zeros((), dtype=torch.bool, device=stack.device)
   for z in range(1, z_dim):
     solved, r, ov = align_step(stack[z - 1], stack[z], solved, cfg)
-    rendered.append(_to_out(r, out_dtype))
+    rendered.append(r)
     solved_all.append(solved)
     overflow = overflow | ov
   return torch.stack(rendered), torch.stack(solved_all), overflow

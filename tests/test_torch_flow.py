@@ -6,8 +6,9 @@ interpret mode, as the JAX tests run them) and the port:
     strip path flow_field._dense_flow_strips (the JAX CPU coarse path);
   * K2 (dense_flow_peaks_targeted) with clipped offsets, peak_crop 32 and
     None, vs pallas_flow.dense_flow_peaks_targeted;
-  * coarse_to_fine_flow (flow and overflow flag), the peak contract,
-    clean_flow_device and the median filter.
+  * coarse_to_fine_flow (flow and overflow flag; with a mask and with a
+    prior too), the peak contract, clean_flow_device and the median
+    filter.
 Tolerances: integer x/y peaks and NaN placement exact; sharpness and
 ratio rtol = atol = 3e-4 (tests/test_flow_field.py's bar). The JAX side
 runs with bf16=False: the port correlates in float32.
@@ -156,11 +157,36 @@ class TestCoarseToFine:
     _assert_flow_equal(got.numpy(), np.asarray(ref))
 
   def test_unported_branches_raise(self):
-    img = torch.zeros(200, 200)
+    # Masks and warm-start priors now run and match the reference (here
+    # at 400^2; in depth in test_torch_flow_masked.py and
+    # test_torch_warm_start.py). What stays unported is the calculator's
+    # padfield mode and its targeting fields.
+    pre = _texture(400, seed=6)
+    post = np.roll(pre, (11, -14), (0, 1))
+    mask = np.zeros((400, 400), bool)
+    mask[150:190, :] = True
+    prior = np.zeros((2, 3, 3), np.float32)
+    prior[0], prior[1] = 13.0, -10.0
+    for kw in (dict(pre_mask=mask, post_mask=mask),
+               dict(prior=prior, peak_crop=32)):
+      ref = jff.coarse_to_fine_flow(
+          jnp.asarray(pre), jnp.asarray(post), (160, 160), (40, 40),
+          bf16=False, **{k: jnp.asarray(v) if isinstance(v, np.ndarray)
+                         else v for k, v in kw.items()})
+      got = tff.coarse_to_fine_flow(
+          _t(pre), _t(post), (160, 160), (40, 40),
+          **{k: _t(v) if isinstance(v, np.ndarray) else v
+             for k, v in kw.items()})
+      np.testing.assert_array_equal(np.nan_to_num(got[:2].numpy(), nan=9e9),
+                                    np.nan_to_num(np.asarray(ref)[:2],
+                                                  nan=9e9))
+    calc = tff.JAXMaskedXCorrWithStatsCalculator(device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-      tff.coarse_to_fine_flow(img, img, pre_mask=torch.zeros(200, 200))
+      calc.flow_field(pre, post, 160, 40)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-      tff.coarse_to_fine_flow(img, img, prior=torch.zeros(2, 3, 3))
+      calc.flow_field(pre, post, 160, 40, mode='circular',
+                      post_targeting_field=np.zeros((2, 3, 3)),
+                      post_targeting_step=160)
 
 
 class TestCleanFlow:

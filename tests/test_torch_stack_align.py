@@ -117,10 +117,36 @@ class TestSlice:
     _, s_step, _ = tsa.align_stack(stack, tcfg, pipelined=False)
     torch.testing.assert_close(s_pipe, s_step, rtol=0, atol=0)
 
-  def test_warm_start_not_ported(self):
-    cfg = tsa.StackAlignConfig(warm_start=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-      tsa.align_stack(torch.zeros(3, 200, 200, dtype=torch.uint8), cfg)
+  def test_warm_start_not_ported(self, case):
+    # The reference streams cold: `warm_start` acts in the pipelined
+    # path only (tests/test_torch_warm_start.py), so the streamed
+    # loop with it equals the streamed cold run.
+    tcfg = convert.config_from_jax(case['jcfg'])
+    stack = torch.from_numpy(case['stack'])
+    cold = tsa.align_stack(stack, tcfg, pipelined=False)
+    warm = tsa.align_stack(stack, dataclasses.replace(tcfg, warm_start=True),
+                           pipelined=False)
+    for a, b in zip(cold, warm):
+      torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+  def test_streamed_out_dtype_matches_reference(self, case):
+    # The reference's streamed loop ignores `out_dtype` and returns
+    # float32 renders; the pipelined one stores clip-rounded uint8.
+    stack = case['stack'][:2]
+    ref, _, _ = jsa.align_stack(stack, case['jcfg'], pipelined=False,
+                                out_dtype=jnp.uint8)
+    got, _, _ = tsa.align_stack(torch.from_numpy(stack),
+                                convert.config_from_jax(case['jcfg']),
+                                pipelined=False, out_dtype=torch.uint8)
+    assert np.asarray(ref).dtype == np.float32 and got.dtype == torch.float32
+    d = np.abs(got.numpy() - np.asarray(ref))[:, 80:-80, 80:-80]
+    assert d.mean() <= 0.05 and d.max() <= 4.0, (d.mean(), d.max())
+    piped, _, _ = tsa.align_stack(torch.from_numpy(stack),
+                                  convert.config_from_jax(case['jcfg']),
+                                  out_dtype=torch.uint8)
+    assert piped.dtype == torch.uint8
+    torch.testing.assert_close(piped, torch.clamp(torch.round(got), 0, 255)
+                               .to(torch.uint8), rtol=0, atol=0)
 
   def test_drift_removal_not_ported(self):
     # The reference's pipeline runs its staged solver for remove_drift;
@@ -137,7 +163,9 @@ class TestConvert:
 
   @pytest.mark.parametrize('make', [
       lambda m: m.StackAlignConfig(),
-      lambda m: m.archival_em2d_config(peak_crop=32, residual=6)])
+      lambda m: m.archival_em2d_config(peak_crop=32, residual=6),
+      lambda m: m.StackAlignConfig(warm_start=True,
+                                   warm_refresh_min_valid=0.3)])
   def test_config_from_jax(self, make):
     jcfg = make(jsa)
     tcfg = convert.config_from_jax(jcfg)
@@ -168,7 +196,7 @@ class TestStructure:
   def test_port_imports_no_jax(self):
     mods = ['sofima_tpu_torch.pipeline.stack_align', 'sofima_tpu_torch.convert',
             'sofima_tpu_torch.ops.cuda_flow', 'sofima_tpu_torch.ops.cuda_mesh',
-            'sofima_tpu_torch.ops.cuda_warp']
+            'sofima_tpu_torch.ops.cuda_warp', 'sofima_tpu_torch.utils.geom']
     code = ('import sys\n' + ''.join(f'import {m}\n' for m in mods)
             + "bad = [m for m in sys.modules if m == 'jax' or "
               "m.startswith(('jax.', 'sofima_tpu.'))]\n"
@@ -187,6 +215,8 @@ from sofima_tpu_torch.ops import _build, cuda_flow, cuda_mesh, cuda_warp
 from sofima_tpu_torch import mesh
 img = torch.rand(200, 200)
 cuda_flow.dense_flow_peaks(img, img, (80, 80), (40, 40))
+cuda_flow.masked_dense_flow_peaks(img, img, img > 0.1, None, (80, 80),
+                                  (40, 40))
 cfg = mesh.IntegrationConfig(dt=0.001, gamma=0.0, k0=0.1, k=0.1,
                              stride=(40.0, 40.0), num_iters=10,
                              max_iters=20, stop_v_max=0.005)
