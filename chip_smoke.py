@@ -28,7 +28,18 @@ call that computes the same function):
     texture) with bench.py's quality gates, (b) `mesh.relax_mesh` with
     the 3d force on bench.py's mesh3d mesh and (c) the fused 3d solver
     on bench.py's mesh3d_fused mesh, with their throughputs; and the
-    stitch at the CPU tests' geometry on the card against the CPU.
+    stitch at the CPU tests' geometry on the card against the CPU;
+  * 2d montage and the staged 2d solver: K8 (2d force) on bench.py's
+    `mesh` input, then (d) bench.py's `mesh` stage (`velocity_verlet`,
+    1000 steps on 2048^2 nodes, both force forms) against the same run
+    with K8 swapped for its plain version, (e) `montage_align_2d` at
+    bench.py's `montage2d` geometry (3 x 3 tiles of 3600^2, 400 px
+    overlap, cut from a seeded 10k^2 texture) with its quality gates,
+    K1, K4 and K8 against their plain versions on the inputs that path
+    gave them, and the whole path against the same run with those
+    kernels swapped for their plain versions; the montage at the CPU
+    tests' geometry on the card against the CPU,
+    and one drift-removal `align_step` (the staged solver: K8, no K3).
 
 Each path runs with the launch counters set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the
@@ -85,6 +96,20 @@ STITCH_REL_ERR = 0.5    # bench.py's stitch3d gates
 STITCH_COVERAGE = 0.5
 SMALL_MESH_TOL_3D = 0.08      # px = 0.01 * stride 8
 SMALL_CANVAS_TOL = (0.05, 2.0)  # gray levels: mean, max where both weigh
+MESH2D = (2048, 2048)         # bench.py's mesh stage nodes (y, x)
+MONTAGE = (3, 3600, 400)      # bench.py's montage2d: grid, tile, overlap
+MONTAGE_ERR = 10.0            # bench.py's montage2d gates
+MONTAGE_COVERAGE = 0.95
+# Path (d), card against plain on the card: 1000 FIRE steps from a
+# random mesh; the force's last-bit differences feed back through the
+# global power sum.
+VERLET_TOL = 1e-2             # px
+SMALL_MESH_TOL_2D = 0.2       # px = 0.01 * stride 20
+SMALL_CANVAS_TOL_2D = (0.01, 0.05)  # gray levels: mean, max, both masks
+# Path (e), card against plain on the card: the canvas mask is analytic in
+# the sampling positions, so a last-bit mesh difference may move a pixel
+# across the margin; at most this share of the canvas.
+MONTAGE_MASK_SHARE = 1e-4
 
 # The least time the card could take for the same work: the
 # larger of bytes over HBM bandwidth and operations over the f32 peak
@@ -105,6 +130,7 @@ F32_FLOP_S = 67e12
 LANCZOS_FLOPS_PX = 350
 LINEAR3D_FLOPS_VOX = 50
 FORCE3D_FLOPS_NODE = 13 * 24
+FORCE2D_FLOPS_NODE = 8 * 15
 FIRE2D_FLOPS_NODE_STEP = 8 * 15 + 60
 FIRE3D_FLOPS_NODE_STEP = FORCE3D_FLOPS_NODE + 80
 
@@ -485,13 +511,64 @@ def stack_slice(dev, report, _build) -> dict:
   return launches, stack
 
 
+def dense_flow_peaks_plain(pre, post, patch_size=(160, 160), step=(40, 40),
+                           mean=None, min_distance=2, threshold_rel=0.5,
+                           peak_radius=5):
+  """K1's plain version with K1's wrapper signature."""
+  from sofima_tpu_torch.ops import cuda_flow
+  p, (sy, sx) = patch_size[0], step
+  h, w = pre.shape
+  return cuda_flow.flow_peaks_plain(
+      pre.to(torch.float32).contiguous(), post.to(torch.float32).contiguous(),
+      None, ((h - (p - sy)) // sy, (w - (p - sx)) // sx), p, (sy, sx), p,
+      mean, min_distance, threshold_rel, peak_radius)
+
+
+def shift_warp_plain(images, coords, method='lanczos'):
+  """K4's plain version with K4's wrapper signature."""
+  from sofima_tpu_torch.ops import cuda_warp
+  return cuda_warp.shift_warp_plain(images, coords, method)
+
+
+@contextlib.contextmanager
+def recorded_calls(calls: dict):
+  """Records a copy of the arguments of every K1, K4 and K8 wrapper call
+  into `calls[name]` (the wrappers still launch and count), so that each
+  kernel can be held against its plain version at a path's own shapes."""
+  from sofima_tpu_torch.ops import cuda_flow
+  from sofima_tpu_torch.ops import cuda_mesh
+  from sofima_tpu_torch.ops import cuda_warp
+  saved = [(mod, name, getattr(mod, name)) for mod, name in (
+      (cuda_flow, 'dense_flow_peaks'), (cuda_warp, 'shift_warp'),
+      (cuda_mesh, 'force_2d'))]
+
+  def recorder(name, fn):
+    def call(*args, **kwargs):
+      calls.setdefault(name, []).append(tuple(
+          a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+      return fn(*args, **kwargs)
+    return call
+
+  for mod, name, fn in saved:
+    setattr(mod, name, recorder(name, fn))
+  try:
+    yield
+  finally:
+    for mod, name, fn in saved:
+      setattr(mod, name, fn)
+
+
 @contextlib.contextmanager
 def plain_kernels():
-  """Routes K5 and K4 to their plain versions on the card's tensors, so
-  that a path can be run once with its kernels and once without."""
+  """Routes K1, K5, K4 and K8 to their plain versions on the card's
+  tensors, so that a path can be run once with its kernels and once
+  without."""
+  from sofima_tpu_torch import mesh
   from sofima_tpu_torch.ops import cuda_flow
+  from sofima_tpu_torch.ops import cuda_mesh
   from sofima_tpu_torch.ops import cuda_warp
-  k5, k4 = cuda_flow.masked_dense_flow_peaks, cuda_warp.shift_warp
+  k1, k5 = cuda_flow.dense_flow_peaks, cuda_flow.masked_dense_flow_peaks
+  k4, k8 = cuda_warp.shift_warp, cuda_mesh.force_2d
 
   def k5_plain(pre, post, pre_valid, post_valid, patch_size, step,
                mean=None, min_distance=2, threshold_rel=0.5, peak_radius=5):
@@ -505,14 +582,15 @@ def plain_kernels():
         ((h - (p - sy)) // sy, (w - (p - sx)) // sx), p, (sy, sx), mean,
         min_distance, threshold_rel, peak_radius)
 
+  cuda_flow.dense_flow_peaks = dense_flow_peaks_plain
   cuda_flow.masked_dense_flow_peaks = k5_plain
-  cuda_warp.shift_warp = (
-      lambda images, coords, method='lanczos':
-      cuda_warp.shift_warp_plain(images, coords, method))
+  cuda_warp.shift_warp = shift_warp_plain
+  cuda_mesh.force_2d = mesh.inplane_force_plain
   try:
     yield
   finally:
-    cuda_flow.masked_dense_flow_peaks, cuda_warp.shift_warp = k5, k4
+    cuda_flow.dense_flow_peaks, cuda_flow.masked_dense_flow_peaks = k1, k5
+    cuda_warp.shift_warp, cuda_mesh.force_2d = k4, k8
 
 
 def masked_warm_slice(dev, report, _build, stack) -> dict:
@@ -959,6 +1037,335 @@ def stitch_slice(dev, report, _build) -> dict:
   return launches
 
 
+def small_montage_tiles():
+  """tests/test_torch_montage.py's input: a 260^2 texture (seed 3, sigma
+  0.1) cut into 2 x 2 tiles of 160 with 60 px overlap (host uint8)."""
+  rng = np.random.RandomState(3)
+  f = np.fft.rfft2(rng.rand(260, 260).astype(np.float32))
+  f *= np.exp(-((np.fft.rfftfreq(260)[None, :] ** 2
+                 + np.fft.fftfreq(260)[:, None] ** 2) / (2 * 0.1 ** 2)))
+  img = np.fft.irfft2(f, s=(260, 260))
+  img = ((img - img.min()) / np.ptp(img) * 255).astype(np.uint8)
+  return {(tx, ty): img[ty * 100:ty * 100 + 160, tx * 100:tx * 100 + 160]
+          for ty in range(2) for tx in range(2)}
+
+
+def montage_inputs(dev):
+  """bench.py's montage2d input: (source image, 3 x 3 tiles cut from it,
+  MontageConfig)."""
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch.pipeline import montage
+  grid_t, tile_t, overlap_t = MONTAGE
+  step_t = tile_t - overlap_t
+  n_m = step_t * (grid_t - 1) + tile_t
+  img = texture(N, dev)[:n_m, :n_m].contiguous()
+  tiles = {(tx, ty): img[ty * step_t:ty * step_t + tile_t,
+                         tx * step_t:tx * step_t + tile_t].contiguous()
+           for ty in range(grid_t) for tx in range(grid_t)}
+  cfg = montage.MontageConfig(
+      stride=40, patch_size=160, coarse_overlaps=(360, 440),
+      min_overlap=200, margin=16, flow_batch=256,
+      mesh_cfg=mesh.IntegrationConfig(
+          dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0, 40.0),
+          num_iters=1000, max_iters=20000, stop_v_max=0.005, dt_max=100.0))
+  return img, tiles, cfg
+
+
+def montage_path(dev, report, _build, rng) -> dict:
+  """Path (e): `montage_align_2d` at bench.py's montage2d geometry, its
+  kernels on the inputs it gave them, and the whole path against the
+  same run with its kernels swapped for their plain versions.
+
+  Returns the kernels' launch counts from the timed run."""
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch.ops import cuda_flow
+  from sofima_tpu_torch.ops import cuda_mesh
+  from sofima_tpu_torch.ops import cuda_warp
+  from sofima_tpu_torch.pipeline import montage
+
+  t_phase = time.perf_counter()
+  grid_t, tile_t, overlap_t = MONTAGE
+  img, tiles, cfg_m = montage_inputs(dev)
+  n_m = img.shape[0]
+  print(f'path (e): montage_align_2d, {grid_t} x {grid_t} tiles of '
+        f'{tile_t}^2, {overlap_t} px overlap, canvas {n_m}^2')
+  calls = {}
+  with recorded_calls(calls):  # the warm-up, with K1/K4/K8's inputs kept
+    montage.montage_align_2d(tiles, (grid_t, grid_t), cfg_m)
+  sync()
+  _build.reset_launch_counts()
+  torch.cuda.reset_peak_memory_stats()
+  timings = {}
+  t0 = time.perf_counter()
+  out = montage.montage_align_2d(tiles, (grid_t, grid_t), cfg_m,
+                                 timings=timings)
+  sync()
+  wall = time.perf_counter() - t0
+  launches_e = dict(_build.launch_counts)
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  solved, key_to_idx = out['solved'], out['key_to_idx']
+  i0 = key_to_idx[(0, 0)]
+  sx, sy = (int(round(float(solved[c, i0, 0, 0]))) for c in (0, 1))
+  lo, hi = tile_t // 4, n_m - tile_t // 4
+  truth = img[lo:hi, lo:hi]
+  sel = (slice(lo + sy, hi + sy), slice(lo + sx, hi + sx))
+  m = out['mask'][sel]
+  cnt = int(m.sum())
+  err_m = float(torch.where(m, (out['canvas'][sel] - truth).abs(),
+                            torch.zeros_like(truth)).sum()) / max(cnt, 1)
+  cov = cnt / truth.numel()
+  steps = out['solve_steps']
+  mpix = n_m * n_m / wall / 1e6
+  print('  stage seconds: ' + ', '.join(f'{k} {v:.3f}'
+                                        for k, v in timings.items()))
+  print(f'  wall {wall:.3f} s, {mpix:.2f} Mpix/s; solve steps {steps} '
+        f'({timings["solve"] / steps * 1e3:.3f} ms per step); peak memory '
+        f'{peak_gb:.2f} GB')
+  print(f'  error {err_m:.3f} (gate {MONTAGE_ERR}), coverage {cov:.4f} '
+        f'(gate {MONTAGE_COVERAGE}), overflow {bool(out["overflow"])}, '
+        f'offsets x {out["cx"][:, 0].tolist()} y {out["cy"][:, 0].tolist()}')
+  print(f'  launches {launches_e}')
+  check(bool(torch.isfinite(solved).all()), 'montage meshes not finite')
+  check(err_m <= MONTAGE_ERR, f'montage error {err_m}')
+  check(cov >= MONTAGE_COVERAGE, f'montage coverage {cov}')
+  check(not bool(out['overflow']), 'montage render envelope overflow')
+  for k in ('dense_flow_peaks', 'force2d', 'warp_gather'):
+    check(launches_e[k] > 0, f'kernel {k} was not launched on path (e)')
+  del truth, m
+
+  # Path (e)'s kernels against their plain versions on the inputs this
+  # path gave them (recorded in the warm-up call). K1: every overlap
+  # strip pair at p = 160, s = 40.
+  k1_in = calls['dense_flow_peaks']
+  k1e = compare_flow(
+      torch.cat([cuda_flow.dense_flow_peaks(*a).reshape(4, -1)
+                 for a in k1_in], 1),
+      torch.cat([dense_flow_peaks_plain(*a).reshape(4, -1) for a in k1_in],
+                1), f'K1 on the {len(k1_in)} montage strips '
+      f'({list(k1_in[0][0].shape)}, ...)')
+  # K4: every tile's Lanczos render through its dense tile-local map.
+  k4e = max(float((cuda_warp.shift_warp(*a) - shift_warp_plain(*a))
+                  .abs().max()) for a in calls['shift_warp'])
+  print(f'  K4 on the {len(calls["shift_warp"])} tile renders '
+        f'({list(calls["shift_warp"][0][1].shape)}): max |diff| {k4e:.3g} '
+        f'gray levels (bar {RENDER_TOL})')
+  check(k4e < RENDER_TOL, f'K4 differs from the plain render by {k4e}')
+  # K8: the joint solve's first and last positions (at rest, since the
+  # cut is exact), and the last ones moved by seeded 2 px noise with NaN
+  # holes, so that every link carries a force; both force forms.
+  k8_in = calls['force_2d']
+  x_end = k8_in[-1][0]
+  noise = torch.from_numpy(rng.randn(*x_end.shape).astype(np.float32)
+                           * 2.0).to(dev)
+  holes = torch.from_numpy(rng.rand(*x_end.shape[1:]) < 0.01).to(dev)
+  x_moved = torch.where(holes, torch.full_like(x_end, float('nan')),
+                        x_end + noise)
+  k8e, f_rest, f_moved = 0.0, 0.0, 0.0
+  for x in (k8_in[0][0], x_end, x_moved):
+    for prefer in (False, True):
+      got = cuda_mesh.force_2d(x, *k8_in[-1][1:3], prefer)
+      ref = mesh.inplane_force_plain(x, *k8_in[-1][1:3], prefer)
+      check(torch.equal(torch.isnan(got), torch.isnan(ref)),
+            'K8 NaN pattern differs on the montage mesh')
+      k8e = max(k8e, float(torch.nan_to_num((got - ref).abs()).max()))
+      size = float(torch.nan_to_num(ref.abs()).max())
+      f_moved = size if x is x_moved else f_moved
+      f_rest = f_rest if x is x_moved else max(f_rest, size)
+  print(f'  K8 on the joint solve\'s mesh ({list(x_end.shape)}; largest '
+        f'force {f_rest:.3g} at rest, {f_moved:.3g} moved): max |df| '
+        f'{k8e:.3g} (bar {FORCE_TOL})')
+  check(k8e < FORCE_TOL, f'K8 differs from the plain force by {k8e}')
+  del calls, k1_in, k8_in, x_end, noise, holes, x_moved, got, ref
+
+  # The whole path again with K1, K4 and K8 swapped for their plain
+  # versions on the card.
+  t0 = time.perf_counter()
+  with plain_kernels():
+    ref_out = montage.montage_align_2d(tiles, (grid_t, grid_t), cfg_m)
+  sync()
+  wall_plain = time.perf_counter() - t0
+  dm_e = float(torch.nan_to_num((solved - ref_out['solved']).abs()).max())
+  both = out['mask'] & ref_out['mask']
+  mask_diff = int((out['mask'] != ref_out['mask']).sum())
+  dc_e = (out['canvas'] - ref_out['canvas']).abs()[both]
+  print(f'  against the plain kernels ({wall_plain:.1f} s): mesh max |diff| '
+        f'{dm_e:.3g} px (bar {SMALL_MESH_TOL}), canvas mean / max |diff| '
+        f'{float(dc_e.mean()):.3g} / {float(dc_e.max()):.3g} (bar '
+        f'{SMALL_CANVAS_TOL_2D[0]} / {SMALL_CANVAS_TOL_2D[1]}) where both '
+        f'masks are set, mask differs at {mask_diff} px, steps {steps} / '
+        f'{ref_out["solve_steps"]}')
+  check(np.array_equal(out['cx'], ref_out['cx'], equal_nan=True)
+        and np.array_equal(out['cy'], ref_out['cy'], equal_nan=True),
+        'montage coarse offsets differ from the plain run')
+  check(torch.equal(torch.isnan(solved), torch.isnan(ref_out['solved'])),
+        'montage mesh NaN pattern differs from the plain run')
+  check(dm_e < SMALL_MESH_TOL, 'montage meshes differ from the plain run')
+  check(mask_diff <= MONTAGE_MASK_SHARE * both.numel(),
+        'montage mask differs from the plain run')
+  check(float(dc_e.mean()) < SMALL_CANVAS_TOL_2D[0]
+        and float(dc_e.max()) < SMALL_CANVAS_TOL_2D[1],
+        'montage canvas differs from the plain run')
+  check(bool(out['overflow']) == bool(ref_out['overflow']),
+        'montage overflow differs from the plain run')
+  report['K1']['max_abs_err_montage'] = k1e['err']
+  report['K1']['stat_frac_montage'] = k1e['stat_frac']
+  report['K4']['max_abs_err_montage'] = k4e
+  report['K8']['max_abs_err_montage'] = k8e
+  report['path_e'] = dict(wall_s=wall, mpix_s=mpix, solve_steps=steps,
+                          s_per_step=timings['solve'] / steps, error=err_m,
+                          coverage=cov, peak_gb=peak_gb,
+                          k1_launches=launches_e['dense_flow_peaks'],
+                          k4_launches=launches_e['warp_gather'],
+                          k8_launches=launches_e['force2d'],
+                          plain_wall_s=wall_plain, mesh_diff_plain=dm_e,
+                          canvas_mean_diff_plain=float(dc_e.mean()),
+                          canvas_max_diff_plain=float(dc_e.max()),
+                          mask_diff_plain=mask_diff, **timings)
+  del out, ref_out, both, dc_e, tiles, img
+  torch.cuda.empty_cache()
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+  return launches_e
+
+
+def montage_slice(dev, report, _build) -> dict:
+  """K8 at bench.py's `mesh` shape, then paths (d) and (e), the small
+  montage against the CPU and the drift-removal stack step.
+
+  Returns K8's launch count from the montage path's run."""
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch.ops import cuda_mesh
+  from sofima_tpu_torch.pipeline import montage
+  from sofima_tpu_torch.pipeline import stack_align
+
+  rng = np.random.RandomState(SEED + 5)
+  stride = (40.0, 40.0)
+  nodes = MESH2D[0] * MESH2D[1]
+
+  # K8: bench.py's mesh input [2, 1, 2048, 2048], NaN holes sprinkled in.
+  t_phase = time.perf_counter()
+  print(f'K8 force2d, [2, 1, {MESH2D[0]}, {MESH2D[1]}] nodes with NaN holes')
+  xm = torch.from_numpy(rng.randn(2, 1, *MESH2D).astype(np.float32)).to(dev)
+  holes = torch.from_numpy(rng.rand(*MESH2D) < 0.001).to(dev)
+  xh = torch.where(holes, torch.full_like(xm, float('nan')), xm)
+  errs = []
+  for prefer in (False, True):
+    got = cuda_mesh.force_2d(xh, 0.1, stride, prefer)
+    check(same_bits(got, cuda_mesh.force_2d(xh, 0.1, stride, prefer)),
+          'K8 does not repeat bit for bit')
+    ref = mesh.inplane_force_plain(xh, 0.1, stride, prefer)
+    check(bool(torch.isfinite(got).all()), 'K8 force not finite')
+    errs.append(float((got - ref).abs().max()))
+  err = max(errs)
+  print(f'  max |df| {errs[0]:.3g} (prefer_orig_order {errs[1]:.3g}); a '
+        'second launch repeats it bit for bit')
+  check(err < FORCE_TOL, f'K8 differs from the plain force by {err}')
+  k8 = lambda: cuda_mesh.force_2d(xm, 0.1, stride)
+  report['K8'] = dict(err=err, ms=cuda_ms(k8, reps=20), plain_ms=wall_ms(
+      lambda: mesh.inplane_force_plain(xm, 0.1, stride)), library_ms=None,
+                      **least_time(16 * nodes, FORCE2D_FLOPS_NODE * nodes))
+  print(f'  kernel {report["K8"]["ms"]:.4f} ms, plain '
+        f'{report["K8"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K8"]["bound_ms"]:.4f} ms ({report["K8"]["bound_by"]})')
+  del xh, holes, got, ref
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+
+  # Path (d): bench.py's mesh stage, velocity_verlet with the force.
+  t_phase = time.perf_counter()
+  cfg = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=stride, num_iters=1000,
+      max_iters=1000, stop_v_max=0.0, dt_max=100.0)
+  vm = torch.zeros_like(xm)
+  prev = torch.zeros_like(xm)
+  report['path_d'] = {}
+  launches_d = []
+  for name, c in (('default', cfg),
+                  ('prefer_orig_order', dataclasses.replace(
+                      cfg, prefer_orig_order=True))):
+    run = lambda c=c: mesh.velocity_verlet(xm, vm, prev, c, force_cap=1e6)
+    sync()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run()
+    sync()
+    t_d = time.perf_counter() - t0
+    n_k8 = _build.launch_counts['force2d']
+    with plain_kernels():
+      ref = run()
+    sync()
+    d = float((got[0] - ref[0]).abs().max())
+    glups = cfg.num_iters * nodes / t_d / 1e9
+    print(f'path (d): velocity_verlet {name}, {list(xm.shape)}, '
+          f'{cfg.num_iters} steps: {t_d:.3f} s, {glups:.2f} GLUPS, K8 '
+          f'launches {n_k8}; nodes vs the plain force {d:.3g} px (bar '
+          f'{VERLET_TOL})')
+    check(n_k8 == cfg.num_iters + 1, f'K8 launches on path (d): {n_k8}')
+    check(bool(torch.isfinite(got[0]).all()), 'path (d) nodes not finite')
+    check(d < VERLET_TOL, f'path (d) differs from the plain run by {d}')
+    launches_d.append(n_k8)
+    report['path_d'][name] = dict(seconds=t_d, glups=glups,
+                                  force2d_launches=n_k8, max_diff_plain=d)
+  report['K8']['launches_path_d'] = launches_d
+  del xm, vm, prev, got, ref
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+
+  launches_e = montage_path(dev, report, _build, rng)
+
+  # Path (e) small: the CPU tests' geometry, the card against the CPU.
+  t_phase = time.perf_counter()
+  tiles_s = small_montage_tiles()
+  cfg_s = montage.MontageConfig(
+      stride=20, patch_size=40, coarse_overlaps=(65, 75), min_overlap=10,
+      margin=4, flow_batch=16, mesh_cfg=mesh.IntegrationConfig(
+          dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(20.0, 20.0),
+          num_iters=400, max_iters=20000, stop_v_max=0.005, dt_max=100.0))
+  g_out = montage.montage_align_2d(tiles_s, (2, 2), cfg_s)
+  c_out = montage.montage_align_2d(tiles_s, (2, 2), cfg_s, device='cpu')
+  dm = float((g_out['solved'].cpu() - c_out['solved']).abs().max())
+  both = g_out['mask'].cpu() & c_out['mask']
+  dc = (g_out['canvas'].cpu() - c_out['canvas']).abs()[both]
+  print(f'small montage (2 x 2 tiles of 160^2): mesh max |diff| vs CPU '
+        f'{dm:.3g} px (bar {SMALL_MESH_TOL_2D}), canvas mean / max |diff| '
+        f'{float(dc.mean()):.3g} / {float(dc.max()):.3g} (bar '
+        f'{SMALL_CANVAS_TOL_2D[0]} / {SMALL_CANVAS_TOL_2D[1]}), steps '
+        f'{g_out["solve_steps"]} / {c_out["solve_steps"]}')
+  check(np.array_equal(g_out['cx'], c_out['cx'], equal_nan=True)
+        and np.array_equal(g_out['cy'], c_out['cy'], equal_nan=True),
+        'small montage coarse offsets differ')
+  check(dm < SMALL_MESH_TOL_2D, 'small montage meshes differ')
+  check(float(dc.mean()) < SMALL_CANVAS_TOL_2D[0]
+        and float(dc.max()) < SMALL_CANVAS_TOL_2D[1],
+        'small montage canvases differ')
+  report['montage_small'] = dict(mesh_max_diff=dm,
+                                 canvas_mean_diff=float(dc.mean()),
+                                 canvas_max_diff=float(dc.max()))
+
+  # Drift removal: one align_step on a 480^2 pair takes the staged solver.
+  n_s = 480
+  base = texture(n_s, dev)
+  pair = (base, torch.roll(base, (5, -4), (0, 1)).contiguous())
+  cfg_dr = stack_align.StackAlignConfig(max_displacement=64, residual=8)
+  cfg_dr = dataclasses.replace(cfg_dr, mesh=dataclasses.replace(
+      cfg_dr.mesh, remove_drift=True))
+  zero = torch.zeros(2, 1, n_s // STRIDE, n_s // STRIDE, device=dev)
+  _build.reset_launch_counts()
+  s_gpu, r_gpu, _ = stack_align.align_step(*pair, zero, cfg_dr)
+  sync()
+  dr = dict(_build.launch_counts)
+  s_cpu, _, _ = stack_align.align_step(pair[0].cpu(), pair[1].cpu(),
+                                       zero.cpu(), cfg_dr)
+  d = float(torch.nan_to_num((s_gpu.cpu() - s_cpu).abs()).max())
+  print(f'drift removal: align_step ({n_s}^2, remove_drift=True): K8 '
+        f'launches {dr["force2d"]}, K3 {dr["fused_fire"]}; mesh vs CPU '
+        f'{d:.3g} px (bar {SMALL_MESH_TOL})')
+  check(dr['force2d'] > 0 and dr['fused_fire'] == 0,
+        'drift removal did not take the staged solver with K8')
+  check(d < SMALL_MESH_TOL, 'drift-removal mesh differs from the CPU')
+  check(bool(torch.isfinite(r_gpu).all()), 'drift-removal render not finite')
+  report['drift_removal'] = dict(k8_launches=dr['force2d'], mesh_diff=d)
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+  return launches_e['force2d']
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -985,6 +1392,8 @@ def main() -> int:
   del stack
   torch.cuda.empty_cache()
   launches.update(stitch_slice(dev, report, _build))
+  torch.cuda.empty_cache()
+  launches['force2d'] = montage_slice(dev, report, _build)
   print(f'total {time.perf_counter() - t_start:.1f} s')
 
   kernels = []
@@ -999,6 +1408,8 @@ def main() -> int:
        'sofima_tpu/ops/pallas_mesh.py:852'),
       ('K4', 'warp_gather', 'sofima_tpu_torch/csrc/warp.cu',
        'sofima_tpu/ops/pallas_warp.py:206'),
+      ('K8', 'force2d', 'sofima_tpu_torch/csrc/force2d.cu',
+       'sofima_tpu/ops/pallas_mesh.py:85'),
       ('K9', 'force3d', 'sofima_tpu_torch/csrc/force3d.cu',
        'sofima_tpu/ops/pallas_mesh.py:259'),
       ('K11', 'fused_fire_3d', 'sofima_tpu_torch/csrc/fire.cu',
@@ -1019,7 +1430,9 @@ def main() -> int:
                         bound_ms=r['bound_ms'], bound_by=r['bound_by'],
                         library_ms=r['library_ms'], **extra))
   paths = {k: report[k] for k in ('stack_cold', 'path_masked', 'stack_warm',
-                                   'refresh', 'path_a', 'path_b', 'path_c')}
+                                   'refresh', 'path_a', 'path_b', 'path_c',
+                                   'path_d', 'path_e', 'montage_small',
+                                   'drift_removal')}
   print(json.dumps({'paths': paths}))
   print(smi())
   print(json.dumps({'kernels': kernels}))

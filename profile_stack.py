@@ -6,6 +6,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 profile_stack.py --warm       # the same, warm_start=True
     python3 profile_stack.py --masked     # masked coarse-to-fine flow
     python3 profile_stack.py --stitch3d   # 3d tile stitching
+    python3 profile_stack.py --montage    # 2d tile montage
 
 Stack alignment: chip_smoke.py's synthetic 10k^2 stack through
 `align_stack_pipelined` at bench.py's headline configuration (cold, or
@@ -15,7 +16,10 @@ first pair with bench.py's `flow_masked` mask, as chip_smoke.py runs it.
 stitching: chip_smoke.py's LICONN input (bench.py's geometry) through
 `stitch_and_render_3d`, plus one `mesh.relax_mesh` of its joint solve on
 its own, under the profiler, to count the device launches per solver
-step. Each mode runs once to warm up, then RUNS timed calls (wall and
+step. 2d montage: chip_smoke.py's input (bench.py's montage2d geometry)
+through `montage_align_2d`, and one 100-step chunk of each of its two
+solves (tile placement, joint solve) under the profiler. Each
+mode runs once to warm up, then RUNS timed calls (wall and
 per-phase seconds, the device synchronized at each phase end), then one
 call under torch.profiler. It prints the device time summed over all
 kernels of the profiled call, the device's busy share (that sum over
@@ -39,12 +43,15 @@ import torch
 KERNELS = ('flow_peaks_kernel', 'fused_fire_kernel', 'warp_gather_kernel')
 KERNELS_MASKED = ('masked_flow_kernel', 'warp_gather_kernel')
 KERNELS_3D = ('force3d_kernel', 'warp3d_kernel')
+KERNELS_MONTAGE = ('flow_peaks_kernel', 'force2d_kernel',
+                   'warp_gather_kernel')
 SECTIONS = 4    # as chip_smoke.py's main path
 RUNS = 3
 TOP_OPS = 8     # other device ops listed by time
 OUT = os.path.join('build', 'profile_stack.txt')  # git-ignored
 OUT_3D = os.path.join('build', 'profile_stitch3d.txt')
 OUT_MASKED = os.path.join('build', 'profile_masked.txt')
+OUT_MONTAGE = os.path.join('build', 'profile_montage.txt')
 
 
 def _device_us(evt) -> float:
@@ -222,6 +229,79 @@ def stitch3d_main() -> int:
   return 0
 
 
+def montage_main() -> int:
+  """Path (e) of chip_smoke.py: stages, device time, launches per step."""
+  import dataclasses
+  import chip_smoke
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch import stitch_elastic
+  from sofima_tpu_torch import stitch_rigid
+  from sofima_tpu_torch.pipeline import montage
+
+  dev = torch.device('cuda', 0)
+  grid = chip_smoke.MONTAGE[0]
+  img, tiles, cfg = chip_smoke.montage_inputs(dev)
+  pixels = img.numel()
+  del img
+  run = lambda **kw: montage.montage_align_2d(tiles, (grid, grid), cfg, **kw)
+  run()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats(dev)
+  walls = []
+  for i in range(RUNS):
+    timings = {}
+    t0 = time.perf_counter()
+    out = run(timings=timings)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    print(f'run {i + 1}: wall {walls[-1]:.3f} s, '
+          f'{pixels / walls[-1] / 1e6:.2f} Mpix/s, solve steps '
+          f'{out["solve_steps"]}; stages '
+          + ', '.join(f'{k} {v:.3f}' for k, v in timings.items()))
+  peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+  summarize(run, walls, KERNELS_MONTAGE, OUT_MONTAGE)
+  print(f'peak device memory {peak_gb:.2f} GB')
+
+  # Device launches per step of the two solves, each run for one
+  # 100-step chunk under the profiler (a whole solve records hundreds of
+  # thousands of events, too many to reduce in reasonable time).
+  cx, cy, coarse = out['cx'], out['cy'], out['coarse']
+  cx_t, cy_t = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for v in (cx, cy))
+  place_cfg = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.0, k=0.1, stride=(1, 1), num_iters=100,
+      max_iters=100, stop_v_max=0.001, dt_max=100)
+  solve_counted(lambda: mesh.relax_mesh(
+      torch.zeros_like(cx_t), None, place_cfg,
+      mesh_force=lambda x, *a: stitch_rigid.elastic_tile_mesh(x, cx_t, cy_t)),
+                'placement solve')
+  stride = (cfg.stride, cfg.stride)
+  patch = (cfg.patch_size, cfg.patch_size)
+  flows = [stitch_elastic.compute_flow_map(
+      tiles, off[:, 0], axis=ax, patch_size=patch, stride=stride,
+      flow_mode=cfg.flow_mode) for ax, off in ((0, cx), (1, cy))]
+  fx, fy, x0, nbors, _ = stitch_elastic.aggregate_arrays(
+      (cx[:, 0], *flows[0]), (cy[:, 0], *flows[1]), list(tiles),
+      coarse[:, 0], stride, next(iter(tiles.values())).shape)
+  x0 = torch.from_numpy(x0).to(dev)
+  plan = stitch_elastic.TargetMeshPlan(nbors, fx, fy, stride, x0.shape[-2:])
+  solve_cfg = dataclasses.replace(cfg.mesh_cfg, num_iters=100, max_iters=100)
+  solve_counted(lambda: mesh.relax_mesh(x0, None, solve_cfg, prev_fn=plan),
+                'joint solve')
+  return 0
+
+
+def solve_counted(run, name):
+  """Device launches and time per step of one `relax_mesh` chunk."""
+  steps = []
+  _, events, wall = device_events(lambda: steps.append(run()[2]))
+  launches = sum(e.count for e in events)
+  busy_ms = sum(_device_us(e) for e in events) / 1e3
+  print(f'{name}, {steps[0]} steps: {launches} device launches '
+        f'({launches / steps[0]:.1f} per step), device time {busy_ms:.1f} ms '
+        f'in a profiled wall of {wall:.3f} s')
+
+
 def setup() -> bool:
   """Checks for the card, prints its name and power limit, builds."""
   if not torch.cuda.is_available():
@@ -242,4 +322,6 @@ if __name__ == '__main__':
   args = sys.argv[1:]
   if '--stitch3d' in args:
     sys.exit(stitch3d_main())
+  if '--montage' in args:
+    sys.exit(montage_main())
   sys.exit(masked_main() if '--masked' in args else main('--warm' in args))

@@ -5,8 +5,9 @@ state is the solved mesh and the coordinate maps. This module moves both
 across without importing JAX:
 
   * `config_from_jax(obj)` builds the port's StackAlignConfig,
-    Stitch3dConfig or IntegrationConfig from a sofima_tpu config (any
-    object with the same dataclass fields), via `dataclasses.asdict`;
+    Stitch3dConfig, MontageConfig or IntegrationConfig from a sofima_tpu
+    config (any object with the same dataclass fields), via
+    `dataclasses.asdict`;
   * `map_from_numpy` / `map_to_numpy` convert [2|3, z, y, x] maps,
     [2, 1, G, G] solved section meshes and [3, n, gz, gy, gx] stitched
     tile meshes between numpy (what `np.asarray` of a JAX array gives)
@@ -24,6 +25,7 @@ import torch
 
 from sofima_tpu_torch import mesh
 from sofima_tpu_torch import placement
+from sofima_tpu_torch.pipeline import montage
 from sofima_tpu_torch.pipeline import stack_align
 from sofima_tpu_torch.pipeline import stitch3d
 
@@ -31,9 +33,9 @@ from sofima_tpu_torch.pipeline import stitch3d
 def config_from_jax(obj):
   """Port config equal field by field to a sofima_tpu config dataclass.
 
-  Accepts sofima_tpu's StackAlignConfig or Stitch3dConfig (nested mesh
-  config included) or IntegrationConfig; the type is recognized by its
-  fields.
+  Accepts sofima_tpu's StackAlignConfig, Stitch3dConfig or MontageConfig
+  (nested mesh config included) or IntegrationConfig; the type is
+  recognized by its fields.
   """
   if not dataclasses.is_dataclass(obj):
     raise TypeError(f'expected a config dataclass, got {type(obj)!r}')
@@ -45,9 +47,10 @@ def config_from_jax(obj):
       stack_align.StackAlignConfig)}:
     d['mesh'] = mesh.IntegrationConfig(**d['mesh'])
     return stack_align.StackAlignConfig(**d)
-  if names == {f.name for f in dataclasses.fields(stitch3d.Stitch3dConfig)}:
-    d['mesh_cfg'] = mesh.IntegrationConfig(**d['mesh_cfg'])
-    return stitch3d.Stitch3dConfig(**d)
+  for cls in (stitch3d.Stitch3dConfig, montage.MontageConfig):
+    if names == {f.name for f in dataclasses.fields(cls)}:
+      d['mesh_cfg'] = mesh.IntegrationConfig(**d['mesh_cfg'])
+      return cls(**d)
   raise TypeError(f'unrecognized config type {type(obj).__name__}')
 
 

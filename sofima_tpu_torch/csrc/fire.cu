@@ -4,7 +4,8 @@
 //
 // Replaces sofima_tpu/ops/pallas_mesh.py `_fused_fire_kernel` (entry
 // relax_mesh_fused_pallas) with `_roll_force_2d`: 8-neighbour Hooke
-// springs (diagonals at k/sqrt(2)); and the inner `kernel` of
+// springs (diagonals at k/sqrt(2)), the force of K8 under the Pallas NaN
+// rule (mesh2d.cuh); and the inner `kernel` of
 // relax_mesh_fused_pallas_3d with `_roll_force_3d` /
 // `_roll_force_3d_loop`: 26-neighbour springs at k * stride_x / l0, the
 // force of K9 (mesh3d.cuh). One loop body serves both, templated on the dimension:
@@ -37,6 +38,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mesh2d.cuh"
 #include "mesh3d.cuh"
 
 namespace cg = cooperative_groups;
@@ -62,49 +64,6 @@ __device__ __forceinline__ float nan_to_num(float v) {
   return v;
 }
 
-// In-plane spring force on node (y, x) of a [2, gy, gx] mesh.
-__device__ void spring_force_2d(const float* __restrict__ x, int gy, int gx,
-                                int y, int xx, const FireParams& P,
-                                float f[2]) {
-  const int n = gy * gx;
-  const int i = y * gx + xx;
-  const float x0 = x[i], x1 = x[n + i];
-  float acc0 = 0.0f, acc1 = 0.0f;
-  for (int ey = -1; ey <= 1; ++ey) {
-    for (int ex = -1; ex <= 1; ++ex) {
-      if (ex == 0 && ey == 0) continue;
-      const int ny = y + ey, nx = xx + ex;
-      // Outside the grid behaves like the NaN guard ring: no spring.
-      if (ny < 0 || ny >= gy || nx < 0 || nx >= gx) continue;
-      const int j = ny * gx + nx;
-      const float l0x = P.stride_x * ex, l0y = P.stride_y * ey;
-      const float l0 = sqrtf(l0x * l0x + l0y * l0y);
-      const float k_eff = (ex == 0 || ey == 0) ? P.k : P.k_diag;
-      const float d0 = x[j] - x0 + l0x;
-      const float d1 = x[n + j] - x1 + l0y;
-      const float dd = d0 * d0 + d1 * d1;
-      const float inv_l = rsqrtf(fmaxf(dd, 0.0f));
-      float g0, g1;
-      if (P.prefer_orig_order) {
-        const float fac0 = ex != 0 ? (float)ex * sofima::sign0(d0) : 1.0f;
-        const float fac1 = ey != 0 ? (float)ey * sofima::sign0(d1) : 1.0f;
-        g0 = k_eff * (1.0f - l0 * fac0 * inv_l) * d0;
-        g1 = k_eff * (1.0f - l0 * fac1 * inv_l) * d1;
-      } else {
-        const float coef = k_eff * (1.0f - l0 * inv_l);
-        g0 = coef * d0;
-        g1 = coef * d1;
-      }
-      if (isfinite(dd)) {
-        acc0 += g0;
-        acc1 += g1;
-      }
-    }
-  }
-  f[0] = acc0;
-  f[1] = acc1;
-}
-
 // Spring force plus the capped k0 spring to prev on node i of a
 // [D, nz, gy, gx] mesh (nz = 1 in 2d).
 template <int D>
@@ -117,7 +76,9 @@ __device__ __forceinline__ void node_force(const float* __restrict__ x,
   const int xx = i % gx;
   const int y = (i / gx) % gy;
   if constexpr (D == 2) {
-    spring_force_2d(x, gy, gx, y, xx, P, f);
+    const sofima::Springs2d S = {P.k, P.k_diag, P.stride_x, P.stride_y};
+    sofima::force2d_node<false>(x, n, gy, gx, y, xx, S,
+                                P.prefer_orig_order != 0, f);
   } else {
     sofima::force3d_node(x, n, nz, gy, gx, i / (gx * gy), y, xx, P.links,
                          P.prefer_orig_order != 0, f);

@@ -19,7 +19,10 @@ Twin of sofima_tpu/flow_field.py. Ported:
         the rounded shift (`overflow` from the transport's plan);
   * `JAXMaskedXCorrWithStatsCalculator`, its dense branch (mode other
     than 'padfield', no targeting fields), with the host-side occupancy
-    and selection deselection.
+    and selection deselection;
+  * `masked_xcorr` (the full linear Padfield NCC on torch.fft, padded to
+    `next_fast_len`, batch or per-item thresholds), which the montage's
+    coarse strip offsets use.
 The calculator's padfield mode and targeting fields are still to be
 ported (ROADMAP.md Queue 1, Slice 2 item 5) and raise
 NotImplementedError.
@@ -40,6 +43,104 @@ from sofima_tpu_torch.ops import shift_warp
 from sofima_tpu_torch.utils import geom
 
 _batched_peaks = cuda_flow.batched_peaks
+
+
+def next_fast_len(n: int) -> int:
+  """Smallest 5-smooth (2^a 3^b 5^c) integer >= n."""
+  if n <= 2:
+    return max(n, 1)
+  best = 1 << (n - 1).bit_length()  # power of two upper bound
+  p5 = 1
+  while p5 < best:
+    p35 = p5
+    while p35 < best:
+      # Smallest power of two lifting p35 above n.
+      q = -(-n // p35)
+      p2 = 1 << max(q - 1, 0).bit_length()
+      best = min(best, p2 * p35)
+      p35 *= 3
+    p5 *= 5
+  return best
+
+
+def masked_xcorr(prev, curr, prev_mask=None, curr_mask=None,
+                 per_item: bool = False) -> torch.Tensor:
+  """Normalized cross-correlation of two (optionally masked) images.
+
+  Twin of flow_field.masked_xcorr in 2d: the full linear correlation over
+  the last two axes (leading axes are batch), FFTs padded to
+  `next_fast_len` (torch.fft, as the reference leaves them to XLA).
+  Masks mark INVALID pixels (True = ignore); with masks the result is
+  the Padfield masked NCC in [-1, 1], zeroed where the denominator is
+  below 1e3 eps x its maximum or the valid overlap below 0.3 x its
+  maximum. Those maxima are taken over the whole batch, or per item with
+  `per_item=True` (then a batched call equals a sequence of batch-of-1
+  calls). Inputs may be numpy or tensors; the result is a tensor on
+  `prev`'s device.
+  """
+  prev = torch.as_tensor(prev).to(torch.float32)
+  curr = torch.as_tensor(curr, device=prev.device).to(torch.float32)
+  axes = (-2, -1)
+  full_shape = tuple(int(a + b - 1) for a, b in
+                     zip(prev.shape[-2:], curr.shape[-2:]))
+  fft_shape = tuple(next_fast_len(n) for n in full_shape)
+  out = (Ellipsis,) + tuple(slice(0, n) for n in full_shape)
+
+  def as_mask(m):
+    return None if m is None else torch.as_tensor(m, device=prev.device).to(
+        torch.bool)
+
+  prev_mask, curr_mask = as_mask(prev_mask), as_mask(curr_mask)
+  if prev_mask is not None:
+    prev = torch.where(prev_mask, torch.zeros_like(prev), prev)
+  if curr_mask is not None:
+    curr = torch.where(curr_mask, torch.zeros_like(curr), curr)
+  curr = torch.flip(curr, axes)
+
+  def fft(v):
+    return torch.fft.rfftn(v.to(torch.float32), s=fft_shape, dim=axes)
+
+  def ifft(v):
+    return torch.fft.irfftn(v, s=fft_shape, dim=axes)
+
+  f_prev, f_curr = fft(prev), fft(curr)
+  xcorr = ifft(f_prev * f_curr)
+  if prev_mask is None and curr_mask is None:
+    return xcorr[out]
+
+  valid_prev = (torch.ones_like(prev, dtype=torch.bool) if prev_mask is None
+                else ~prev_mask)
+  valid_curr = (torch.ones_like(curr, dtype=torch.bool) if curr_mask is None
+                else torch.flip(~curr_mask, axes))
+  f_vp, f_vc = fft(valid_prev), fft(valid_curr)
+  eps = float(np.finfo(np.float32).eps)
+  overlap = torch.clamp(torch.round(ifft(f_vc * f_vp)), min=eps)
+  inv_overlap = 1.0 / overlap
+  # Local (masked-region) sums of each image under the other's mask.
+  sum_prev = ifft(f_vc * f_prev)
+  sum_curr = ifft(f_vp * f_curr)
+  numerator = xcorr - sum_prev * sum_curr * inv_overlap
+  var_prev = torch.clamp(ifft(f_vc * fft(prev * prev))
+                         - sum_prev * sum_prev * inv_overlap, min=0.0)
+  var_curr = torch.clamp(ifft(f_vp * fft(curr * curr))
+                         - sum_curr * sum_curr * inv_overlap, min=0.0)
+  denom = torch.sqrt(var_prev * var_curr)[out]
+  numerator = numerator[out]
+  overlap = overlap[out]
+
+  def amax(v):
+    if per_item:
+      return torch.amax(v, dim=axes, keepdim=True)
+    return torch.amax(v)
+
+  tol = 1e3 * eps * amax(torch.abs(denom))
+  ok = denom > tol
+  res = torch.where(ok, numerator / torch.where(ok, denom,
+                                                torch.ones_like(denom)),
+                    torch.zeros_like(denom))
+  res = torch.clamp(res, -1.0, 1.0)
+  res = torch.where(overlap < 0.3 * amax(overlap), torch.zeros_like(res), res)
+  return res
 
 
 def _strip_patches_3d(slab: torch.Tensor, grid_y: int, grid_x: int,
@@ -391,6 +492,24 @@ def _host(v):
       np.asarray(v))
 
 
+# The reference calculator's circular modes. Here each one correlates in
+# float32 (K1, or K5 with masks): 'circular_dft' picks the TPU's DFT
+# matmuls over FFTs and 'circular_dft_bf16' also rounds their inputs to
+# bfloat16, choices for the TPU's matrix unit that the port does not
+# copy. Integer peaks agree with 'circular_dft' on textured data.
+CIRCULAR_MODES = ('circular', 'circular_dft', 'circular_dft_bf16')
+
+
+def check_circular_mode(mode: str) -> None:
+  """Raises unless `mode` is one of CIRCULAR_MODES."""
+  if mode == 'padfield':
+    raise NotImplementedError(
+        "the calculator's padfield mode is not ported yet (ROADMAP.md "
+        'Queue 1, Slice 2 item 5: masked_xcorr); use a circular mode')
+  if mode not in CIRCULAR_MODES:
+    raise ValueError(f'unknown flow mode {mode!r}')
+
+
 class JAXMaskedXCorrWithStatsCalculator:
   """Grid-driven flow-field estimator; the port keeps the reference's name.
 
@@ -401,7 +520,7 @@ class JAXMaskedXCorrWithStatsCalculator:
   masked or that `selection_mask` drops. Images go to `device` (default:
   the CUDA card; tensors stay where they are). The result is numpy, as
   the reference returns. Every mode correlates in float32
-  ('circular_dft_bf16' included).
+  (`check_circular_mode`).
   """
 
   non_spatial_flow_channels = 2  # peak sharpness, peak ratio
@@ -428,10 +547,7 @@ class JAXMaskedXCorrWithStatsCalculator:
     """
     del batch_size, progress_fn
     ndim = pre_image.ndim
-    if mode == 'padfield':
-      raise NotImplementedError(
-          "the calculator's padfield mode is not ported yet (ROADMAP.md "
-          'Queue 1, Slice 2 item 5: masked_xcorr); use a circular mode')
+    check_circular_mode(mode)
     if pre_targeting_field is not None or post_targeting_field is not None:
       raise NotImplementedError(
           'targeting fields are not ported yet (ROADMAP.md Queue 1, Slice 2 '

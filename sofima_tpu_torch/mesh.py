@@ -1,7 +1,8 @@
 """Elastic spring-mesh relaxation, plain PyTorch (subset).
 
 Twin of sofima_tpu/mesh.py. Ported: `IntegrationConfig`, the generic
-spring stencil `_spring_force` with `inplane_force` (2d, 8 neighbours)
+spring stencil `_spring_force` with `inplane_force` (2d, 8 neighbours;
+on a CUDA tensor it launches kernel K8, ops.cuda_mesh.force_2d)
 and `elastic_mesh_3d` (3d, 26 neighbours; on a CUDA tensor it launches
 kernel K9, ops.cuda_mesh.force_3d), `_make_step_fns` (velocity Verlet +
 FIRE, the k0 springs to `prev` or to `prev_fn(x)`, the force cap and its
@@ -9,8 +10,8 @@ upscaling, drift removal), `velocity_verlet` (one chunk of steps),
 `relax_mesh` (the host-driven chunked loop) and `relax_mesh_fused` (the
 two-streak convergence loop; `lax.while_loop` becomes a Python loop with
 one host read per chunk). The stack-alignment solve runs the fused CUDA
-kernel K3 instead (ops.cuda_mesh); `relax_mesh_fused` is its plain
-reference.
+kernel K3 instead (ops.cuda_mesh), unless drift removal asks for this
+staged `relax_mesh_fused`; it is also K3's plain reference.
 
 Positions are relative: node (i, j) with value (dx, dy) sits at
 (i*stride + dx, j*stride + dy). Arrays are [2|3, ..., (z,) y, x]
@@ -147,9 +148,9 @@ def _spring_force(x: torch.Tensor, links, k_eff, stride_xyz,
   return total
 
 
-def inplane_force(x: torch.Tensor, k: float, stride: Sequence[float],
-                  prefer_orig_order: bool = False) -> torch.Tensor:
-  """In-plane forces of a 2d spring mesh ([2, ..., y, x] positions).
+def inplane_force_plain(x: torch.Tensor, k: float, stride: Sequence[float],
+                        prefer_orig_order: bool = False) -> torch.Tensor:
+  """Plain PyTorch in-plane force of [2, ..., y, x] positions.
 
   Spring families: axis links (k) and diagonals (k/sqrt(2)).
   """
@@ -158,6 +159,21 @@ def inplane_force(x: torch.Tensor, k: float, stride: Sequence[float],
   k_diag = k / np.sqrt(2.0)
   return _spring_force(x, INPLANE_LINK_DIRECTIONS, (k, k, k_diag, k_diag),
                        tuple(stride), prefer_orig_order, spatial=2)
+
+
+def inplane_force(x: torch.Tensor, k: float, stride: Sequence[float],
+                  prefer_orig_order: bool = False) -> torch.Tensor:
+  """In-plane forces of a 2d spring mesh ([2, ..., y, x] positions).
+
+  Batch axes may sit between the channels and the grid. A CPU tensor
+  takes the plain version; a CUDA tensor launches kernel K8.
+  """
+  if len(stride) != 2:
+    raise ValueError('stride must be 2D (XY).')
+  if x.device.type == 'cpu':
+    return inplane_force_plain(x, k, stride, prefer_orig_order)
+  from sofima_tpu_torch.ops import cuda_mesh  # imports this module
+  return cuda_mesh.force_2d(x, k, stride, prefer_orig_order)
 
 
 def link_constants_3d(k: float, stride) -> list[float]:

@@ -51,6 +51,7 @@ launch_counts: dict[str, int] = {
     'masked_flow_peaks': 0,     # K5: masked passes
     'fused_fire': 0,            # K3: mesh solve
     'warp_gather': 0,           # K4: render
+    'force2d': 0,               # K8: 2d mesh force
     'force3d': 0,               # K9: 3d mesh force
     'fused_fire_3d': 0,         # K11: 3d mesh solve
     'warp_gather_3d': 0,        # K13: 3d render

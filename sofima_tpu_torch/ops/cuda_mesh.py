@@ -1,8 +1,11 @@
-"""Kernels K3, K9 and K11: the mesh solvers' CUDA wrappers and plain twins.
+"""Kernels K3, K8, K9 and K11: the mesh solvers' CUDA wrappers and plain twins.
 
 Twin of sofima_tpu/ops/pallas_mesh.py:
   * K3 `relax_mesh_fused`: `relax_mesh_fused_pallas` (Pallas body
     `_fused_fire_kernel` with `_roll_force_2d`), the fused 2d FIRE solve;
+  * K8 `force_2d`: `inplane_force_pallas` (`_kernel` with `_force_tile`),
+    the 8-neighbour in-plane force with the contract of
+    mesh.inplane_force; csrc/force2d.cu;
   * K9 `force_3d`: `elastic_mesh_3d_pallas` (`_kernel_3d_loop`,
     `_kernel_3d_rolls`) and its slab twin `elastic_mesh_3d_pallas_slab`
     (K10), the 26-neighbour force with the contract of
@@ -18,7 +21,9 @@ Contract of the fused solvers, as the reference's: FIRE required;
 returns (x, e_kin history [min(max_chunks, 128)], steps). Nodes outside
 the grid or with NaN positions carry no springs. Drift removal is in
 neither the kernel nor its plain version: `remove_drift=True` raises
-NotImplementedError on every device rather than run another solver.
+NotImplementedError on every device rather than run another solver (the
+stack pipeline then takes the staged mesh.relax_mesh_fused, with K8, as
+the reference takes its XLA solver).
 The 3d reference's `link_loop`, `symmetric` and `guard` options select
 Mosaic workarounds with one result, and have no counterpart here.
 
@@ -76,6 +81,35 @@ def roll_force_2d(xp: torch.Tensor, k: float, stride,
       acc0 = acc0 + torch.where(fin, f0, torch.zeros_like(f0))
       acc1 = acc1 + torch.where(fin, f1, torch.zeros_like(f1))
   return torch.stack([acc0, acc1])
+
+
+def force_2d(x: torch.Tensor, k: float, stride,
+             prefer_orig_order: bool = False) -> torch.Tensor:
+  """K8: 8-neighbour in-plane force of [2, ..., y, x] positions (the
+  contract of mesh.inplane_force). CPU tensors take the plain version."""
+  if x.ndim < 3 or x.shape[0] != 2:
+    raise ValueError(f'[2, ..., y, x] positions expected, got '
+                     f'{tuple(x.shape)}')
+  if len(stride) != 2:
+    raise ValueError('stride must be 2D (XY).')
+  if x.device.type == 'cpu':
+    return mesh_lib.inplane_force_plain(x, k, stride, prefer_orig_order)
+  x = x.to(torch.float32).contiguous()
+  _build.require_cuda('force_2d', x)
+  lib = _build.library()
+  fn = lib.force2d_launch
+  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 2
+                 + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  ny, nx = x.shape[-2:]
+  nb = int(np.prod(x.shape[1:-2], dtype=np.int64))
+  out = torch.empty_like(x)
+  rc = fn(x.data_ptr(), out.data_ptr(), nb, ny, nx, float(k),
+          float(k / np.sqrt(2.0)), float(stride[0]), float(stride[1]),
+          int(prefer_orig_order), _build.stream_of(x))
+  _build.launch_counts['force2d'] += 1
+  _build.check(rc, 'force2d')
+  return out
 
 
 def _links_table(k: float, stride) -> np.ndarray:

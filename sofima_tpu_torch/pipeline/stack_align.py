@@ -8,7 +8,8 @@ adjacent section pair:
   2. CLEAN   flow_utils.clean_flow_device quality gates
   3. SOLVE   compose with the previous section's mesh, then the fused
              FIRE relaxation warm-started from the spring targets
-             (ops.cuda_mesh; kernel K3)
+             (ops.cuda_mesh; kernel K3), or with `mesh.remove_drift` the
+             staged solver mesh.relax_mesh_fused (its force: kernel K8)
   4. INVERT  fixed-point + Newton map inversion and harmonic hole fill
   5. RENDER  Lanczos render through the inverted map (ops.cuda_warp;
              kernel K4), with the reference's envelope `overflow` flag
@@ -21,9 +22,6 @@ pass from the previous pair's cleaned flow instead of a coarse pass, and
 a stale prior is re-measured cold. A host (numpy) stack goes to `device`
 (default: the CUDA card; without one, pass device='cpu'); a tensor stays
 on its device, and the work stays there throughout.
-
-Not ported yet: drift removal in the solve (`mesh.remove_drift`) raises
-NotImplementedError; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -156,13 +154,18 @@ def _stale(flow: torch.Tensor, overflow: torch.Tensor, prev: torch.Tensor,
 def _solve_phase(flow_full: torch.Tensor, solved_prev: torch.Tensor,
                  cfg: StackAlignConfig) -> torch.Tensor:
   """SOLVE one section: spring targets from the composed flow, FIRE
-  relaxation warm-started from the targets themselves."""
+  relaxation warm-started from the targets themselves. The fused kernel
+  has no drift removal (as the reference's Pallas solver), so
+  `remove_drift` takes the staged solver, as the reference does."""
   s = float(cfg.stride)
   zero3 = np.zeros(3, np.float32)
   prev = map_utils.compose_maps_fast(flow_full, zero3, s, solved_prev,
                                      zero3, s)
   x0 = torch.where(torch.isnan(prev), solved_prev, prev)
-  solved, _, _ = cuda_mesh.relax_mesh_fused(x0, prev, cfg.mesh)
+  if cfg.mesh.remove_drift:
+    solved, _, _ = mesh.relax_mesh_fused(x0, prev, cfg.mesh)
+  else:
+    solved, _, _ = cuda_mesh.relax_mesh_fused(x0, prev, cfg.mesh)
   return solved
 
 

@@ -1,22 +1,24 @@
-"""Elastic (fine) 3d tile stitching (subset).
+"""Elastic (fine) 2d and 3d tile stitching (subset).
 
 Twin of sofima_tpu/stitch_elastic.py. Every tile is a spring mesh; all
-tile meshes are packed into one [3, N, z, y, x] array and relaxed
+tile meshes are packed into one [2|3, N, (z,) y, x] array and relaxed
 together, coupled through virtual springs whose targets come from
 composing inter-tile flow fields with the neighbouring tiles' meshes.
 
-Ported: `NeighborInfo`, `_relative_intersection`, `compute_flow_map3d`
-(its circular strip branch), `aggregate_arrays`, and the target-mesh
-machinery (`_window_edge_start`, the reference's `_apply_flow` window
-rule, `compute_target_mesh`) for 3d meshes. The reference evaluates the
-targets inside the solver as a vmap over tiles of a scan over the
-neighbour rows, with `lax.cond` on the row values; here the rows are a
-host table, so `TargetMeshPlan` resolves every (tile, neighbour) window
-to Python ints once, before the solve, and each solver step is then one
-batched 3d composition and a fixed short sequence of slice pastes, with
-no host read. Still to port (ROADMAP.md Queue 1): the padfield branch
-of `compute_flow_map3d` and masks, the 2d functions
-(`compute_flow_map`, 2d targets).
+Ported: `NeighborInfo`, `_relative_intersection`, `compute_flow_map`
+(2d, its circular modes: the calculator's dense branch, kernel K1) and
+`compute_flow_map3d` (its circular strip branch), `aggregate_arrays`
+(2d and 3d), and the target-mesh machinery (`_window_edge_start`, the
+reference's `_apply_flow` window rule, `compute_target_mesh`). The
+reference evaluates the targets inside the solver as a vmap over tiles
+of a scan over the neighbour rows, with `lax.cond` on the row values;
+here the rows are a host table, so `TargetMeshPlan` resolves every
+(tile, neighbour) window to Python ints once, before the solve, and
+each solver step is then one batched 3d composition and a fixed short
+sequence of slice pastes, with no host read. 2d meshes take the same
+plan as z = 1 (the reference composes 2d as z = 1 too). Still to port
+(ROADMAP.md Queue 1): the padfield branches of both flow maps and the
+3d masks.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from sofima_tpu_torch import flow_field
 from sofima_tpu_torch import map_utils
+from sofima_tpu_torch import placement
 from sofima_tpu_torch.utils.bounding_box import BoundingBox
 
 TileXY = tuple[int, int]
@@ -57,6 +60,73 @@ def _relative_intersection(box1: BoundingBox, box2: BoundingBox):
   ibox = box1.intersection(box2)
   return (BoundingBox(start=ibox.start - box1.start, size=ibox.size),
           BoundingBox(start=ibox.start - box2.start, size=ibox.size))
+
+
+def compute_flow_map(tile_map: Mapping[TileXY, Any], offset_map: np.ndarray,
+                     axis: int, patch_size=(120, 120), stride=(20, 20),
+                     batch_size: int = 256, flow_mode: str = 'padfield',
+                     device=None):
+  """Fine flow between adjacent 2d tiles along `axis` (0: x, 1: y).
+
+  For each valid tile pair, crops stride-aligned overlap strips (shifted
+  by the rounded orthogonal offset) from both tiles and estimates the
+  patch flow between them, with the calculator's circular dense branch
+  (kernel K1 on the card; every circular mode correlates in float32,
+  `flow_field.check_circular_mode`).
+  Tiles may be tensors (the strips are sliced on their device) or host
+  arrays (they go to `device`, default the CUDA card). `batch_size` is
+  accepted for parity and not read.
+
+  Returns ({(x, y): [4, gy, gx] flow tensor padded with NaN to the tile
+  mesh grid}, {(x, y): xy offset used for the crop}).
+  """
+  del batch_size
+  flow_field.check_circular_mode(flow_mode)
+  yx_shape = offset_map.shape[-2:]
+  flows, offsets = {}, {}
+  pad_y = patch_size[0] // 2 // stride[0]
+  pad_x = patch_size[1] // 2 // stride[1]
+
+  for y in range(yx_shape[0] - axis):
+    for x in range(yx_shape[1] - (1 - axis)):
+      if np.isnan(offset_map[0, y, x]):
+        continue
+
+      pre = placement.place(tile_map[x, y], device, torch.float32)
+      post = placement.place(tile_map[x + (1 - axis), y + axis], device,
+                             torch.float32)
+      offset = offset_map[:, y, x]  # (off_x, off_y)
+
+      # Stride-align the overlap: shrink it so the crop start within the
+      # 'pre' tile is a stride multiple.
+      overlap = -int(offset[axis])
+      overlap = pre.shape[1 - axis] - (
+          (pre.shape[1 - axis] - overlap) // stride[1 - axis]
+          * stride[1 - axis])
+      rounded = np.asarray(stride)[::-1] * np.round(
+          offset / np.asarray(stride)[::-1])
+      ortho_offset = int(rounded[1 - axis])
+
+      pre_sel = [slice(None), slice(None)]
+      post_sel = [slice(None), slice(None)]
+      pre_sel[1 - axis] = slice(-overlap, None)
+      post_sel[1 - axis] = slice(None, overlap)
+      if ortho_offset > 0:
+        pre_sel[axis] = slice(ortho_offset, None)
+        post_sel[axis] = slice(None, -ortho_offset)
+      elif ortho_offset < 0:
+        pre_sel[axis] = slice(None, ortho_offset)
+        post_sel[axis] = slice(-ortho_offset, None)
+
+      f = flow_field.dense_flow_field(
+          pre[tuple(pre_sel)].contiguous(), post[tuple(post_sel)].contiguous(),
+          tuple(int(p) for p in patch_size), tuple(int(s) for s in stride))
+      flows[(x, y)] = torch.nn.functional.pad(
+          f, (pad_x, pad_x - 1, pad_y, pad_y - 1), value=float('nan'))
+      offsets[(x, y)] = ((-overlap, ortho_offset) if axis == 0
+                         else (ortho_offset, -overlap))
+
+  return flows, offsets
 
 
 def compute_flow_map3d(tile_map: Mapping[TileXY, Any], tile_shape,
@@ -142,26 +212,25 @@ def aggregate_arrays(x_data, y_data, tile_coords: Sequence[TileXY],
   """Packs per-tile meshes, flows and neighbour metadata into flat arrays.
 
   Args:
-    x_data: (coarse offsets cx [3, ny, nx], horizontal flows, crop offsets)
+    x_data: (coarse offsets cx [2|3, ny, nx], horizontal flows, crop
+      offsets)
     y_data: same for vertical neighbours
     tile_coords: (x, y) coordinates of all tiles
     coarse_mesh: rigid-stitching solution (per-tile position offsets)
-    stride: ZYX mesh/flow stride
-    tile_shape: ZYX tile image shape
+    stride: [Z]YX mesh/flow stride
+    tile_shape: [Z]YX tile image shape
 
   Returns:
     (fx_all, fy_all, x_all, nbors, key_to_idx): the packed flows as
     float32 tensors on the flows' device, the initial meshes as a numpy
-    float32 array, the int `nbors` table (see NeighborInfo) on the host.
+    float32 array, the int `nbors` table (see NeighborInfo; 8 columns in
+    2d, 11 in 3d) on the host.
   """
   cx, fine_x, offsets_x = x_data
   cy, fine_y, offsets_y = y_data
   assert cx.ndim == 3 and cy.ndim == 3
   key_to_idx = {tuple(k): i for i, k in enumerate(tile_coords)}
   dim = len(stride)
-  if dim != 3:
-    raise NotImplementedError('only 3d stitching is ported (ROADMAP.md '
-                              'Queue 1: 2d stitching)')
   n = len(key_to_idx)
   flows = list(fine_x.values()) + list(fine_y.values())
   dev = flows[0].device if flows else torch.device('cpu')
@@ -174,7 +243,8 @@ def aggregate_arrays(x_data, y_data, tile_coords: Sequence[TileXY],
     for k, i in key_to_idx.items():
       if k in fine:
         f = fine[k]
-        out[:, i, :f.shape[-3], :f.shape[-2], :f.shape[-1]] = f[:dim]
+        out[(slice(None), i) + tuple(slice(0, v) for v in f.shape[1:])] = (
+            f[:dim])
     return out
 
   floor = (dim,) + (1,) * dim
@@ -182,15 +252,18 @@ def aggregate_arrays(x_data, y_data, tile_coords: Sequence[TileXY],
   fy_all = _pack(fine_y, floor)
 
   def _nbor_row(key, flow_key, coarse, fine, offsets, axis):
-    size_z, ortho, overlap = fine[flow_key].shape[-3:]
+    ortho, overlap = fine[flow_key].shape[-2:]
     if axis == 1:
       overlap, ortho = ortho, overlap
     off = offsets[flow_key]
-    return [key_to_idx[key], key_to_idx[flow_key],
-            coarse[1] if axis == 0 else coarse[0], ortho, overlap, off[0],
-            off[1], axis, coarse[2], size_z, off[2]]
+    row = [key_to_idx[key], key_to_idx[flow_key],
+           coarse[1] if axis == 0 else coarse[0], ortho, overlap, off[0],
+           off[1], axis]
+    if dim == 3:
+      row += [coarse[2], fine[flow_key].shape[-3], off[2]]
+    return row
 
-  nbors = np.full((n, 4, 11), -1, dtype=int)
+  nbors = np.full((n, 4, 8 if dim == 2 else 11), -1, dtype=int)
   for tx, ty in tile_coords:
     i = key_to_idx[tx, ty]
     if (tx - 1, ty) in fine_x:  # left neighbour
@@ -248,21 +321,36 @@ def _fine_offset(row) -> list[int]:
                                 NeighborInfo.fine_off_z)]
 
 
+def _lift_2d(v: torch.Tensor) -> torch.Tensor:
+  """[2, n, y, x] -> [3, n, 1, y, x]: a zero z channel and a unit z axis."""
+  return torch.cat([v, torch.zeros_like(v[:1])])[:, :, None]
+
+
 class TargetMeshPlan:
   """`prev_fn` of the joint solve: every tile's target mesh per step.
 
-  The reference's `compute_target_mesh` vmapped over the tiles ([3, n,
-  z, y, x]), with the per-row window geometry, flow slabs, fine offsets and
-  composition taps resolved once from the host `nbors` table. The flows
-  of all rows are NaN-padded to one common block shape (NaN updates keep
-  what is there, as in the reference), so one batched composition
-  serves every row; the pastes then run in the reference's order, tile
-  by tile and row by row.
+  The reference's `compute_target_mesh` vmapped over the tiles ([2|3,
+  n, (z,) y, x]), with the per-row window geometry, flow slabs, fine
+  offsets and composition taps resolved once from the host `nbors`
+  table. The flows of all rows are NaN-padded to one common block shape
+  (NaN updates keep what is there, as in the reference), so one batched
+  composition serves every row; the pastes then run in the reference's
+  order, tile by tile and row by row. 2d meshes, flows and rows are
+  lifted to z = 1 with a zero z channel: the z taps then weigh exactly
+  1 and 0, so the composition equals the reference's bilinear one.
   """
 
   def __init__(self, nbors: np.ndarray, fx: torch.Tensor, fy: torch.Tensor,
                stride, mesh_shape):
     nbors = np.asarray(nbors)
+    self.dim = fx.shape[0]
+    if self.dim == 2:
+      fx, fy = _lift_2d(fx), _lift_2d(fy)
+      stride = (1.0,) + tuple(float(v) for v in stride)
+      mesh_shape = (1,) + tuple(mesh_shape)
+      # coarse_offset_z 0, flow_size_z 1, fine_off_z 0.
+      extra = np.broadcast_to(np.array([0, 1, 0]), nbors.shape[:-1] + (3,))
+      nbors = np.concatenate([nbors, extra], axis=-1)
     self.mesh_shape = tuple(int(v) for v in mesh_shape)
     block = [max(int(a), int(b)) for a, b in zip(fx.shape[2:], fy.shape[2:])]
     self.block = block
@@ -299,7 +387,12 @@ class TargetMeshPlan:
       self.nbr = torch.tensor(nbr, dtype=torch.int64, device=dev)
 
   def __call__(self, x: torch.Tensor) -> torch.Tensor:
-    """[3, n, z, y, x] meshes -> [3, n, z, y, x] spring targets."""
+    """[2|3, n, (z,) y, x] meshes -> spring targets of the same shape."""
+    if self.dim == 2:
+      return self._targets(_lift_2d(x))[:2, :, 0]
+    return self._targets(x)
+
+  def _targets(self, x: torch.Tensor) -> torch.Tensor:
     tgt = torch.full([3, self.n_tiles] + self.big, float('nan'),
                      dtype=torch.float32, device=x.device)
     if self.compose is not None:
@@ -319,16 +412,16 @@ def compute_target_mesh(nbor_data, x: torch.Tensor, fx: torch.Tensor,
   A one-tile `TargetMeshPlan`; the solver builds the plan once instead.
 
   Args:
-    nbor_data: [4, 11] neighbour rows (see NeighborInfo); -1 = none
-    x: [3, n, z, y, x] all tile meshes
-    fx/fy: [3, m, z, y, x] packed horizontal/vertical flows
-    stride: ZYX mesh stride
+    nbor_data: [4, 8 or 11] neighbour rows (see NeighborInfo); -1 = none
+    x: [2|3, n, (z,) y, x] all tile meshes
+    fx/fy: [2|3, m, (z,) y, x] packed horizontal/vertical flows
+    stride: [Z]YX mesh stride
 
   Returns:
-    [3, z, y, x] target mesh, NaN where no neighbour constrains a node.
+    [2|3, (z,) y, x] target mesh, NaN where no neighbour constrains a
+    node.
   """
-  if x.shape[0] != 3:
-    raise NotImplementedError('only 3d stitching is ported')
+  dim = x.shape[0]
   plan = TargetMeshPlan(np.asarray(nbor_data)[None], fx, fy, stride,
-                        x.shape[-3:])
+                        x.shape[-dim:])
   return plan(x)[:, 0]

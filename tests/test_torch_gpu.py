@@ -9,9 +9,12 @@ Tolerances: integer flow peaks and NaN placement exact, sharpness /
 ratio rtol = atol = 3e-4 on these well-conditioned inputs (K5: for 99%
 of them, with every clean-gate decision equal: near masked regions the
 statistics divide by correlation values close to 0); fused solver
-steps equal and nodes within 1e-3 px (2d and 3d); 3d force within 1e-4;
-renders (2d and 3d) within 1e-2 gray levels; the small 3d stitch on the
-card within 0.01 * stride of the CPU plain path.
+steps equal and nodes within 1e-3 px (2d and 3d), as the staged 2d
+solver with K8; 2d and 3d forces within 1e-4, K8 repeating bit for bit;
+renders (2d and 3d) within 1e-2 gray levels; the small 3d stitch, the
+small 2d montage and the drift-removal stack step on the card within
+0.01 * stride of the CPU plain path (the montage canvas within 0.01 gray
+levels in the mean and 0.05 at most where both masks are set).
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ from sofima_tpu_torch.ops import _build
 from sofima_tpu_torch.ops import cuda_flow
 from sofima_tpu_torch.ops import cuda_mesh
 from sofima_tpu_torch.ops import cuda_warp
+from sofima_tpu_torch.pipeline import montage
 from sofima_tpu_torch.pipeline import stack_align
 from sofima_tpu_torch.pipeline import stitch3d
 
@@ -193,16 +197,100 @@ def test_fused_fire(dev):
         mesh.IntegrationConfig(**{**cfg.__dict__, 'remove_drift': True}))
 
 
-def test_align_step_drift_removal_raises(dev):
+def test_align_step_drift_removal(dev):
+  # Drift removal takes the staged solver: K8 at every force evaluation,
+  # no K3; the mesh lands on the CPU plain path's.
   cfg = stack_align.StackAlignConfig()
   cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
       cfg.mesh, remove_drift=True))
-  sec = torch.from_numpy(_texture(400)).to(dev)
-  before = _build.launch_counts['fused_fire']
-  with pytest.raises(NotImplementedError):
-    stack_align.align_step(sec, torch.roll(sec, (3, -2), (0, 1)),
-                           torch.zeros(2, 1, 10, 10, device=dev), cfg)
-  assert _build.launch_counts['fused_fire'] == before
+  sec = torch.from_numpy(_texture(400))
+  nxt = torch.roll(sec, (3, -2), (0, 1)).contiguous()
+  _build.reset_launch_counts()
+  got, rendered, _ = stack_align.align_step(
+      sec.to(dev), nxt.to(dev), torch.zeros(2, 1, 10, 10, device=dev), cfg)
+  assert _build.launch_counts['force2d'] > 0
+  assert _build.launch_counts['fused_fire'] == 0
+  ref, _, _ = stack_align.align_step(sec, nxt, torch.zeros(2, 1, 10, 10),
+                                     cfg)
+  got = got.cpu()
+  assert torch.equal(torch.isnan(got), torch.isnan(ref))
+  assert float(torch.nan_to_num((got - ref).abs()).max()) < 0.4
+  assert bool(torch.isfinite(rendered).all())
+
+
+def _force_input(seed=7):
+  rng = np.random.RandomState(seed)
+  x = torch.from_numpy((rng.randn(2, 3, 37, 70) * 5).astype(np.float32))
+  x[:, 0, 4, 9] = float('nan')
+  x[:, 2, 30:33, 0] = float('nan')
+  # A zero-length link: node (10, 11) sits on node (10, 12).
+  x[:, 1, 10, 12] = torch.tensor([2.0, -3.0])
+  x[:, 1, 10, 11] = torch.tensor([42.0, -3.0])
+  return x
+
+
+@pytest.mark.parametrize('prefer', [False, True])
+def test_force_2d(dev, prefer):
+  x = _force_input()
+  before = _build.launch_counts['force2d']
+  got = mesh.inplane_force(x.to(dev), 0.1, (40.0, 30.0), prefer)
+  assert _build.launch_counts['force2d'] == before + 1
+  again = mesh.inplane_force(x.to(dev), 0.1, (40.0, 30.0), prefer)
+  assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+  ref = mesh.inplane_force(x, 0.1, (40.0, 30.0), prefer)
+  assert bool(torch.isfinite(got).all())
+  assert float((got.cpu() - ref).abs().max()) < 1e-4
+
+
+def test_relax_mesh_2d(dev):
+  # The staged solver with K8 on the card against the CPU plain path.
+  rng = np.random.RandomState(8)
+  x = torch.from_numpy((rng.randn(2, 2, 24, 30) * 2).astype(np.float32))
+  x[:, 1, 3:5, 6] = float('nan')
+  prev = torch.nan_to_num(x) * 0.5
+  cfg = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0, 40.0),
+      num_iters=200, max_iters=2000, stop_v_max=0.005, dt_max=100.0,
+      start_cap=0.01, final_cap=1.0, cap_scale=1.5, prefer_orig_order=True)
+  before = _build.launch_counts['force2d']
+  got, _, steps = mesh.relax_mesh(x.to(dev), prev.to(dev), cfg)
+  assert _build.launch_counts['force2d'] - before == steps + steps // 200
+  ref, _, steps_ref = mesh.relax_mesh(x, prev, cfg)
+  assert steps == steps_ref
+  got = got.cpu()
+  assert torch.equal(torch.isnan(got), torch.isnan(ref))
+  assert float(torch.nan_to_num((got - ref).abs()).max()) < 1e-3
+
+
+def test_montage_small(dev):
+  # tests/test_torch_montage.py's geometry on the card against the CPU.
+  rng = np.random.RandomState(3)
+  f = np.fft.rfft2(rng.rand(260, 260).astype(np.float32))
+  f *= np.exp(-((np.fft.rfftfreq(260)[None, :] ** 2
+                 + np.fft.fftfreq(260)[:, None] ** 2) / (2 * 0.1 ** 2)))
+  img = np.fft.irfft2(f, s=(260, 260))
+  img = ((img - img.min()) / np.ptp(img) * 255).astype(np.uint8)
+  tiles = {(tx, ty): img[ty * 100:ty * 100 + 160, tx * 100:tx * 100 + 160]
+           for ty in range(2) for tx in range(2)}
+  cfg = montage.MontageConfig(
+      stride=20, patch_size=40, coarse_overlaps=(65, 75), min_overlap=10,
+      margin=4, flow_batch=16, mesh_cfg=mesh.IntegrationConfig(
+          dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(20.0, 20.0),
+          num_iters=400, max_iters=20000, stop_v_max=0.005, dt_max=100.0))
+  _build.reset_launch_counts()
+  got = montage.montage_align_2d(tiles, (2, 2), cfg)
+  for k in ('dense_flow_peaks', 'force2d', 'warp_gather'):
+    assert _build.launch_counts[k] > 0, k
+  assert _build.launch_counts['warp_gather'] == 4
+  ref = montage.montage_align_2d(tiles, (2, 2), cfg, device='cpu')
+  np.testing.assert_array_equal(got['cx'], ref['cx'])
+  np.testing.assert_array_equal(got['cy'], ref['cy'])
+  solved = got['solved'].cpu()
+  assert float(torch.nan_to_num((solved - ref['solved']).abs()).max()) < 0.2
+  both = got['mask'].cpu() & ref['mask']
+  d = (got['canvas'].cpu() - ref['canvas']).abs()[both]
+  assert float(both.float().mean()) > 0.5
+  assert float(d.mean()) < 0.01 and float(d.max()) < 0.05
 
 
 @pytest.mark.parametrize('method', ['nearest', 'linear', 'cubic', 'lanczos'])

@@ -28,6 +28,7 @@ import torch
 from sofima_tpu.ops import interp as jinterp
 from sofima_tpu.pipeline import stack_align as jsa
 from sofima_tpu_torch import convert
+from sofima_tpu_torch.ops import cuda_mesh
 from sofima_tpu_torch.pipeline import stack_align as tsa
 
 torch.set_num_threads(2)
@@ -148,15 +149,30 @@ class TestSlice:
     torch.testing.assert_close(piped, torch.clamp(torch.round(got), 0, 255)
                                .to(torch.uint8), rtol=0, atol=0)
 
-  def test_drift_removal_not_ported(self):
-    # The reference's pipeline runs its staged solver for remove_drift;
-    # the port's solve has no second solver path and raises instead.
-    cfg = tsa.StackAlignConfig()
-    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
-        cfg.mesh, remove_drift=True))
-    sec = torch.zeros(200, 200, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-      tsa.align_step(sec, sec, torch.zeros(2, 1, 5, 5), cfg)
+  def test_drift_removal_not_ported(self, case):
+    # Drift removal is not ported into the fused solver, which raises for
+    # it as the reference's Pallas solver does; so both pipelines take
+    # their staged solver (the port's force: K8's plain version here),
+    # and the step from the same JAX state must land on the reference's
+    # mesh.
+    jcfg = dataclasses.replace(case['jcfg'], mesh=dataclasses.replace(
+        case['jcfg'].mesh, remove_drift=True))
+    stack, prev = case['stack'], case['solved'][1]
+    x0 = torch.zeros(2, 1, 5, 5)
+    with pytest.raises(NotImplementedError):
+      cuda_mesh.relax_mesh_fused(x0, x0, convert.config_from_jax(jcfg).mesh)
+    ref, _, ref_ov = jsa.align_step(jnp.asarray(stack[1]),
+                                    jnp.asarray(stack[2]),
+                                    jnp.asarray(prev), jcfg)
+    got, rendered, overflow = tsa.align_step(
+        torch.from_numpy(stack[1]), torch.from_numpy(stack[2]),
+        convert.map_from_numpy(prev, device='cpu'),
+        convert.config_from_jax(jcfg))
+    assert bool(overflow) == bool(ref_ov)
+    ref, got = np.asarray(ref), convert.map_to_numpy(got)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.nanmax(np.abs(got - ref)) < 0.4  # 0.01 * stride
+    assert np.isfinite(rendered.numpy()).all()
 
 
 class TestConvert:
