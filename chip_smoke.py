@@ -39,7 +39,22 @@ call that computes the same function):
     gave them, and the whole path against the same run with those
     kernels swapped for their plain versions; the montage at the CPU
     tests' geometry on the card against the CPU,
-    and one drift-removal `align_step` (the staged solver: K8, no K3).
+    and one drift-removal `align_step` (the staged solver: K8, no K3);
+  * the library API: (f) examples/e2e_alignment.py's chain at bench.py's
+    section size (a 10k^2 pair deformed by e2e's 12 px field): the
+    calculator's padfield flow (p = 160, s = 40, batch 256) at 1x and, as
+    the em_alignment notebook does, at 2x, `clean_flow`, `resample_map`,
+    `reconcile_flows` (once more with `min_patch_size`, the component
+    labelling, held against the CPU there and on a holed copy of the
+    flow), the fused solver (K3, held against its plain version on the
+    same inputs for its first 1000 steps), `invert_map` + `fill_missing`,
+    `warp_subvolume` (K4, standing for the reference's K12 / K4p) and
+    e2e's gate on the residual flow; one 2d `ndimage_warp` (K4 per work
+    box, K12) against its plain version; K4's launches from both against
+    their plain versions on their inputs, and the render against the
+    plain render; then K6 through the rectangular strip path (timed on
+    that path's launches) and K7 on the first 30 grid rows of that
+    pair's p = 160 patches.
 
 Each path runs with the launch counters set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the
@@ -110,6 +125,22 @@ SMALL_CANVAS_TOL_2D = (0.01, 0.05)  # gray levels: mean, max, both masks
 # the sampling positions, so a last-bit mesh difference may move a pixel
 # across the margin; at most this share of the canvas.
 MONTAGE_MASK_SHARE = 1e-4
+E2E_AMP = 12.0          # px, examples/e2e_alignment.py's deformation
+E2E_PATCH = 160         # e2e_alignment's calculator patch and batch
+E2E_BATCH = 256
+E2E_GATE = 1.5          # px: residual flow after alignment (and < 1/5
+                        # of before), e2e_alignment's gate
+K6_PATCH = (160, 80)    # K6 through the rectangular strip path
+K7_ROWS = 30            # grid rows of p = 160, s = 40 pairs held for K7
+SURFACE_TOL = 1e-3      # K7 vs plain, relative to each surface's max
+MIN_PATCH = 4           # reconcile_flows' min_patch_size in path (f)
+HOLE_SHARE = 0.45       # nodes dropped from a copy of path (f)'s 1x flow,
+                        # leaving islands for the component pruning
+K3_STEPS = 1000         # path (f)'s K3 held against plain for this many
+ND_WORK, ND_OVERLAP = 2048, 64   # path (f)'s ndimage_warp work boxes
+# Path (f) against its plain kernels: integer renders may differ by one
+# gray level where the float value sits at .5, on at most this share.
+RENDER_FLIP_SHARE = 1e-3
 
 # The least time the card could take for the same work: the
 # larger of bytes over HBM bandwidth and operations over the f32 peak
@@ -121,6 +152,7 @@ F32_FLOP_S = 67e12
 #   circular xcorr of a p x p pair: 3 real 2d FFTs (2.5 N log2 N each,
 #   half a complex FFT's 5 N log2 N, N = p^2), the spectrum product and
 #   the peak search (~8 per point);
+#   a p1 x p2 pair: the same with N = p1 p2;
 #   Lanczos render: ~350 per output pixel (16 weights of ~12, 64 taps of
 #   2, the row sums and the norm); trilinear 3d render: ~50 per voxel;
 #   spring force: 15 per 2d link (8 per node) and 24 per 3d link, each
@@ -128,6 +160,7 @@ F32_FLOP_S = 67e12
 #   FIRE step: the force plus ~60 (2d) / ~80 (3d) per node for the k0
 #   spring, the Verlet update, the mixing and the power sum.
 LANCZOS_FLOPS_PX = 350
+LINEAR_FLOPS_PX = 30    # bilinear render: 4 weights, 4 taps, row sums
 LINEAR3D_FLOPS_VOX = 50
 FORCE3D_FLOPS_NODE = 13 * 24
 FORCE2D_FLOPS_NODE = 8 * 15
@@ -184,8 +217,8 @@ def least_time(nbytes: float, flops: float) -> dict:
               bound_by='bytes' if t_b >= t_o else 'operations')
 
 
-def xcorr_flops(p: int) -> float:
-  n = p * p
+def xcorr_flops(p: int, p2: int | None = None) -> float:
+  n = p * (p if p2 is None else p2)
   return 3 * 2.5 * n * np.log2(n) + 8 * n
 
 
@@ -524,27 +557,33 @@ def dense_flow_peaks_plain(pre, post, patch_size=(160, 160), step=(40, 40),
       mean, min_distance, threshold_rel, peak_radius)
 
 
-def shift_warp_plain(images, coords, method='lanczos'):
+def shift_warp_plain(images, coords, method='lanczos', counter=None):
   """K4's plain version with K4's wrapper signature."""
   from sofima_tpu_torch.ops import cuda_warp
+  del counter
   return cuda_warp.shift_warp_plain(images, coords, method)
+
 
 
 @contextlib.contextmanager
 def recorded_calls(calls: dict):
-  """Records a copy of the arguments of every K1, K4 and K8 wrapper call
-  into `calls[name]` (the wrappers still launch and count), so that each
-  kernel can be held against its plain version at a path's own shapes."""
+  """Records a copy of the arguments of every K1, K4, K6 and K8 wrapper call
+  into `calls[name]` (K4's under its launch counter's name: 'warp_gather',
+  'warp_subvolume' or 'ndimage_warp'; the wrappers still launch and
+  count), so that each kernel can be held against its plain version at a
+  path's own shapes."""
   from sofima_tpu_torch.ops import cuda_flow
   from sofima_tpu_torch.ops import cuda_mesh
   from sofima_tpu_torch.ops import cuda_warp
   saved = [(mod, name, getattr(mod, name)) for mod, name in (
-      (cuda_flow, 'dense_flow_peaks'), (cuda_warp, 'shift_warp'),
-      (cuda_mesh, 'force_2d'))]
+      (cuda_flow, 'dense_flow_peaks'), (cuda_flow, 'flow_peaks'),
+      (cuda_warp, 'shift_warp'), (cuda_mesh, 'force_2d'))]
 
   def recorder(name, fn):
     def call(*args, **kwargs):
-      calls.setdefault(name, []).append(tuple(
+      key = kwargs.get('counter', 'warp_gather') if name == 'shift_warp' \
+          else name
+      calls.setdefault(key, []).append(tuple(
           a.clone() if isinstance(a, torch.Tensor) else a for a in args))
       return fn(*args, **kwargs)
     return call
@@ -560,14 +599,15 @@ def recorded_calls(calls: dict):
 
 @contextlib.contextmanager
 def plain_kernels():
-  """Routes K1, K5, K4 and K8 to their plain versions on the card's
-  tensors, so that a path can be run once with its kernels and once
-  without."""
+  """Routes K1, K5, K6, K7, K4 and K8 to their plain versions on the
+  card's tensors, so that a path can be run once with its kernels and
+  once without."""
   from sofima_tpu_torch import mesh
   from sofima_tpu_torch.ops import cuda_flow
   from sofima_tpu_torch.ops import cuda_mesh
   from sofima_tpu_torch.ops import cuda_warp
   k1, k5 = cuda_flow.dense_flow_peaks, cuda_flow.masked_dense_flow_peaks
+  k6, k7 = cuda_flow.flow_peaks, cuda_flow.corr_patches
   k4, k8 = cuda_warp.shift_warp, cuda_mesh.force_2d
 
   def k5_plain(pre, post, pre_valid, post_valid, patch_size, step,
@@ -584,12 +624,15 @@ def plain_kernels():
 
   cuda_flow.dense_flow_peaks = dense_flow_peaks_plain
   cuda_flow.masked_dense_flow_peaks = k5_plain
+  cuda_flow.flow_peaks = cuda_flow.patch_flow_peaks_plain
+  cuda_flow.corr_patches = cuda_flow.corr_patches_plain
   cuda_warp.shift_warp = shift_warp_plain
   cuda_mesh.force_2d = mesh.inplane_force_plain
   try:
     yield
   finally:
     cuda_flow.dense_flow_peaks, cuda_flow.masked_dense_flow_peaks = k1, k5
+    cuda_flow.flow_peaks, cuda_flow.corr_patches = k6, k7
     cuda_warp.shift_warp, cuda_mesh.force_2d = k4, k8
 
 
@@ -1145,9 +1188,9 @@ def montage_path(dev, report, _build, rng) -> dict:
       f'({list(k1_in[0][0].shape)}, ...)')
   # K4: every tile's Lanczos render through its dense tile-local map.
   k4e = max(float((cuda_warp.shift_warp(*a) - shift_warp_plain(*a))
-                  .abs().max()) for a in calls['shift_warp'])
-  print(f'  K4 on the {len(calls["shift_warp"])} tile renders '
-        f'({list(calls["shift_warp"][0][1].shape)}): max |diff| {k4e:.3g} '
+                  .abs().max()) for a in calls['warp_gather'])
+  print(f'  K4 on the {len(calls["warp_gather"])} tile renders '
+        f'({list(calls["warp_gather"][0][1].shape)}): max |diff| {k4e:.3g} '
         f'gray levels (bar {RENDER_TOL})')
   check(k4e < RENDER_TOL, f'K4 differs from the plain render by {k4e}')
   # K8: the joint solve's first and last positions (at rest, since the
@@ -1366,6 +1409,410 @@ def montage_slice(dev, report, _build) -> dict:
   return launches_e['force2d']
 
 
+def e2e_config():
+  """examples/e2e_alignment.py's IntegrationConfig."""
+  from sofima_tpu_torch import mesh
+  return mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.1, k=0.1, stride=(STRIDE, STRIDE),
+      num_iters=1000, max_iters=100000, stop_v_max=0.005, dt_max=100.0,
+      start_cap=0.01, final_cap=10.0, cap_scale=1.1, prefer_orig_order=True)
+
+
+def e2e_pair(dev):
+  """Path (f)'s uint8 10k^2 pair: the seeded texture, and a copy deformed
+  by e2e_alignment's smooth field (a linear resample, edge-clamped, cast
+  to uint8 by truncation as e2e does)."""
+  from sofima_tpu_torch.ops import cuda_warp
+  pre = torch.clamp(texture(N, dev) + 0.5, 0, 255).to(torch.uint8)
+  r = torch.arange(N, dtype=torch.float32, device=dev)
+  y, x = r[:, None], r[None, :]
+  dx = E2E_AMP * torch.sin(2 * np.pi * y / N) * torch.cos(np.pi * x / N)
+  dy = E2E_AMP * torch.cos(2 * np.pi * x / N) * torch.sin(np.pi * y / N)
+  coords = torch.stack([torch.clamp(y + dy, 0, N - 1),
+                        torch.clamp(x + dx, 0, N - 1)])[None].contiguous()
+  del dx, dy
+  post = cuda_warp.shift_warp(pre.float()[None], coords, 'linear')[0]
+  return pre, torch.clamp(post, 0, 255).to(torch.uint8)
+
+
+def library_flow(pre, post, timings):
+  """Path (f)'s flow and clean/reconcile phases (the library API)."""
+  from sofima_tpu_torch import flow_field
+  from sofima_tpu_torch import flow_utils
+  from sofima_tpu_torch import map_utils
+  from sofima_tpu_torch.utils.bounding_box import BoundingBox
+  calc = flow_field.JAXMaskedXCorrWithStatsCalculator()
+  kw = dict(patch_size=E2E_PATCH, step=STRIDE, batch_size=E2E_BATCH)
+  t0 = time.perf_counter()
+  flow = calc.flow_field(pre, post, **kw)
+  half = lambda im: torch.nn.functional.avg_pool2d(im.float()[None, None],
+                                                   2)[0, 0]
+  flow_2x = calc.flow_field(half(pre), half(post), **kw)
+  sync()
+  t1 = time.perf_counter()
+  clean = dict(min_peak_ratio=1.6, min_peak_sharpness=1.6, max_magnitude=40,
+               max_deviation=10)
+  f1 = flow_utils.clean_flow(flow[:, None], **clean)
+  f2 = flow_utils.clean_flow(flow_2x[:, None], **clean)
+  g, pad = N // STRIDE, E2E_PATCH // 2 // STRIDE
+
+  def to_grid(f, n):
+    out = np.full((2, 1, n, n), np.nan, np.float32)
+    out[:, :, pad:pad + f.shape[2], pad:pad + f.shape[3]] = f
+    return out
+
+  box_1x = BoundingBox(start=(0, 0, 0), size=(g, g, 1))
+  box_2x = BoundingBox(start=(0, 0, 0), size=(g // 2, g // 2, 1))
+  full_1x = to_grid(f1, g)
+  f2_hires = map_utils.resample_map(to_grid(f2, g // 2) * 2.0, box_2x,
+                                    box_1x, 2 * STRIDE, STRIDE)
+  final = flow_utils.reconcile_flows((full_1x, f2_hires), max_gradient=0,
+                                     max_deviation=20, min_patch_size=0)
+  pruned = flow_utils.reconcile_flows((full_1x, f2_hires), max_gradient=0,
+                                      max_deviation=20,
+                                      min_patch_size=MIN_PATCH)
+  timings['flow'] = t1 - t0
+  timings['clean_reconcile'] = time.perf_counter() - t1
+  return dict(flow=flow, flow_2x=flow_2x, full_1x=full_1x, f2_hires=f2_hires,
+              final=final, pruned=pruned)
+
+
+def library_solve(final, dev, timings):
+  """Path (f)'s solve phase: the fused FIRE solver (K3), e2e's config."""
+  from sofima_tpu_torch.ops import cuda_mesh
+  t0 = time.perf_counter()
+  prev = torch.from_numpy(final).to(dev)
+  solved, _, steps = cuda_mesh.relax_mesh_fused(torch.zeros_like(prev), prev,
+                                                e2e_config())
+  solved = solved.cpu().numpy()
+  timings['solve'] = time.perf_counter() - t0
+  return solved, int(steps)
+
+
+def library_render(solved, post_np, timings):
+  """Path (f)'s invert and render (K4, counted as K4p) phases."""
+  from sofima_tpu_torch import map_utils
+  from sofima_tpu_torch import warp
+  from sofima_tpu_torch.utils.bounding_box import BoundingBox
+  g = N // STRIDE
+  box = BoundingBox(start=(0, 0, 0), size=(g, g, 1))
+  img_box = BoundingBox(start=(0, 0, 0), size=(N, N, 1))
+  t0 = time.perf_counter()
+  inv = map_utils.invert_map(solved, box, box, STRIDE)
+  inv = map_utils.fill_missing(inv, extrapolate=True)
+  t1 = time.perf_counter()
+  rendered = warp.warp_subvolume(post_np[None, None], img_box, inv, box,
+                                 STRIDE, img_box, interpolation='lanczos')
+  timings.update(invert=t1 - t0, render=time.perf_counter() - t1)
+  return dict(inv=inv, rendered=rendered)
+
+
+def library_slice(dev, report, _build) -> dict:
+  """Path (f), the library-API alignment path (examples/e2e_alignment.py
+  and the em_alignment notebook's 2x pass) at bench.py's section size,
+  then K6 and K7 on that pair.
+
+  Returns the launch counts of K6, K7, K12 and K4p from their paths."""
+  from sofima_tpu_torch import flow_field
+  from sofima_tpu_torch import warp
+  from sofima_tpu_torch.ops import cuda_flow
+  from sofima_tpu_torch.ops import cuda_warp
+
+  t_phase = time.perf_counter()
+  pre, post = e2e_pair(dev)
+  post_np = post.cpu().numpy()
+  print(f'path (f): the library API on a {N}^2 pair deformed by '
+        f'e2e_alignment\'s field ({E2E_AMP:g} px); calculator padfield, p = '
+        f'{E2E_PATCH}, s = {STRIDE}, batch {E2E_BATCH}')
+  # Warm-up call (the kernels' inputs recorded), then the measured one.
+  calls = {}
+  with recorded_calls(calls):
+    library_render(library_solve(library_flow(pre, post, {})['final'], dev,
+                                 {})[0], post_np, {})
+  sync()
+  _build.reset_launch_counts()
+  timings = {}
+  t0 = time.perf_counter()
+  fl = library_flow(pre, post, timings)
+  solved, steps = library_solve(fl['final'], dev, timings)
+  out = library_render(solved, post_np, timings)
+  sync()
+  wall = time.perf_counter() - t0
+  launches_f = dict(_build.launch_counts)
+  rendered = out['rendered']
+  calc = flow_field.JAXMaskedXCorrWithStatsCalculator()
+  resid = calc.flow_field(pre, torch.from_numpy(rendered[0, 0]).to(dev),
+                          patch_size=E2E_PATCH, step=STRIDE,
+                          batch_size=E2E_BATCH)
+  flow = fl['flow']
+  before = float(np.nanmean(np.hypot(flow[0], flow[1])))
+  after = float(np.nanmean(np.hypot(resid[0], resid[1])))
+  inter = (slice(E2E_PATCH, -E2E_PATCH),) * 2
+  pre_i = pre[inter].float()
+  px_before = float((post[inter].float() - pre_i).abs().mean())
+  px_after = float((torch.from_numpy(rendered[0, 0]).to(dev)[inter].float()
+                    - pre_i).abs().mean())
+  valid = {k: float(np.isfinite(fl[k][0]).mean())
+           for k in ('full_1x', 'final', 'pruned')}
+  dropped = int(np.isfinite(fl['final'][0]).sum()
+                - np.isfinite(fl['pruned'][0]).sum())
+  print('  phase seconds: ' + ', '.join(f'{k} {v:.3f}'
+                                        for k, v in timings.items()))
+  print(f'  wall {wall:.3f} s; flow grids {list(flow.shape)} and '
+        f'{list(fl["flow_2x"].shape)}; valid 1x {valid["full_1x"]:.4f} -> '
+        f'reconciled {valid["final"]:.4f}; min_patch_size {MIN_PATCH} drops '
+        f'{dropped} nodes; solve {steps} steps')
+  print(f'  mean |flow| before {before:.3f} px, after {after:.3f} px (gate '
+        f'< {E2E_GATE} and < before / 5); interior pixel residual before '
+        f'{px_before:.2f}, after {px_after:.2f} gray levels')
+  print(f'  launches {launches_f}')
+  check(tuple(rendered.shape) == (1, 1, N, N) and rendered.dtype == np.uint8,
+        'path (f) render shape / type')
+  check(bool(np.isfinite(solved).all()), 'path (f) mesh not finite')
+  check(after < E2E_GATE and after < before / 5,
+        f'path (f): residual flow {after} px (before {before})')
+  check(px_after < px_before, 'path (f): the render did not align')
+  check(launches_f['fused_fire'] > 0, 'K3 was not launched on path (f)')
+  check(launches_f['warp_subvolume'] > 0,
+        'K4 (warp_subvolume) was not launched on path (f)')
+
+  # K3 on path (f)'s own solve inputs, capped at K3_STEPS steps, against
+  # the plain FIRE solver (whose ~5 ms per step rules out all 9000).
+  from sofima_tpu_torch.ops import cuda_mesh
+  cfg_k3 = dataclasses.replace(e2e_config(), max_iters=K3_STEPS)
+  prev = torch.from_numpy(fl['final']).to(dev)
+  got3, _, st3 = cuda_mesh.relax_mesh_fused(torch.zeros_like(prev), prev,
+                                            cfg_k3)
+  ref3, _, st3p = cuda_mesh.relax_mesh_fused_plain(
+      torch.zeros_like(prev[:, 0]), prev[:, 0], cfg_k3)
+  k3_err = float(torch.nan_to_num((got3[:, 0] - ref3).abs(), nan=0.0).max())
+  print(f'  K3 on path (f)\'s solve inputs, {int(st3)} steps (plain '
+        f'{st3p}): nodes max |diff| {k3_err:.3g} px (bar {MESH_TOL})')
+  check(int(st3) == int(st3p), f'path (f) K3 steps {int(st3)} vs {st3p}')
+  check(bool(torch.equal(torch.isnan(got3[:, 0]), torch.isnan(ref3))),
+        'path (f) K3 NaN pattern differs')
+  check(k3_err < MESH_TOL, f'path (f) K3 differs from plain by {k3_err} px')
+  del prev, got3, ref3
+
+  # The component labelling on the card against the CPU: the path's
+  # pruned call (its flow is one component, so nothing drops), and the
+  # same call on the 1x flow with HOLE_SHARE of its nodes dropped, which
+  # leaves small islands to remove.
+  from sofima_tpu_torch import flow_utils
+  rec_kw = dict(max_gradient=0, max_deviation=20, min_patch_size=MIN_PATCH)
+  holed = fl['full_1x'].copy()
+  holed[:, np.random.RandomState(SEED).rand(*holed.shape[1:])
+        < HOLE_SHARE] = np.nan
+  flows = {'path': (fl['full_1x'], fl['f2_hires']), 'holed': (holed,)}
+  rec_drop = {}
+  for k, fs in flows.items():
+    card = fl['pruned'] if k == 'path' else flow_utils.reconcile_flows(
+        fs, **rec_kw)
+    cpu = flow_utils.reconcile_flows(fs, device='cpu', **rec_kw)
+    check(np.array_equal(card, cpu, equal_nan=True),
+          f'reconcile_flows ({k}) differs between the card and the CPU')
+    unpruned = flow_utils.reconcile_flows(fs, **dict(rec_kw,
+                                                     min_patch_size=0))
+    rec_drop[k] = int(np.isfinite(unpruned[0]).sum()
+                      - np.isfinite(card[0]).sum())
+  print(f'  reconcile_flows(min_patch_size={MIN_PATCH}) equals the CPU\'s; '
+        f'nodes dropped: {rec_drop["path"]} on the path, '
+        f'{rec_drop["holed"]} with {HOLE_SHARE:g} of the 1x nodes holed')
+  check(rec_drop['holed'] > 0, 'the component pruning dropped nothing')
+  del holed, flows
+
+  # ndimage_warp 2d on the same inverse map, float32 input.
+  post_f_np = post_np.astype(np.float32)
+  inv2 = out['inv'][:, 0]
+  nd_kw = dict(stride=(STRIDE, STRIDE), work_size=(ND_WORK, ND_WORK),
+               overlap=(ND_OVERLAP, ND_OVERLAP), order=1)
+  _build.reset_launch_counts()
+  with recorded_calls(calls):
+    t0 = time.perf_counter()
+    nd = warp.ndimage_warp(post_f_np, inv2, **nd_kw)
+    nd_s = time.perf_counter() - t0
+  nd_launches = _build.launch_counts['ndimage_warp']
+  with plain_kernels():
+    nd_plain = warp.ndimage_warp(post_f_np, inv2, **nd_kw)
+  nd_err = float(np.abs(nd - nd_plain).max())
+  print(f'  ndimage_warp 2d (work {ND_WORK}, overlap {ND_OVERLAP}, linear): '
+        f'{nd_s:.3f} s, {nd_launches} K4 launches; max |diff| vs its plain '
+        f'version {nd_err:.3g} (bar {RENDER_TOL})')
+  check(nd_launches > 0, 'K4 (ndimage_warp) was not launched')
+  check(nd_err < RENDER_TOL, f'ndimage_warp differs from plain by {nd_err}')
+  del nd, nd_plain, post_f_np
+
+  # K4p: warp_subvolume's launches, on the inputs path (f) gave them.
+  k4p_in = calls['warp_subvolume']
+  img, coords, method = k4p_in[0]
+  k4p = lambda: cuda_warp.shift_warp(img, coords, method)
+  k4p_plain = lambda: shift_warp_plain(img, coords, method)
+  err = max(float((cuda_warp.shift_warp(*a) - shift_warp_plain(*a)).abs()
+                  .max()) for a in k4p_in)
+  px = coords.shape[-1] * coords.shape[-2]
+  report['K4p'] = dict(err=err, ms=cuda_ms(k4p), plain_ms=wall_ms(k4p_plain),
+                       library_ms=None, calls=len(k4p_in),
+                       **least_time(16 * px, LANCZOS_FLOPS_PX * px))
+  print(f'  K4p (warp_subvolume\'s K4 launch, {list(coords.shape)}, '
+        f'{method}): max |diff| {err:.3g} (bar {RENDER_TOL}); kernel '
+        f'{report["K4p"]["ms"]:.3f} ms, plain {report["K4p"]["plain_ms"]:.1f}'
+        f' ms, bound {report["K4p"]["bound_ms"]:.3f} ms')
+  check(err < RENDER_TOL, f'K4p differs from the plain render by {err}')
+  del img, coords, k4p_in
+
+  # K12: ndimage_warp's launches, one per work box.
+  k12_in = calls['ndimage_warp']
+  err = ms = plain = lib = 0.0
+  px = 0
+  for im, cd, meth in k12_in:
+    err = max(err, float((cuda_warp.shift_warp(im, cd, meth)
+                          - shift_warp_plain(im, cd, meth)).abs().max()))
+    ms += cuda_ms(lambda: cuda_warp.shift_warp(im, cd, meth))
+    plain += wall_ms(lambda: shift_warp_plain(im, cd, meth))
+    h, w = im.shape[-2:]
+    grid = torch.stack([cd[0, 1] * (2.0 / (w - 1)) - 1.0,
+                        cd[0, 0] * (2.0 / (h - 1)) - 1.0], dim=-1)[None]
+    lib += cuda_ms(lambda: torch.nn.functional.grid_sample(
+        im[None], grid, mode='bilinear', padding_mode='zeros',
+        align_corners=True))
+    px += cd.shape[-1] * cd.shape[-2]
+  report['K12'] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                       boxes=len(k12_in),
+                       **least_time(4 * N * N + 12 * px, LINEAR_FLOPS_PX * px))
+  print(f'  K12 (ndimage_warp\'s K4 launches, {len(k12_in)} boxes of '
+        f'<= {ND_WORK}^2, linear): max |diff| {err:.3g}; kernel {ms:.3f} ms, '
+        f'plain {plain:.1f} ms, bound {report["K12"]["bound_ms"]:.3f} ms, '
+        f'grid_sample {lib:.3f} ms (all boxes)')
+  check(err < RENDER_TOL, f'K12 differs from the plain render by {err}')
+  del calls, k12_in
+
+  # The invert and render phases again with K4 swapped for its plain
+  # version, from the same mesh. The flow and clean phases launch no
+  # kernel, and K3 was held above. `invert_map` launches none either:
+  # its maps must repeat exactly, so the render alone tells K4 apart.
+  t0 = time.perf_counter()
+  with plain_kernels():
+    ref = library_render(solved, post_np, {})
+  sync()
+  wall_plain = time.perf_counter() - t0
+  dm = float(np.nanmax(np.abs(out['inv'] - ref['inv'])))
+  dr = np.abs(out['rendered'].astype(np.int16)
+              - ref['rendered'].astype(np.int16))
+  flips = float((dr > 0).mean())
+  print(f'  against the plain render ({wall_plain:.1f} s): the inverse '
+        f'maps repeat (max |diff| {dm:.3g} px); render max |diff| '
+        f'{int(dr.max())} gray level on {flips:.2e} of the pixels (bar 1 on '
+        f'{RENDER_FLIP_SHARE})')
+  check(dm == 0.0, 'path (f) invert_map does not repeat its inverse map')
+  check(int(dr.max()) <= 1 and flips <= RENDER_FLIP_SHARE,
+        'path (f) render differs from the plain run')
+  report['path_f'] = dict(
+      wall_s=wall, solve_steps=steps, flow_before_px=before,
+      flow_after_px=after, gate_px=E2E_GATE, pixel_resid_before=px_before,
+      pixel_resid_after=px_after, valid_1x=valid['full_1x'],
+      valid_reconciled=valid['final'], min_patch_dropped=dropped,
+      min_patch_dropped_holed=rec_drop['holed'],
+      k3_launches=launches_f['fused_fire'], k3_steps_held=int(st3),
+      k3_max_diff_plain=k3_err,
+      k4p_launches=launches_f['warp_subvolume'],
+      ndimage_warp_s=nd_s, k12_launches=nd_launches,
+      ndimage_max_diff_plain=nd_err, plain_render_wall_s=wall_plain,
+      render_flip_share_plain=flips, **timings)
+  del out, ref, rendered, resid, fl
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+
+  # K6 through the rectangular strip path, p = (160, 80), s = (40, 40).
+  t_phase = time.perf_counter()
+  pre_f, post_f = pre.float(), post.float()
+  print(f'K6 patch_flow_peaks: dense_flow_field on the {N}^2 pair, p = '
+        f'{K6_PATCH}, s = ({STRIDE}, {STRIDE}) (the strip path)')
+  k6_calls = {}
+  with recorded_calls(k6_calls):
+    flow_field.dense_flow_field(pre_f, post_f, K6_PATCH, (STRIDE, STRIDE))
+  sync()
+  _build.reset_launch_counts()
+  got = flow_field.dense_flow_field(pre_f, post_f, K6_PATCH, (STRIDE, STRIDE))
+  sync()
+  k6_launches = _build.launch_counts['patch_flow_peaks']
+  with plain_kernels():
+    ref6 = flow_field.dense_flow_field(pre_f, post_f, K6_PATCH,
+                                       (STRIDE, STRIDE))
+  k6 = compare_flow(got, ref6, 'K6')
+  check(k6_launches > 0, 'K6 was not launched on the strip path')
+  p1, p2 = K6_PATCH
+
+  def cut(img, rows, q1, q2):
+    return img[:rows].unfold(0, q1, STRIDE).unfold(1, q2, STRIDE).reshape(
+        -1, q1, q2).contiguous()
+
+  # Timed on the strip path's own launches (recorded above), summed.
+  k6_in = k6_calls['flow_peaks']
+  ms6 = sum(cuda_ms(lambda: cuda_flow.flow_peaks(*a)) for a in k6_in)
+  plain6 = sum(wall_ms(lambda: cuda_flow.patch_flow_peaks_plain(*a))
+               for a in k6_in)
+  n6 = sum(a[0].shape[0] for a in k6_in)
+  report['K6'] = dict(k6, ms=ms6, plain_ms=plain6, library_ms=None,
+                      pairs=n6, timed_launches=len(k6_in),
+                      **least_time(2 * n6 * p1 * p2 * 4 + 16 * n6,
+                                   n6 * xcorr_flops(p1, p2)))
+  print(f'  {k6_launches} launches on the path, {n6} pairs; summed over '
+        f'them: kernel {ms6:.3f} ms, plain {plain6:.1f} ms, bound '
+        f'{report["K6"]["bound_ms"]:.3f} ms ({report["K6"]["bound_by"]})')
+  check(len(k6_in) == k6_launches, 'K6 launches differ between the runs')
+  del k6_in, k6_calls, got, ref6
+
+  # K7 on the first K7_ROWS grid rows of the p = 160, s = 40 pairs.
+  p = E2E_PATCH
+  rows = (K7_ROWS - 1) * STRIDE + p
+  a, b = cut(pre_f, rows, p, p), cut(post_f, rows, p, p)
+  n7 = a.shape[0]
+  print(f'K7 corr_patches: {n7} pairs of {p}^2 ({K7_ROWS} grid rows, '
+        f'{a.numel() * 4 / 1e9:.2f} GB per side)')
+  _build.reset_launch_counts()
+  got = cuda_flow.corr_patches(a, b)
+  sync()
+  k7_launches = _build.launch_counts['corr_patches']
+  check(same_bits(got, cuda_flow.corr_patches(a, b)),
+        'K7 does not repeat bit for bit')
+  ref7 = cuda_flow.corr_patches_plain(a, b)
+  diff = (got - ref7).abs()
+  rel = float((diff.amax(dim=(1, 2))
+               / ref7.abs().amax(dim=(1, 2)).clamp(min=1e-30)).max())
+  err = float(diff.max())
+  print(f'  surfaces: max |diff| {err:.3g}, {rel:.3g} of each surface\'s max '
+        f'(bar {SURFACE_TOL}); a second launch repeats it bit for bit')
+  check(rel < SURFACE_TOL, f'K7 differs from plain by {rel} (relative)')
+  del diff, ref7
+
+  def lib7():
+    fa = torch.fft.rfft2(a - a.mean(dim=(1, 2), keepdim=True))
+    fb = torch.fft.rfft2(b - b.mean(dim=(1, 2), keepdim=True))
+    return torch.roll(torch.fft.irfft2(fa * torch.conj(fb), s=(p, p)),
+                      (p // 2, p // 2), dims=(1, 2))
+
+  lib_err = float((lib7() - got).abs().max())
+  report['K7'] = dict(err=err, max_rel_err=rel,
+                      ms=cuda_ms(lambda: cuda_flow.corr_patches(a, b)),
+                      plain_ms=wall_ms(
+                          lambda: cuda_flow.corr_patches_plain(a, b)),
+                      library_ms=cuda_ms(lib7),
+                      library='torch.fft rfft2 * conj(rfft2) -> irfft2 -> roll',
+                      library_max_abs_diff=lib_err, pairs=n7,
+                      **least_time(3 * n7 * p * p * 4, n7 * xcorr_flops(p)))
+  print(f'  kernel {report["K7"]["ms"]:.3f} ms, plain '
+        f'{report["K7"]["plain_ms"]:.1f} ms, bound '
+        f'{report["K7"]["bound_ms"]:.3f} ms ({report["K7"]["bound_by"]}), '
+        f'torch.fft chain {report["K7"]["library_ms"]:.3f} ms (|diff| '
+        f'{lib_err:.3g})')
+  check(k7_launches == 1, 'K7 launches')
+  del a, b, got, pre_f, post_f, pre, post
+  torch.cuda.empty_cache()
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+  return dict(patch_flow_peaks=k6_launches, corr_patches=k7_launches,
+              ndimage_warp=nd_launches,
+              warp_subvolume=launches_f['warp_subvolume'])
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1394,6 +1841,8 @@ def main() -> int:
   launches.update(stitch_slice(dev, report, _build))
   torch.cuda.empty_cache()
   launches['force2d'] = montage_slice(dev, report, _build)
+  torch.cuda.empty_cache()
+  launches.update(library_slice(dev, report, _build))
   print(f'total {time.perf_counter() - t_start:.1f} s')
 
   kernels = []
@@ -1416,6 +1865,14 @@ def main() -> int:
        'sofima_tpu/ops/pallas_mesh.py:1215'),
       ('K13', 'warp_gather_3d', 'sofima_tpu_torch/csrc/warp3d.cu',
        'sofima_tpu/ops/pallas_warp.py:692'),
+      ('K6', 'patch_flow_peaks', 'sofima_tpu_torch/csrc/patch_corr.cu',
+       'sofima_tpu/ops/pallas_flow.py:202'),
+      ('K7', 'corr_patches', 'sofima_tpu_torch/csrc/patch_corr.cu',
+       'sofima_tpu/ops/pallas_flow.py:75'),
+      ('K12', 'ndimage_warp', 'sofima_tpu_torch/csrc/warp.cu',
+       'sofima_tpu/ops/pallas_warp.py:60'),
+      ('K4p', 'warp_subvolume', 'sofima_tpu_torch/csrc/warp.cu',
+       'sofima_tpu/ops/pallas_warp.py:440'),
   ]
   main_keys = ('err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
   for key, name, src, rep in meta:
@@ -1432,7 +1889,7 @@ def main() -> int:
   paths = {k: report[k] for k in ('stack_cold', 'path_masked', 'stack_warm',
                                    'refresh', 'path_a', 'path_b', 'path_c',
                                    'path_d', 'path_e', 'montage_small',
-                                   'drift_removal')}
+                                   'drift_removal', 'path_f')}
   print(json.dumps({'paths': paths}))
   print(smi())
   print(json.dumps({'kernels': kernels}))

@@ -6,8 +6,10 @@ to find; every module docstring names its `sofima_tpu` counterpart.
 
 Ported so far: serial-section stack alignment (`pipeline.stack_align`:
 flow -> clean -> solve -> invert -> render, cold or warm-started, with
-masked flow in `flow_field`) and 3d tile stitching
-(`pipeline.stitch3d`) with the 3d mesh solvers. The Pallas kernels on
+masked flow in `flow_field`), 3d tile stitching (`pipeline.stitch3d`)
+with the 3d mesh solvers, the 2d tile montage (`pipeline.montage`), and
+the library API that upstream SOFIMA's notebooks drive (the flow
+calculator, `flow_utils`, `map_utils`, `warp`). The Pallas kernels on
 those paths are hand-written CUDA kernels for Hopper (`csrc/*.cu`,
 built with nvcc at first use by `ops._build`); each has a plain PyTorch
 version beside it that serves CPU tensors.
@@ -15,10 +17,12 @@ version beside it that serves CPU tensors.
 Module map:
   flow_field, flow_utils   — coarse-to-fine dense flow and its cleaning
   mesh                     — FIRE spring-mesh solver (plain version)
-  map_utils                — map composition and inversion
+  map_utils                — map composition, inversion, filling
+  warp                     — warp_subvolume, ndimage_warp, render_tiles
   convert                  — configs and state to and from sofima_tpu
   ops                      — kernels (cuda_*) and small-grid algebra
-  pipeline                 — the stack-alignment and 3d stitching pipelines
+  pipeline                 — the stack-alignment, 3d stitching and montage
+                             pipelines
 """
 
 __version__ = '0.1.0'

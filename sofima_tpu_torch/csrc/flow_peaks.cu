@@ -178,7 +178,7 @@ flow_peaks_kernel(const float* __restrict__ pre, const float* __restrict__ post,
     __syncthreads();
 
     // 6. Peak chain on the [crop, crop] surface (flow_peaks.cuh).
-    peak_chain(corr, n1, min_distance, threshold_rel, peak_radius, out,
+    peak_chain(corr, n1, n1, min_distance, threshold_rel, peak_radius, out,
                plane, pidx, redf, redi, redf2);
     __syncthreads();
   }

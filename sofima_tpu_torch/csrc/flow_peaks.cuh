@@ -1,7 +1,8 @@
-// The peak chain of the flow kernels, shared by K1/K2 (flow_peaks.cu) and
-// K5 (masked_flow.cu): deterministic block reductions, the top-2 merge and
-// `peak_chain`, which turns one centered correlation surface into the
-// (x, y, sharpness, ratio) row of flow_field._batched_peaks.
+// The peak chain of the flow kernels, shared by K1/K2 (flow_peaks.cu), K5
+// (masked_flow.cu) and K6 (patch_corr.cu): deterministic block reductions,
+// the top-2 merge and `peak_chain`, which turns one centered correlation
+// surface into the (x, y, sharpness, ratio) row of
+// flow_field._batched_peaks.
 //
 // Numerics follow the reference exactly where it matters: a local max over
 // the clipped (2 min_distance + 1)^2 window, threshold_rel * max, first
@@ -94,16 +95,17 @@ __device__ __forceinline__ void write_row(float* __restrict__ out,
   out[3 * plane + pidx] = ratio;
 }
 
-// Peak statistics of the [n1, n1] surface `corr` whose zero shift sits at
-// (n1/2, n1/2). Every thread of the block calls it; thread 0 writes.
-__device__ void peak_chain(const float* corr, int n1, int min_distance,
+// Peak statistics of the [n1, n2] surface `corr` whose zero shift sits at
+// (n1/2, n2/2). Every thread of the block calls it; thread 0 writes.
+__device__ void peak_chain(const float* corr, int n1, int n2, int min_distance,
                            float threshold_rel, int peak_radius,
                            float* __restrict__ out, int64_t plane,
                            int64_t pidx, float* redf, int* redi,
                            float* redf2) {
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int area = n1 * n2;
   float lmax = -INFINITY, lnan = 0.0f;
-  for (int e = tid; e < n1 * n1; e += nt) {
+  for (int e = tid; e < area; e += nt) {
     const float v = corr[e];
     if (isnan(v)) lnan = 1.0f;
     lmax = fmaxf(lmax, v);
@@ -113,8 +115,8 @@ __device__ void peak_chain(const float* corr, int n1, int min_distance,
   const float thr = threshold_rel * gmax;
   Top2 t;
   t.v1 = -INFINITY; t.i1 = INT32_MAX; t.v2 = -INFINITY;
-  for (int e = tid; e < n1 * n1; e += nt) {
-    const int r = e / n1, c = e - r * n1;
+  for (int e = tid; e < area; e += nt) {
+    const int r = e / n2, c = e - r * n2;
     const float v = corr[e];
     float m = -INFINITY;
     for (int dy = -min_distance; dy <= min_distance; ++dy) {
@@ -122,8 +124,8 @@ __device__ void peak_chain(const float* corr, int n1, int min_distance,
       if (rr < 0 || rr >= n1) continue;
       for (int dx = -min_distance; dx <= min_distance; ++dx) {
         const int cc = c + dx;
-        if (cc < 0 || cc >= n1) continue;
-        m = fmaxf(m, corr[rr * n1 + cc]);
+        if (cc < 0 || cc >= n2) continue;
+        m = fmaxf(m, corr[rr * n2 + cc]);
       }
     }
     if (v == m && v > thr) {
@@ -137,17 +139,17 @@ __device__ void peak_chain(const float* corr, int n1, int min_distance,
   const int size = 2 * peak_radius + 1;
   int py = 0, px = 0, wy0 = 0, wx0 = 0;
   if (!no_peak) {
-    py = t.i1 / n1;
-    px = t.i1 - py * n1;
+    py = t.i1 / n2;
+    px = t.i1 - py * n2;
     wy0 = min(max(py - peak_radius, 0), n1 - size);
-    wx0 = min(max(px - peak_radius, 0), n1 - size);
+    wx0 = min(max(px - peak_radius, 0), n2 - size);
   }
   float lmin = INFINITY;
   if (!no_peak) {
     for (int e = tid; e < size * size; e += nt) {
       const int yy = wy0 + e / size, xx = wx0 + e % size;
-      if (yy >= 0 && yy < n1 && xx >= 0 && xx < n1)
-        lmin = fminf(lmin, corr[yy * n1 + xx]);
+      if (yy >= 0 && yy < n1 && xx >= 0 && xx < n2)
+        lmin = fminf(lmin, corr[yy * n2 + xx]);
     }
   }
   const float wmin = block_reduce(lmin, redf, Min(), INFINITY);
@@ -155,7 +157,7 @@ __device__ void peak_chain(const float* corr, int n1, int min_distance,
     if (no_peak) {
       write_row(out, plane, pidx, NAN, NAN, NAN, NAN);
     } else {
-      write_row(out, plane, pidx, (float)(px - n1 / 2), (float)(py - n1 / 2),
+      write_row(out, plane, pidx, (float)(px - n2 / 2), (float)(py - n1 / 2),
                 t.v1 / wmin, (t.v2 == -INFINITY) ? 0.0f : t.v1 / t.v2);
     }
   }

@@ -295,7 +295,7 @@ masked_flow_kernel(const float* __restrict__ pre,
     }
 
     // 3. Peak chain on the centered [p, p] surface (flow_peaks.cuh).
-    peak_chain(corr, p, min_distance, threshold_rel, peak_radius, out, plane,
+    peak_chain(corr, p, p, min_distance, threshold_rel, peak_radius, out, plane,
                pidx, redf, redi, redf2);
     __syncthreads();
   }

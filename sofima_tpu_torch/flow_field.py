@@ -1,14 +1,19 @@
-"""Dense flow estimation on the alignment and stitching paths (subset).
+"""Dense flow estimation on the alignment and stitching paths.
 
 Twin of sofima_tpu/flow_field.py. Ported:
   * the peak contract of `_batched_peaks`, 2d and 3d
     (ops.cuda_flow.batched_peaks);
-  * the circular dense-grid branch of `dense_flow_field`: 2d backed by
-    kernel K1 (ops.cuda_flow.dense_flow_peaks) and, with masks, K5
-    (ops.cuda_flow.masked_dense_flow_peaks, masked Padfield NCC); 3d by
-    the strip path `_dense_flow_strips_3d` (patch-periodic FFT
-    correlation, torch.fft as the reference leaves it to XLA's FFT, the
-    masked Padfield twin `_masked_xcorr_circular_fft`, then the peaks);
+  * the circular dense-grid branch of `dense_flow_field`: 2d square
+    patches backed by kernel K1 (ops.cuda_flow.dense_flow_peaks) and,
+    with masks, K5 (ops.cuda_flow.masked_dense_flow_peaks, masked
+    Padfield NCC); 2d rectangular patches by the strip path
+    `_dense_flow_strips` (stride divides the patch) or the start-list
+    path (`_dense_flow_starts`), both on kernel K6
+    (ops.cuda_flow.flow_peaks) or, with masks, the batch-rule Padfield
+    twin `_masked_xcorr_circular`; 3d by the strip path
+    `_dense_flow_strips_3d` (patch-periodic FFT correlation, torch.fft as
+    the reference leaves it to XLA's FFT, the masked Padfield twin
+    `_masked_xcorr_circular_fft`, then the peaks);
   * `coarse_to_fine_flow`: the coarse pass (K1, or K5 with masks) or a
     warm-start `prior`, the robustified prior, and then
       - unmasked, the targeted fine pass: `rint(-coarse)` window offsets
@@ -17,15 +22,16 @@ Twin of sofima_tpu/flow_field.py. Ported:
       - masked, the integer-shift transport of `post` and its mask (K4 in
         'nearest' mode), the fine masked pass (K5) and the add-back of
         the rounded shift (`overflow` from the transport's plan);
-  * `JAXMaskedXCorrWithStatsCalculator`, its dense branch (mode other
-    than 'padfield', no targeting fields), with the host-side occupancy
-    and selection deselection;
+  * `JAXMaskedXCorrWithStatsCalculator`: its dense branch (circular
+    modes, no targeting fields) and, in 2d, its padfield mode
+    (`batched_xcorr_peaks`: the linear Padfield NCC of `masked_xcorr` on
+    torch.fft, as the reference computes it outside any Pallas kernel,
+    with its batch rules, targeting fields, the pre-patch clamp and its
+    compensation, `post_patch_size` and `progress_fn` streaming);
   * `masked_xcorr` (the full linear Padfield NCC on torch.fft, padded to
-    `next_fast_len`, batch or per-item thresholds), which the montage's
-    coarse strip offsets use.
-The calculator's padfield mode and targeting fields are still to be
-ported (ROADMAP.md Queue 1, Slice 2 item 5) and raise
-NotImplementedError.
+    `next_fast_len`, batch or per-item thresholds).
+The calculator's 3d padfield mode is still to be ported (ROADMAP.md
+Queue 1) and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -143,6 +149,15 @@ def masked_xcorr(prev, curr, prev_mask=None, curr_mask=None,
   return res
 
 
+def _valid_mean(batch: torch.Tensor, valid, axes) -> torch.Tensor:
+  """Per-patch mean over the valid pixels (all of them for None)."""
+  if valid is None:
+    return batch.mean(dim=axes, keepdim=True)
+  count = torch.clamp(valid.sum(dim=axes, keepdim=True), min=1)
+  return (torch.where(valid, batch, torch.zeros_like(batch))
+          .sum(dim=axes, keepdim=True) / count)
+
+
 def _strip_patches_3d(slab: torch.Tensor, grid_y: int, grid_x: int,
                       patch, step) -> torch.Tensor:
   """[pz, strip_h, strip_w] slab -> [gy * gx, pz, py, px] patch batch.
@@ -220,16 +235,9 @@ def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
     if post_mask is not None:
       vb = patches(post_mask.to(torch.float32)) <= 0
 
-    def masked_mean(batch, valid):
-      if valid is None:
-        return batch.mean(dim=axes, keepdim=True)
-      count = torch.clamp(valid.sum(dim=axes, keepdim=True), min=1)
-      return (torch.where(valid, batch, torch.zeros_like(batch))
-              .sum(dim=axes, keepdim=True) / count)
-
     if mean is None:
-      a = a - masked_mean(a, va)
-      b = b - masked_mean(b, vb)
+      a = a - _valid_mean(a, va, axes)
+      b = b - _valid_mean(b, vb, axes)
     else:
       a, b = a - mean, b - mean
     if va is not None or vb is not None:
@@ -248,15 +256,164 @@ def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
   return out.permute(3, 0, 1, 2).contiguous()
 
 
+def _strip_patches(strip: torch.Tensor, rows: int, grid_x: int, patch,
+                   step) -> torch.Tensor:
+  """[strip_h, strip_w] strip -> [rows * grid_x, py, px] patch batch,
+  row-major over (row, gx), as the reference's gather-free assembly
+  orders it."""
+  py, px = patch
+  sy, sx = step
+  p = strip.unfold(0, py, sy).unfold(1, px, sx)  # [rows, gx, py, px]
+  assert p.shape[:2] == (rows, grid_x)
+  return p.reshape(rows * grid_x, py, px)
+
+
+def _masked_xcorr_circular(pre_b: torch.Tensor, post_b: torch.Tensor,
+                           pre_valid: torch.Tensor,
+                           post_valid: torch.Tensor) -> torch.Tensor:
+  """Circular masked NCC (Padfield) of 2d [b, p1, p2] batches.
+
+  Twin of flow_field._masked_xcorr_circular: the six Padfield terms on
+  DFT matmuls, with the reference's batch rules (the denominator
+  tolerance and the 0.3 x max overlap cut over the whole batch).
+  """
+  p1, p2 = pre_b.shape[-2:]
+  zero = torch.zeros_like(pre_b)
+  return cuda_flow.padfield_ncc(
+      torch.where(pre_valid, pre_b, zero),
+      torch.where(post_valid, post_b, zero), pre_valid, post_valid,
+      cuda_flow._rdft2,
+      lambda a, b: cuda_flow._irdft2_of_product(a, b, p1, p2),
+      per_patch=False)
+
+
+def _circular_peaks(pre_b: torch.Tensor, post_b: torch.Tensor, pre_valid,
+                    post_valid, mean, min_distance: int,
+                    threshold_rel: float, peak_radius: int) -> torch.Tensor:
+  """Peak rows [b, 4] of one dispatch batch of 2d patch pairs.
+
+  Unmasked: kernel K6 (mean removal, circular correlation, peaks).
+  Masked (`*_valid` True where a pixel is valid, None: all valid): the
+  mean over valid pixels, the batch-rule Padfield NCC
+  `_masked_xcorr_circular`, and the peak chain.
+  """
+  if pre_valid is None and post_valid is None:
+    return cuda_flow.flow_peaks(pre_b, post_b, mean, min_distance,
+                                threshold_rel, peak_radius)
+  axes = (-2, -1)
+  if mean is None:
+    pre_b = pre_b - _valid_mean(pre_b, pre_valid, axes)
+    post_b = post_b - _valid_mean(post_b, post_valid, axes)
+  else:
+    pre_b, post_b = pre_b - mean, post_b - mean
+  ones = torch.ones_like(pre_b, dtype=torch.bool)
+  corr = _masked_xcorr_circular(
+      pre_b, post_b, ones if pre_valid is None else pre_valid,
+      ones if post_valid is None else post_valid)
+  p1, p2 = pre_b.shape[-2:]
+  corr = torch.roll(corr, (p1 // 2, p2 // 2), dims=axes)
+  return _batched_peaks(corr, (p1 // 2, p2 // 2), min_distance,
+                        threshold_rel, peak_radius)
+
+
+def _valid_patches(mask, cut):
+  """Valid-pixel patches (True = valid) of a mask (True / > 0 = invalid)."""
+  return None if mask is None else ~(cut(mask.to(torch.float32)) > 0)
+
+
+def _dense_flow_strips(pre_image: torch.Tensor, post_image: torch.Tensor,
+                       patch_size, step, mean: float | None,
+                       min_distance: int, threshold_rel: float,
+                       peak_radius: int, rows_per_step: int = 2,
+                       pre_mask=None, post_mask=None) -> torch.Tensor:
+  """Dense circular 2d flow over strips of grid rows -> [4, gy, gx].
+
+  Twin of flow_field._dense_flow_strips (the stride divides the patch):
+  each step cuts one strip of `rows_per_step` grid rows from both images
+  (the last strip clamped to the image, its repeated rows overwritten
+  by it), assembles its patches (`_strip_patches`) and measures their
+  peaks (`_circular_peaks`: K6, or the masked Padfield NCC with the
+  strip as the dispatch batch).
+  """
+  py, px = patch_size
+  sy, sx = step
+  gy = (pre_image.shape[0] - (py - sy)) // sy
+  gx = (pre_image.shape[1] - (px - sx)) // sx
+  strip_h = (rows_per_step - 1) * sy + py
+  strip_w = (gx - 1) * sx + px
+  pre_image = pre_image.to(torch.float32)
+  post_image = post_image.to(torch.float32)
+  out = torch.empty((gy, gx, 4), dtype=torch.float32,
+                    device=pre_image.device)
+  for step_i in range(-(-gy // rows_per_step)):
+    r0 = min(step_i * rows_per_step, gy - rows_per_step)
+    y0 = r0 * sy
+
+    def patches(img):
+      return _strip_patches(img[y0:y0 + strip_h, :strip_w], rows_per_step,
+                            gx, patch_size, step)
+
+    peaks = _circular_peaks(
+        patches(pre_image), patches(post_image),
+        _valid_patches(pre_mask, patches), _valid_patches(post_mask, patches),
+        mean, min_distance, threshold_rel, peak_radius)
+    out[r0:r0 + rows_per_step] = peaks.reshape(rows_per_step, gx, 4)
+  return out.permute(2, 0, 1).contiguous()
+
+
+def _dense_flow_starts(pre_image: torch.Tensor, post_image: torch.Tensor,
+                       patch_size, step, mean: float | None,
+                       min_distance: int, threshold_rel: float,
+                       peak_radius: int, batch_size: int,
+                       pre_mask=None, post_mask=None) -> torch.Tensor:
+  """Dense circular 2d flow from the grid's start list -> [4, gy, gx].
+
+  Twin of the start-list branch of flow_field.dense_flow_field (the
+  stride does not divide the patch): the patches of all grid nodes,
+  row-major, in dispatch batches of `batch_size` (the last one padded
+  by repeating its last start), each measured by `_circular_peaks`.
+  """
+  py, px = patch_size
+  sy, sx = step
+  h, w = pre_image.shape
+  gy, gx = (h - (py - sy)) // sy, (w - (px - sx)) // sx
+  n = gy * gx
+  batch_size = min(batch_size, n)
+  dev = pre_image.device
+  idx = torch.arange(-(-n // batch_size) * batch_size, device=dev).clamp(
+      max=n - 1)
+
+  def patches(img, sel):
+    return img.unfold(0, py, sy).unfold(1, px, sx)[sel // gx, sel % gx]
+
+  pre_image = pre_image.to(torch.float32)
+  post_image = post_image.to(torch.float32)
+  rows = []
+  for b0 in range(0, idx.numel(), batch_size):
+    sel = idx[b0:b0 + batch_size]
+    cut = lambda img, sel=sel: patches(img, sel)
+    rows.append(_circular_peaks(
+        cut(pre_image), cut(post_image), _valid_patches(pre_mask, cut),
+        _valid_patches(post_mask, cut), mean, min_distance, threshold_rel,
+        peak_radius))
+  peaks = torch.cat(rows)[:n]
+  return peaks.reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
+
+
 def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
                      patch_size, step, mean: float | None = None,
                      min_distance: int = 2, threshold_rel: float = 0.5,
                      peak_radius: int = 5, circular: bool = True,
-                     pre_mask=None, post_mask=None) -> torch.Tensor:
+                     pre_mask=None, post_mask=None,
+                     batch_size: int = 1024) -> torch.Tensor:
   """Flow over the full dense patch grid.
 
-  2d: [4, gy, gx] (x, y, sharpness, ratio), via kernel K1, or K5 when a
-  mask is given (float32 correlation; any geometry). 3d: [5, gz, gy, gx]
+  2d: [4, gy, gx] (x, y, sharpness, ratio). Square patches: kernel K1,
+  or K5 when a mask is given (float32 correlation; any geometry).
+  Rectangular patches: the strip path when the stride divides the patch
+  (`batch_size` / gx grid rows per strip, as the reference), else the
+  start-list path in batches of `batch_size`; both correlate on kernel
+  K6, or with masks on the batch-rule Padfield twin. 3d: [5, gz, gy, gx]
   (x, y, z, sharpness, ratio), via the strip path (stride must divide
   the patch size). Masks are True (or > 0) where a pixel is invalid.
   Only the circular branches are ported.
@@ -275,16 +432,26 @@ def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
                                  pre_mask=pre_mask, post_mask=post_mask)
   if pre_image.ndim != 2:
     raise ValueError('2d or 3d images expected')
+  patch_size, step = tuple(patch_size), tuple(step)
+  kw = dict(mean=mean, min_distance=min_distance,
+            threshold_rel=threshold_rel, peak_radius=peak_radius)
+  if patch_size[0] != patch_size[1]:
+    if patch_size[0] % step[0] == 0 and patch_size[1] % step[1] == 0:
+      gy = (pre_image.shape[0] - (patch_size[0] - step[0])) // step[0]
+      gx = (pre_image.shape[1] - (patch_size[1] - step[1])) // step[1]
+      rows = max(1, min(gy, int(round(batch_size / max(gx, 1))) or 1))
+      return _dense_flow_strips(pre_image, post_image, patch_size, step,
+                                rows_per_step=rows, pre_mask=pre_mask,
+                                post_mask=post_mask, **kw)
+    return _dense_flow_starts(pre_image, post_image, patch_size, step,
+                              batch_size=batch_size, pre_mask=pre_mask,
+                              post_mask=post_mask, **kw)
   if pre_mask is not None or post_mask is not None:
     valid = [None if m is None else ~(m > 0) for m in (pre_mask, post_mask)]
     return cuda_flow.masked_dense_flow_peaks(
-        pre_image, post_image, valid[0], valid[1], tuple(patch_size),
-        tuple(step), mean=mean, min_distance=min_distance,
-        threshold_rel=threshold_rel, peak_radius=peak_radius)
-  return cuda_flow.dense_flow_peaks(
-      pre_image, post_image, tuple(patch_size), tuple(step), mean=mean,
-      min_distance=min_distance, threshold_rel=threshold_rel,
-      peak_radius=peak_radius)
+        pre_image, post_image, valid[0], valid[1], patch_size, step, **kw)
+  return cuda_flow.dense_flow_peaks(pre_image, post_image, patch_size, step,
+                                    **kw)
 
 
 def _nanmedian(c: torch.Tensor) -> torch.Tensor:
@@ -487,40 +654,117 @@ def _tuple(v, ndim: int):
   return (int(v),) * ndim
 
 
-def _host(v):
-  return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else (
-      np.asarray(v))
+def _gather_patches(image: torch.Tensor, starts: torch.Tensor,
+                    size) -> torch.Tensor:
+  """[b, *size] patches of a 2d image at [b, 2] (y, x) starts, each start
+  clamped into the image as lax.dynamic_slice clamps it."""
+  h, w = image.shape
+  dev = image.device
+  y0 = starts[:, 0].clamp(0, max(h - size[0], 0))
+  x0 = starts[:, 1].clamp(0, max(w - size[1], 0))
+  yy = y0[:, None, None] + torch.arange(size[0], device=dev)[None, :, None]
+  xx = x0[:, None, None] + torch.arange(size[1], device=dev)[None, None, :]
+  return image[yy, xx]
 
 
-# The reference calculator's circular modes. Here each one correlates in
-# float32 (K1, or K5 with masks): 'circular_dft' picks the TPU's DFT
-# matmuls over FFTs and 'circular_dft_bf16' also rounds their inputs to
-# bfloat16, choices for the TPU's matrix unit that the port does not
+def batched_xcorr_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
+                        pre_mask, post_mask, patch_size, starts: torch.Tensor,
+                        mean: float | None, min_distance: int = 2,
+                        threshold_rel: float = 0.5, peak_radius: int = 5,
+                        post_patch_size=None,
+                        post_starts: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+  """Gather -> linear (Padfield) xcorr -> peak rows [b, 4], one batch.
+
+  Twin of flow_field.batched_xcorr_peaks in 2d: pre patches of
+  `patch_size` at `starts` and post patches of `post_patch_size` at
+  `post_starts` ([b, 2] (y, x)), the mean over each patch's unmasked
+  pixels (or the constant `mean`) removed, `masked_xcorr` over the batch
+  (masks True where invalid; with masks its thresholds are the
+  batch's), and the peaks around the linear correlation's zero shift
+  (patch + post_patch) // 2 - 1.
+  """
+  patch_size = tuple(patch_size)
+  post_patch_size = (patch_size if post_patch_size is None
+                     else tuple(post_patch_size))
+  if post_starts is None:
+    post_starts = starts
+  pre_b = _gather_patches(pre_image, starts, patch_size)
+  post_b = _gather_patches(post_image, post_starts, post_patch_size)
+  pre_m = None if pre_mask is None else _gather_patches(
+      pre_mask, starts, patch_size).to(torch.bool)
+  post_m = None if post_mask is None else _gather_patches(
+      post_mask, post_starts, post_patch_size).to(torch.bool)
+
+  if mean is None:
+    axes = (-2, -1)
+    pre_b = pre_b - _valid_mean(pre_b, None if pre_m is None else ~pre_m,
+                                axes)
+    post_b = post_b - _valid_mean(post_b, None if post_m is None else ~post_m,
+                                  axes)
+  else:
+    pre_b, post_b = pre_b - mean, post_b - mean
+  center = tuple((np.array(patch_size) + np.array(post_patch_size)) // 2 - 1)
+  xc = masked_xcorr(pre_b, post_b, pre_m, post_m)
+  return _batched_peaks(xc, center, min_distance, threshold_rel, peak_radius)
+
+
+# The reference calculator's modes: 'padfield' (the linear Padfield NCC,
+# `batched_xcorr_peaks`) and the circular ones. Here each circular mode
+# correlates in float32 (K1, K5 or K6): 'circular_dft' picks the TPU's
+# DFT matmuls over FFTs and 'circular_dft_bf16' also rounds their inputs
+# to bfloat16, choices for the TPU's matrix unit that the port does not
 # copy. Integer peaks agree with 'circular_dft' on textured data.
 CIRCULAR_MODES = ('circular', 'circular_dft', 'circular_dft_bf16')
+FLOW_MODES = ('padfield',) + CIRCULAR_MODES
 
 
-def check_circular_mode(mode: str) -> None:
-  """Raises unless `mode` is one of CIRCULAR_MODES."""
-  if mode == 'padfield':
-    raise NotImplementedError(
-        "the calculator's padfield mode is not ported yet (ROADMAP.md "
-        'Queue 1, Slice 2 item 5: masked_xcorr); use a circular mode')
-  if mode not in CIRCULAR_MODES:
+def check_flow_mode(mode: str) -> None:
+  """Raises ValueError unless `mode` is one of FLOW_MODES."""
+  if mode not in FLOW_MODES:
     raise ValueError(f'unknown flow mode {mode!r}')
+
+
+def _selected_nodes(post_shape, patch, post_patch, step, pre_mask, post_mask,
+                    selection_mask, max_masked: float) -> np.ndarray:
+  """The calculator's grid nodes that it estimates ([*grid] bool, host).
+
+  A node is kept where `selection_mask` (if given) is True and fewer than
+  `max_masked` of each of its pre / post patch's pixels are masked (the
+  occupancy from integral images, as the reference computes it).
+  """
+  out_shape = (np.asarray(post_shape) - (np.asarray(post_patch)
+                                         - np.asarray(step))) // step
+  out_sel = tuple(np.s_[:n] for n in out_shape)
+  keep = np.ones(out_shape, dtype=bool)
+  if selection_mask is not None:
+    keep &= np.array(placement.to_host(selection_mask)[out_sel], dtype=bool)
+  for mask, size in ((pre_mask, patch), (post_mask, post_patch)):
+    if mask is not None:
+      occ = geom.query_integral_image(
+          geom.integral_image_np(placement.to_host(mask)), size, step)
+      keep &= ~(occ / np.prod(size) >= max_masked)[out_sel]
+  return keep
 
 
 class JAXMaskedXCorrWithStatsCalculator:
   """Grid-driven flow-field estimator; the port keeps the reference's name.
 
-  Twin of flow_field.JAXMaskedXCorrWithStatsCalculator, its dense branch
-  (`mode` other than 'padfield', no targeting fields): the whole grid in
-  one `dense_flow_field` call (K1, or K5 with pixel masks), then host-side
-  deselection (NaN) of nodes whose patches are at least `max_masked`
-  masked or that `selection_mask` drops. Images go to `device` (default:
-  the CUDA card; tensors stay where they are). The result is numpy, as
-  the reference returns. Every mode correlates in float32
-  (`check_circular_mode`).
+  Twin of flow_field.JAXMaskedXCorrWithStatsCalculator:
+    * its dense branch (a circular `mode`, no targeting fields): the
+      whole grid in one `dense_flow_field` call (K1, K5 with pixel masks,
+      K6 for rectangular patches), then host-side deselection (NaN) of
+      nodes whose patches are at least `max_masked` masked or that
+      `selection_mask` drops;
+    * its padfield mode (the default, and any run with targeting
+      fields), 2d: the same deselection, then the selected nodes in
+      dispatch batches of `batch_size` through `batched_xcorr_peaks`.
+      With masks the batch decides the Padfield thresholds, so the
+      batches and the padding of the last one (its last start repeated)
+      are the reference's.
+  Images go to `device` (default: the CUDA card; tensors stay where they
+  are). The result is numpy, as the reference returns. Every circular
+  mode correlates in float32 (`check_flow_mode`).
   """
 
   non_spatial_flow_channels = 2  # peak sharpness, peak ratio
@@ -542,40 +786,42 @@ class JAXMaskedXCorrWithStatsCalculator:
     """Flow from `post` to `pre` -> [dim+2, *grid] numpy, NaN where no
     estimate was made (see the reference for the conventions).
 
-    `batch_size` and `progress_fn` only shape the reference's dispatch;
-    the dense branch here is one call.
+    `progress_fn(list_of_batch_indices)` (padfield mode) yields the
+    batches to run; each is fetched as it completes.
     """
-    del batch_size, progress_fn
     ndim = pre_image.ndim
-    check_circular_mode(mode)
-    if pre_targeting_field is not None or post_targeting_field is not None:
+    check_flow_mode(mode)
+    dense_ok = (mode != 'padfield' and pre_targeting_field is None
+                and post_targeting_field is None
+                and (ndim == 2 or (pre_mask is None and post_mask is None
+                                   and selection_mask is None)))
+    if dense_ok:
+      return self._dense(pre_image, post_image, patch_size, step, pre_mask,
+                         post_mask, mask_only_for_patch_selection,
+                         selection_mask, max_masked, batch_size,
+                         post_patch_size)
+    if ndim != 2:
       raise NotImplementedError(
-          'targeting fields are not ported yet (ROADMAP.md Queue 1, Slice 2 '
-          'item 5: the padfield calculator)')
-    if ndim != 2 and (pre_mask is not None or post_mask is not None
-                      or selection_mask is not None):
-      raise NotImplementedError(
-          'masked or selected 3d runs take the padfield calculator, not '
-          'ported yet (ROADMAP.md Queue 1, Slice 2 item 5)')
+          "the calculator's 3d padfield mode (and 3d masked, selected or "
+          'targeted runs) is not ported yet (ROADMAP.md Queue 1)')
+    return self._padfield(
+        pre_image, post_image, patch_size, step, pre_mask, post_mask,
+        mask_only_for_patch_selection, selection_mask, max_masked,
+        batch_size, post_patch_size, pre_targeting_field, pre_targeting_step,
+        post_targeting_field, post_targeting_step, progress_fn)
+
+  def _dense(self, pre_image, post_image, patch_size, step, pre_mask,
+             post_mask, mask_only_for_patch_selection, selection_mask,
+             max_masked, batch_size, post_patch_size) -> np.ndarray:
+    ndim = pre_image.ndim
     patch_t = _tuple(patch_size, ndim)
     step_t = _tuple(step, ndim)
     post_patch_t = _tuple(post_patch_size, ndim)
     if post_patch_t is not None and post_patch_t != patch_t:
       raise ValueError('circular mode requires equal pre/post patch sizes')
 
-    # Host-side deselection (occupancy + explicit selection mask).
-    out_shape = (np.array(post_image.shape) - (np.array(patch_t) - step_t)
-                 ) // step_t
-    out_sel = tuple(np.s_[:n] for n in out_shape)
-    keep = np.ones(out_shape, dtype=bool)
-    if selection_mask is not None:
-      keep &= np.array(_host(selection_mask)[out_sel], dtype=bool)
-    for mask in (pre_mask, post_mask):
-      if mask is not None:
-        occ = geom.query_integral_image(
-            geom.integral_image_np(_host(mask)), patch_t, step_t)
-        keep &= ~(occ / np.prod(patch_t) >= max_masked)[out_sel]
-
+    keep = _selected_nodes(post_image.shape, patch_t, patch_t, step_t,
+                           pre_mask, post_mask, selection_mask, max_masked)
     pixel_masks = not mask_only_for_patch_selection
     dev = self._device
     masks = [placement.place(m, dev) if pixel_masks and m is not None
@@ -585,7 +831,119 @@ class JAXMaskedXCorrWithStatsCalculator:
         placement.place(post_image, dev, torch.float32), patch_t, step_t,
         mean=self._mean, min_distance=int(self._min_distance),
         peak_radius=int(self._peak_radius), pre_mask=masks[0],
-        post_mask=masks[1])
+        post_mask=masks[1], batch_size=batch_size)
     result = out.cpu().numpy().copy()
     result[:, ~keep] = np.nan
     return result
+
+  def _padfield(self, pre_image, post_image, patch_size, step, pre_mask,
+                post_mask, mask_only_for_patch_selection, selection_mask,
+                max_masked, batch_size, post_patch_size, pre_targeting_field,
+                pre_targeting_step, post_targeting_field,
+                post_targeting_step, progress_fn) -> np.ndarray:
+    ndim = 2
+    patch_size = _tuple(patch_size, ndim)
+    post_patch_size = _tuple(post_patch_size, ndim) or patch_size
+    step = _tuple(step, ndim)
+    pre_targeting_step = _tuple(pre_targeting_step, ndim)
+    post_targeting_step = _tuple(post_targeting_step, ndim)
+    pre_shape = np.asarray(pre_image.shape)
+    post_shape = np.asarray(post_image.shape)
+
+    selection = _selected_nodes(post_shape, patch_size, post_patch_size,
+                                step, pre_mask, post_mask, selection_mask,
+                                max_masked)
+    output = np.full((self.non_spatial_flow_channels + ndim,)
+                     + selection.shape, np.nan, dtype=np.float32)
+    if mask_only_for_patch_selection:
+      pre_mask = post_mask = None
+
+    coords = np.argwhere(selection)  # [n, 2] grid coords (y, x)
+    n = coords.shape[0]
+    if n == 0:
+      return output
+
+    # Host-side integer geometry for all patches at once.
+    post_starts = coords * np.asarray(step)[None, :]
+    patch_offset = ((np.array(patch_size) - post_patch_size) // 2)[None, :]
+    # Pre patches stay in bounds; the shift this introduces is compensated
+    # in the returned flow below, as the reference does.
+    pre_unclamped = post_starts - patch_offset
+    pre_starts = np.clip(pre_unclamped, 0,
+                         pre_shape[None, :] - np.asarray(patch_size)[None, :])
+    pre_clamp_delta = pre_starts - pre_unclamped
+
+    def targeting_offsets(field, tstep, starts, psize, img_shape):
+      """In-bounds-clamped targeting offsets ([n, 2], (y, x) order)."""
+      field = placement.to_host(field)
+      center = (np.array(psize) // 2)[None, :]
+      query = np.round((starts + center) / np.asarray(tstep)[None, :])
+      query = query.astype(int)
+      gather_idx = tuple(np.clip(query[:, i], 0, field.shape[i + 1] - 1)
+                         for i in range(ndim))
+      offs = np.nan_to_num(field[(slice(None),) + gather_idx].T)
+      offs = offs.astype(int)[:, ::-1]  # channels xy -> yx
+      new_starts = starts + offs
+      offs = offs - np.minimum(new_starts, 0)
+      ends = new_starts + np.asarray(psize)[None, :]
+      offs = offs - np.maximum(ends - np.asarray(img_shape)[None, :], 0)
+      return offs
+
+    tg_offsets = None
+    if pre_targeting_field is not None and pre_targeting_step is not None:
+      tg_offsets = targeting_offsets(pre_targeting_field, pre_targeting_step,
+                                     pre_starts, patch_size, pre_shape)
+      pre_starts = pre_starts + tg_offsets
+    post_offsets = None
+    if post_targeting_field is not None and post_targeting_step is not None:
+      post_offsets = targeting_offsets(post_targeting_field,
+                                       post_targeting_step, post_starts,
+                                       post_patch_size, post_shape)
+      post_starts = post_starts + post_offsets
+    pre_starts = np.clip(pre_starts, 0, None)
+    post_starts = np.clip(post_starts, 0, None)
+
+    # Dispatch batches; the last one repeats its last start.
+    batch_size = int(min(batch_size, max(n, 1)))
+    num_batches = -(-n // batch_size)
+    padded = num_batches * batch_size
+    if padded > n:
+      pad = ((0, padded - n), (0, 0))
+      pre_starts = np.pad(pre_starts, pad, mode='edge')
+      post_starts = np.pad(post_starts, pad, mode='edge')
+
+    dev = self._device
+    pre_t = placement.place(pre_image, dev, torch.float32)
+    post_t = placement.place(post_image, dev, torch.float32)
+    pre_m = None if pre_mask is None else placement.place(pre_mask, dev)
+    post_m = None if post_mask is None else placement.place(post_mask, dev)
+    ps = torch.as_tensor(pre_starts.reshape(num_batches, batch_size, ndim),
+                         device=pre_t.device)
+    qs = torch.as_tensor(post_starts.reshape(num_batches, batch_size, ndim),
+                         device=pre_t.device)
+
+    def one_batch(i):
+      return batched_xcorr_peaks(
+          pre_t, post_t, pre_m, post_m, patch_size, ps[i], self._mean,
+          min_distance=int(self._min_distance), threshold_rel=0.5,
+          peak_radius=int(self._peak_radius),
+          post_patch_size=post_patch_size, post_starts=qs[i])
+
+    if progress_fn is None:
+      peaks = torch.cat([one_batch(i) for i in range(num_batches)])
+      peaks = peaks.cpu().numpy()
+    else:
+      # Streaming: each batch is fetched as it completes.
+      peaks = np.concatenate([one_batch(i).cpu().numpy()
+                              for i in progress_fn(list(range(num_batches)))])
+    peaks = peaks.reshape(padded, ndim + 2)[:n].copy()
+
+    # Targeting / clamp corrections and the scatter.
+    if np.any(pre_clamp_delta):
+      peaks[:, :ndim] += pre_clamp_delta[:, ::-1]
+    if tg_offsets is not None:
+      peaks[:, :ndim] += tg_offsets[:, ::-1]
+    if post_offsets is not None:
+      peaks[:, :ndim] -= post_offsets[:, ::-1]
+    output[(slice(None),) + tuple(coords.T)] = peaks.T
+    return output

@@ -49,8 +49,12 @@ launch_counts: dict[str, int] = {
     'dense_flow_peaks': 0,      # K1: coarse pass
     'targeted_flow_peaks': 0,   # K2: fine pass
     'masked_flow_peaks': 0,     # K5: masked passes
+    'patch_flow_peaks': 0,      # K6: peaks of pre-cut patch batches
+    'corr_patches': 0,          # K7: surfaces of pre-cut patch batches
     'fused_fire': 0,            # K3: mesh solve
     'warp_gather': 0,           # K4: render
+    'warp_subvolume': 0,        # K4 gather for warp.warp_subvolume (K4p)
+    'ndimage_warp': 0,          # K4 gather for 2d warp.ndimage_warp (K12)
     'force2d': 0,               # K8: 2d mesh force
     'force3d': 0,               # K9: 3d mesh force
     'fused_fire_3d': 0,         # K11: 3d mesh solve

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K5, dense-grid flow peaks: CUDA wrappers and plain twins.
+"""Kernels K1, K2, K5, K6 and K7, flow peaks: CUDA wrappers and plain twins.
 
 Twin of sofima_tpu/ops/pallas_flow.py: `dense_flow_peaks_pallas` (K1,
 Pallas body `_grid_kernel`, unmasked), `dense_flow_peaks_targeted`
@@ -12,6 +12,13 @@ with per-patch post-window offsets expanded from the per-block
 Padfield NCC of each patch pair under its valid masks and shares the
 peak chain (csrc/flow_peaks.cuh); its denominator tolerance is per patch
 (see `padfield_ncc` and the kernel's source note).
+
+K6 (`flow_peaks`, Pallas `flow_peaks_pallas` / `_corr_peaks_kernel`)
+and K7 (`corr_patches`, `corr_patches_pallas` / `_corr_kernel`) take
+pre-cut [n, p1, p2] patch batches, rectangular allowed, and launch one
+templated kernel in csrc/patch_corr.cu: K6 writes the [n, 4] peak rows
+(the 2d strip path's and the start-list path's correlation), K7 the
+[n, p1, p2] centred surfaces.
 
 For every patch pair on the grid (pre at (i*sy, j*sx), post at the same
 position plus its offset, zeros outside the image) the kernel removes
@@ -134,7 +141,7 @@ def _irdft2_of_product(a, b, n1: int, n2: int) -> torch.Tensor:
 
 
 def circular_xcorr(pre_b: torch.Tensor, post_b: torch.Tensor) -> torch.Tensor:
-  """irfft2(F(pre) conj(F(post))) of [b, n, n] batches via DFT matmuls.
+  """irfft2(F(pre) conj(F(post))) of [b, n1, n2] batches via DFT matmuls.
 
   Plain-version transcription of flow_field._circular_xcorr_matmul (f32).
   """
@@ -574,3 +581,119 @@ def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
   _build.launch_counts['masked_flow_peaks'] += 1
   _build.check(rc, 'masked_flow_peaks')
   return out
+
+
+def _patch_batches(pre_b, post_b):
+  pre = pre_b.to(torch.float32).contiguous()
+  post = post_b.to(torch.float32).contiguous()
+  if pre.ndim != 3 or tuple(pre.shape) != tuple(post.shape):
+    raise ValueError(f'equal [n, p1, p2] batches expected, got '
+                     f'{tuple(pre.shape)} and {tuple(post.shape)}')
+  return pre, post
+
+
+def _centred_corr(a: torch.Tensor, b: torch.Tensor, mean) -> torch.Tensor:
+  """Mean-removed circular xcorr of [b, p1, p2], zero shift at the centre."""
+  if mean is None:
+    a = a - a.mean(dim=(1, 2), keepdim=True)
+    b = b - b.mean(dim=(1, 2), keepdim=True)
+  else:
+    a, b = a - mean, b - mean
+  p1, p2 = a.shape[1:]
+  return torch.roll(circular_xcorr(a, b), (p1 // 2, p2 // 2), dims=(1, 2))
+
+
+def corr_patches_plain(pre_b: torch.Tensor, post_b: torch.Tensor,
+                       mean: float | None = None) -> torch.Tensor:
+  """Plain PyTorch version of K7 -> [n, p1, p2]."""
+  pre, post = _patch_batches(pre_b, post_b)
+  parts = [_centred_corr(pre[c:c + _PLAIN_CHUNK], post[c:c + _PLAIN_CHUNK],
+                         mean) for c in range(0, pre.shape[0], _PLAIN_CHUNK)]
+  return torch.cat(parts) if parts else torch.empty_like(pre)
+
+
+def patch_flow_peaks_plain(pre_b: torch.Tensor, post_b: torch.Tensor,
+                           mean: float | None = None, min_distance: int = 2,
+                           threshold_rel: float = 0.5,
+                           peak_radius: int = 5) -> torch.Tensor:
+  """Plain PyTorch version of K6 -> [n, 4]."""
+  pre, post = _patch_batches(pre_b, post_b)
+  p1, p2 = pre.shape[1:]
+  parts = [batched_peaks(
+      _centred_corr(pre[c:c + _PLAIN_CHUNK], post[c:c + _PLAIN_CHUNK], mean),
+      (p1 // 2, p2 // 2), min_distance, threshold_rel, peak_radius)
+      for c in range(0, pre.shape[0], _PLAIN_CHUNK)]
+  return torch.cat(parts) if parts else torch.empty(
+      (0, 4), dtype=torch.float32, device=pre.device)
+
+
+def _launch_patches(pre, post, peaks: bool, mean, min_distance,
+                    threshold_rel, peak_radius, counter):
+  _build.require_cuda(counter, pre, post)
+  lib = _build.library()
+  lib.patch_corr_per_block.argtypes = [ctypes.c_int] * 3
+  lib.patch_corr_per_block.restype = ctypes.c_int64
+  fn = lib.patch_corr_launch
+  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] * 4
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  n, p1, p2 = pre.shape
+  dev = pre.device
+  t1c, t1s = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p1))
+  t2c, t2s = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p2))
+  out = torch.empty((4, n) if peaks else (n, p1, p2), dtype=torch.float32,
+                    device=dev)
+  if n == 0:
+    return out.T if peaks else out
+  per_block = int(lib.patch_corr_per_block(p1, p2, int(peaks)))
+  scratch = None
+  if per_block * 4 <= _MAX_SMEM_BYTES:
+    nblocks = n
+  else:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblocks = min(n, 4 * sms)
+    scratch = torch.empty((nblocks, per_block), dtype=torch.float32,
+                          device=dev)
+  rc = fn(pre.data_ptr(), post.data_ptr(), n, p1, p2, t1c.data_ptr(),
+          t1s.data_ptr(), t2c.data_ptr(), t2s.data_ptr(), int(peaks),
+          int(mean is None), float(mean or 0.0), int(min_distance),
+          float(threshold_rel), int(peak_radius), _build.ptr(scratch),
+          nblocks, out.data_ptr(), _build.stream_of(pre))
+  _build.launch_counts[counter] += 1
+  _build.check(rc, counter)
+  return out.T if peaks else out
+
+
+def flow_peaks(pre_b: torch.Tensor, post_b: torch.Tensor,
+               mean: float | None = None, min_distance: int = 2,
+               threshold_rel: float = 0.5,
+               peak_radius: int = 5) -> torch.Tensor:
+  """K6: peak statistics of pre-cut patch pairs -> [n, 4].
+
+  `pre_b` / `post_b`: [n, p1, p2] batches (rectangular allowed). Per
+  pair: mean removal (or the constant `mean`), circular correlation with
+  the zero shift at (p1//2, p2//2), and the rows (x, y, sharpness,
+  ratio) of flow_field._batched_peaks, NaN rows without a peak.
+  """
+  pre, post = _patch_batches(pre_b, post_b)
+  if pre.device.type == 'cpu':
+    return patch_flow_peaks_plain(pre, post, mean, min_distance,
+                                  threshold_rel, peak_radius)
+  return _launch_patches(pre, post, True, mean, min_distance, threshold_rel,
+                         peak_radius, 'patch_flow_peaks')
+
+
+def corr_patches(pre_b: torch.Tensor, post_b: torch.Tensor,
+                 mean: float | None = None) -> torch.Tensor:
+  """K7: centred circular xcorr surfaces of pre-cut patch pairs.
+
+  [n, p1, p2] batches in, [n, p1, p2] float32 out, the zero shift at
+  (p1//2, p2//2), each patch's mean (or the constant `mean`) removed.
+  """
+  pre, post = _patch_batches(pre_b, post_b)
+  if pre.device.type == 'cpu':
+    return corr_patches_plain(pre, post, mean)
+  return _launch_patches(pre, post, False, mean, 2, 0.5, 5, 'corr_patches')

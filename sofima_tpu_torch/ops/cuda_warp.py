@@ -93,11 +93,14 @@ def shift_warp_plain(images: torch.Tensor, coords: torch.Tensor,
 
 
 def shift_warp(images: torch.Tensor, coords: torch.Tensor,
-               method: str = 'lanczos') -> torch.Tensor:
+               method: str = 'lanczos',
+               counter: str = 'warp_gather') -> torch.Tensor:
   """Resamples [z, h, w] images at [z, 2, oy, ox] (y, x) coords.
 
-  CPU tensors take the plain version; CUDA tensors launch the kernel.
-  Returns [z, oy, ox] float32.
+  CPU tensors take the plain version; CUDA tensors launch the kernel and
+  count the launch under `counter` ('warp_subvolume' and 'ndimage_warp'
+  tell the library API's renders, the reference's K4p and K12, from the
+  pipelines' K4). Returns [z, oy, ox] float32.
   """
   if method not in _METHODS:
     raise ValueError(f'Unknown method {method!r}')
@@ -117,7 +120,7 @@ def shift_warp(images: torch.Tensor, coords: torch.Tensor,
   out = torch.empty((nz, oy, ox), dtype=torch.float32, device=images.device)
   rc = fn(images.data_ptr(), coords.data_ptr(), out.data_ptr(), nz, h, w,
           oy, ox, _METHODS[method], _build.stream_of(images))
-  _build.launch_counts['warp_gather'] += 1
+  _build.launch_counts[counter] += 1
   _build.check(rc, 'warp_gather')
   return out
 

@@ -20,6 +20,11 @@ from typing import Sequence
 import torch
 
 
+def float_type(t: torch.Tensor) -> torch.dtype:
+  """float64 for float64 tensors, else float32 (the working types)."""
+  return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def linear_taps(coords: torch.Tensor, spatial: Sequence[int], mode: str,
                 lead: int = 0):
   """The 2^dim linear taps of `coords` on a grid of shape `spatial`.
@@ -39,7 +44,7 @@ def linear_taps(coords: torch.Tensor, spatial: Sequence[int], mode: str,
   if mode not in ('constant', 'nearest'):
     raise ValueError(f'Unknown mode {mode!r}')
   dim = len(spatial)
-  coords = coords.to(torch.float32)
+  coords = coords.to(float_type(coords))
   nan_coords = torch.isnan(coords).any(dim=lead)
   coords = torch.nan_to_num(coords)
   base = torch.floor(coords)
@@ -98,7 +103,8 @@ def sample(image: torch.Tensor, coords: torch.Tensor, method: str = 'linear',
 
   Linear only. mode 'constant': out-of-bounds taps read `cval`; mode
   'nearest': indices clamp to the edge. Zero-weight taps never poison
-  the output, and NaN coordinates always give NaN.
+  the output, and NaN coordinates always give NaN. float64 inputs are
+  sampled in float64, everything else in float32.
   """
   if method != 'linear':
     raise NotImplementedError('only linear sampling is ported')
@@ -107,7 +113,7 @@ def sample(image: torch.Tensor, coords: torch.Tensor, method: str = 'linear',
     raise ValueError('[..., h, w] images and [..., 2, ...] coords expected')
   spatial = image.shape[lead:]
   taps, nan_coords = linear_taps(coords, spatial, mode, lead)
-  flat = image.to(torch.float32).reshape(*image.shape[:lead], -1)
+  flat = image.to(float_type(image)).reshape(*image.shape[:lead], -1)
   return apply_taps(flat, taps, nan_coords, cval, lead)
 
 
@@ -119,7 +125,7 @@ def sample_channels(image: torch.Tensor, coords: torch.Tensor,
     raise NotImplementedError('only linear sampling is ported')
   dim = coords.shape[0]
   taps, nan_coords = linear_taps(coords, image.shape[1:], mode)
-  flat = image.to(torch.float32).reshape(image.shape[0], -1)
+  flat = image.to(float_type(image)).reshape(image.shape[0], -1)
   assert image.ndim == dim + 1
   return apply_taps(flat, taps, nan_coords, cval)
 

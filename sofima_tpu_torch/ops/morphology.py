@@ -1,7 +1,9 @@
-"""Moving median filter (subset).
+"""Moving median filter and connected components.
 
-Twin of sofima_tpu/ops/morphology.py. Ported: `median_filter`, which the
-flow cleaning uses. Plain PyTorch over small flow grids.
+Twin of sofima_tpu/ops/morphology.py: `median_filter` (the flow
+cleaning) and `label_components`, `component_sizes` and
+`small_component_mask` (flow_utils.reconcile_flows' `min_patch_size`).
+Plain PyTorch over small flow grids.
 """
 
 from __future__ import annotations
@@ -53,3 +55,59 @@ def median_filter(x: torch.Tensor, dims: int = 2,
                                                 + srt[k // 2])
   return torch.where(torch.isnan(stack).any(dim=0),
                      torch.full_like(med, float('nan')), med)
+
+
+def label_components(valid: torch.Tensor, max_iters: int = 0) -> torch.Tensor:
+  """Labels the 4-connected components of a 2d boolean mask.
+
+  The reference's min-label propagation with pointer jumping: every
+  valid pixel starts with its linear index; each round takes the
+  minimum over its valid 4-neighbourhood and then follows its label to
+  that pixel's label twice. It stops at the fixed point or after
+  `max_iters` rounds (0: h + w, the reference's ceiling). Returns int32
+  labels, -1 on invalid pixels; a label is unique per component.
+  """
+  h, w = valid.shape
+  n = h * w
+  dev = valid.device
+  big = torch.tensor(n, dtype=torch.int64, device=dev)
+  init = torch.where(valid, torch.arange(n, device=dev).reshape(h, w), big)
+  if max_iters <= 0:
+    max_iters = h + w
+
+  def neighbor_min(lab):
+    pad = torch.full((h + 2, w + 2), n, dtype=torch.int64, device=dev)
+    pad[1:-1, 1:-1] = lab
+    out = lab
+    for sy, sx in ((slice(0, -2), slice(1, -1)), (slice(2, None), slice(1, -1)),
+                   (slice(1, -1), slice(0, -2)), (slice(1, -1), slice(2, None))):
+      out = torch.minimum(out, pad[sy, sx])
+    return torch.where(valid, out, big)
+
+  def jump(lab):
+    flat = torch.cat([lab.reshape(-1), big[None]])
+    return torch.where(valid, torch.minimum(lab, flat[lab].reshape(h, w)),
+                       big)
+
+  lab, prev = neighbor_min(init), init
+  it = 0
+  while it < max_iters and bool((lab != prev).any()):
+    lab, prev = jump(jump(neighbor_min(lab))), lab
+    it += 1
+  return torch.where(valid, lab, -1).to(torch.int32)
+
+
+def component_sizes(labels: torch.Tensor) -> torch.Tensor:
+  """Per-pixel size of the component each pixel belongs to (-1 -> 0)."""
+  n = labels.numel()
+  flat = labels.reshape(-1).to(torch.int64)
+  safe = torch.where(flat < 0, n, flat)
+  counts = torch.bincount(safe, minlength=n + 1)
+  counts[n] = 0
+  return counts[safe].reshape(labels.shape).to(torch.int32)
+
+
+def small_component_mask(valid: torch.Tensor, min_size: int) -> torch.Tensor:
+  """True where a valid pixel belongs to a component smaller than
+  `min_size`."""
+  return valid & (component_sizes(label_components(valid)) < min_size)

@@ -51,7 +51,7 @@ class MontageConfig:
 
   Same fields and defaults as sofima_tpu's MontageConfig. Every
   circular `flow_mode` correlates in float32 and 'padfield' raises
-  (flow_field.CIRCULAR_MODES, checked in compute_flow_map); `flow_batch`
+  (stitch_elastic.compute_flow_map); `flow_batch`
   is not read, since K1 takes each overlap strip in one launch.
   """
   stride: int = 40

@@ -72,7 +72,7 @@ def compute_flow_map(tile_map: Mapping[TileXY, Any], offset_map: np.ndarray,
   by the rounded orthogonal offset) from both tiles and estimates the
   patch flow between them, with the calculator's circular dense branch
   (kernel K1 on the card; every circular mode correlates in float32,
-  `flow_field.check_circular_mode`).
+  `flow_field.check_flow_mode`).
   Tiles may be tensors (the strips are sliced on their device) or host
   arrays (they go to `device`, default the CUDA card). `batch_size` is
   accepted for parity and not read.
@@ -81,7 +81,11 @@ def compute_flow_map(tile_map: Mapping[TileXY, Any], offset_map: np.ndarray,
   mesh grid}, {(x, y): xy offset used for the crop}).
   """
   del batch_size
-  flow_field.check_circular_mode(flow_mode)
+  flow_field.check_flow_mode(flow_mode)
+  if flow_mode == 'padfield':
+    raise NotImplementedError(
+        "compute_flow_map's padfield mode is not ported yet (ROADMAP.md "
+        'Queue 1); use a circular mode')
   yx_shape = offset_map.shape[-2:]
   flows, offsets = {}, {}
   pad_y = patch_size[0] // 2 // stride[0]

@@ -10,8 +10,8 @@ Twin of sofima_tpu/stitch_rigid.py, its batched device path:
      (`optimize_coarse_mesh`, `elastic_tile_mesh`, mesh.relax_mesh).
 The strips stay on the tiles' device; only [limits, pairs, 4] peak rows
 per overlap width cross to the host. Still to port (ROADMAP.md Queue 1):
-the sequential `compute_coarse_offsets` / `_find_offset`, which need the
-calculator's padfield mode, and external tile masks.
+the sequential `compute_coarse_offsets` / `_find_offset` (on the
+calculator's padfield mode, ported since) and external tile masks.
 """
 
 from __future__ import annotations
@@ -27,9 +27,9 @@ from sofima_tpu_torch import placement
 
 TileXY = tuple[int, int]
 
-_TODO_SEQUENTIAL = ('the sequential coarse-offset search needs the '
-                    "calculator's padfield mode (ROADMAP.md Queue 1: "
-                    'stitch_rigid); use compute_coarse_offsets_batched')
+_TODO_SEQUENTIAL = ('the sequential coarse-offset search is not ported yet '
+                    '(ROADMAP.md Queue 1: stitch_rigid); use '
+                    'compute_coarse_offsets_batched')
 
 
 def _overlap_crops(pre, post, overlap: int, axis: int):

@@ -1,10 +1,10 @@
 """Axis-aligned bounding boxes in XYZ order (subset).
 
 Twin of sofima_tpu/utils/bounding_box.py, kept as the port's own numpy
-copy: only what tile stitching uses (`start`, `size`, `end`,
-`translate`, `intersection`, `to_slice_tuple`, `to_slice4d`). Boxes
-store integer (or float) `start` and `size` vectors in XYZ order; `end`
-is exclusive.
+copy of what tile stitching, map_utils and warp use (`start`, `size`,
+`end`, `rank`, equality, `translate`, `adjusted_by`, `intersection`,
+`to_slice_tuple`, `to_slice3d`, `to_slice4d`). Boxes store integer (or
+float) `start` and `size` vectors in XYZ order; `end` is exclusive.
 """
 
 from __future__ import annotations
@@ -26,8 +26,13 @@ def _as_array(v: ArrayLike) -> np.ndarray:
 class BoundingBox:
   """An axis-aligned box defined by `start` (inclusive) and `size` (XYZ)."""
 
-  def __init__(self, start: ArrayLike, size: ArrayLike):
+  def __init__(self, start: ArrayLike, size: ArrayLike | None = None,
+               end: ArrayLike | None = None):
     start = _as_array(start)
+    if size is None:
+      if end is None:
+        raise ValueError('Either size or end must be specified.')
+      size = _as_array(end) - start
     size = _as_array(size)
     if start.shape != size.shape:
       raise ValueError(f'start/size shape mismatch: {start} vs {size}')
@@ -43,8 +48,36 @@ class BoundingBox:
   def end(self) -> np.ndarray:
     return self.start + self.size
 
+  @property
+  def rank(self) -> int:
+    return len(self.start)
+
+  def __eq__(self, other) -> bool:
+    if not isinstance(other, BoundingBox):
+      return NotImplemented
+    return bool(np.all(self.start == other.start)
+                and np.all(self.size == other.size))
+
+  def __hash__(self):
+    return hash((tuple(self.start.tolist()), tuple(self.size.tolist())))
+
+  def __repr__(self):
+    return (f'BoundingBox(start={self.start.tolist()}, '
+            f'size={self.size.tolist()})')
+
   def translate(self, offset: ArrayLike) -> 'BoundingBox':
     return BoundingBox(self.start + _as_array(offset), self.size)
+
+  def adjusted_by(self, *, start: ArrayLike | None = None,
+                  end: ArrayLike | None = None) -> 'BoundingBox':
+    """The box with `start` and / or `end` shifted by the given deltas."""
+    new_start = self.start.copy()
+    new_end = self.end.copy()
+    if start is not None:
+      new_start = new_start + _as_array(start)
+    if end is not None:
+      new_end = new_end + _as_array(end)
+    return BoundingBox(new_start, new_end - new_start)
 
   def intersection(self, other: 'BoundingBox') -> 'BoundingBox | None':
     start = np.maximum(self.start, other.start)
@@ -57,6 +90,11 @@ class BoundingBox:
     """Slices in reverse (...ZYX) axis order for array indexing."""
     return tuple(slice(int(s), int(e))
                  for s, e in zip(self.start[::-1], self.end[::-1]))
+
+  def to_slice3d(self) -> tuple[slice, ...]:
+    if self.rank != 3:
+      raise ValueError('to_slice3d requires a rank-3 box')
+    return self.to_slice_tuple()
 
   def to_slice4d(self) -> tuple[slice, ...]:
     """(channel, z, y, x) slice with a full-channel selector prepended."""

@@ -159,8 +159,9 @@ class TestCoarseToFine:
   def test_unported_branches_raise(self):
     # Masks and warm-start priors now run and match the reference (here
     # at 400^2; in depth in test_torch_flow_masked.py and
-    # test_torch_warm_start.py). What stays unported is the calculator's
-    # padfield mode and its targeting fields.
+    # test_torch_warm_start.py), and the calculator's 2d padfield mode
+    # with its targeting fields in test_torch_flow_padfield.py. What stays
+    # unported is the calculator's 3d padfield mode.
     pre = _texture(400, seed=6)
     post = np.roll(pre, (11, -14), (0, 1))
     mask = np.zeros((400, 400), bool)
@@ -181,12 +182,9 @@ class TestCoarseToFine:
                                     np.nan_to_num(np.asarray(ref)[:2],
                                                   nan=9e9))
     calc = tff.JAXMaskedXCorrWithStatsCalculator(device='cpu')
+    vol = np.stack([pre[:40, :40]] * 8)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-      calc.flow_field(pre, post, 160, 40)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-      calc.flow_field(pre, post, 160, 40, mode='circular',
-                      post_targeting_field=np.zeros((2, 3, 3)),
-                      post_targeting_step=160)
+      calc.flow_field(vol, vol, 8, 8)
 
 
 class TestCleanFlow:

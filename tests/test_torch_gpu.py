@@ -11,7 +11,15 @@ of them, with every clean-gate decision equal: near masked regions the
 statistics divide by correlation values close to 0); fused solver
 steps equal and nodes within 1e-3 px (2d and 3d), as the staged 2d
 solver with K8; 2d and 3d forces within 1e-4, K8 repeating bit for bit;
-renders (2d and 3d) within 1e-2 gray levels; the small 3d stitch, the
+renders (2d and 3d) within 1e-2 gray levels; K7's surfaces within 1e-3
+of each surface's largest value and repeating bit for bit, K6's peaks as
+K1's (square and rectangular patches, in shared memory and in global
+scratch), the rectangular dense flow and the padfield calculator
+(integer peaks exact, 99% of the statistics within 3e-4: sharpness
+divides by correlation values close to 0, as for K5, and summation
+order moves it there, with every clean-gate decision equal),
+`warp_subvolume` and 2d `ndimage_warp` within 1 gray level on at most
+1e-3 of the pixels of the CPU's; the small 3d stitch, the
 small 2d montage and the drift-removal stack step on the card within
 0.01 * stride of the CPU plain path (the montage canvas within 0.01 gray
 levels in the mean and 0.05 at most where both masks are set).
@@ -404,3 +412,85 @@ def test_stitch3d_small(dev):
   ref = stitch3d.stitch_and_render_3d(tiles, cx, cy, coarse, cfg,
                                       device='cpu')
   assert float((got['solved'].cpu() - ref['solved']).abs().max()) < 0.08
+
+
+def _patch_batch(shape, seed):
+  """[n, p1, p2] patch pairs cut from a texture: post is pre shifted."""
+  n, p1, p2 = shape
+  tex = _texture(max(4 * p1, 4 * p2, 256), seed=seed)
+  rng = np.random.RandomState(seed)
+  ys = rng.randint(16, tex.shape[0] - p1 - 16, size=n)
+  xs = rng.randint(16, tex.shape[1] - p2 - 16, size=n)
+  a = np.stack([tex[y:y + p1, x:x + p2] for y, x in zip(ys, xs)])
+  b = np.stack([tex[y - 3:y - 3 + p1, x + 5:x + 5 + p2]
+                for y, x in zip(ys, xs)])
+  return torch.from_numpy(a), torch.from_numpy(b)
+
+
+# Shared memory (32^2, 24 x 40) and global scratch (160^2, 160 x 80).
+@pytest.mark.parametrize('shape', [(37, 32, 32), (29, 24, 40),
+                                   (11, 160, 160), (9, 160, 80)])
+def test_patch_corr_kernels(dev, shape):
+  a, b = _patch_batch(shape, seed=7)
+  before = dict(_build.launch_counts)
+  got = cuda_flow.corr_patches(a.to(dev), b.to(dev))
+  rep = cuda_flow.corr_patches(a.to(dev), b.to(dev))
+  ref = cuda_flow.corr_patches(a, b)
+  scale = ref.abs().amax(dim=(1, 2), keepdim=True)
+  assert float(((got.cpu() - ref).abs() / scale).max()) < 1e-3
+  assert torch.equal(got, rep)
+  peaks = cuda_flow.flow_peaks(a.to(dev), b.to(dev))
+  ref_p = cuda_flow.flow_peaks(a, b)
+  _masked_equal(peaks.cpu().T, ref_p.T)
+  # b[t] = a[t + (-3, 5)]: the flow (x, y) is (5, -3) on most pairs.
+  assert ref_p[:, 0].median() == 5 and ref_p[:, 1].median() == -3
+  assert _build.launch_counts['corr_patches'] == before['corr_patches'] + 2
+  assert (_build.launch_counts['patch_flow_peaks']
+          == before['patch_flow_peaks'] + 1)
+
+
+def test_rectangular_dense_flow(dev):
+  pre = torch.from_numpy(_texture(600, seed=8)[:520].copy())
+  post = torch.roll(pre, (4, -6), (0, 1)).contiguous()
+  for patch, step in (((160, 80), (40, 40)), ((96, 64), (40, 40))):
+    got = flow_field.dense_flow_field(pre.to(dev), post.to(dev), patch, step,
+                                      batch_size=256)
+    ref = flow_field.dense_flow_field(pre, post, patch, step, batch_size=256)
+    _masked_equal(got.cpu(), ref)
+
+
+def test_padfield_calculator(dev):
+  pre = _texture(400, seed=9)
+  post = np.roll(pre, (6, -4), (0, 1))
+  mask = np.zeros(pre.shape, bool)
+  mask[150:190, 40:360] = True
+  for kw in (dict(), dict(pre_mask=mask, post_mask=mask, batch_size=13)):
+    got = flow_field.JAXMaskedXCorrWithStatsCalculator().flow_field(
+        pre, post, 96, 32, **kw)
+    ref = flow_field.JAXMaskedXCorrWithStatsCalculator(
+        device='cpu').flow_field(pre, post, 96, 32, **kw)
+    _masked_equal(torch.from_numpy(got), torch.from_numpy(ref))
+
+
+def test_warp_subvolume_matches_cpu(dev):
+  from sofima_tpu_torch import warp
+  from sofima_tpu_torch.utils.bounding_box import BoundingBox
+  n, s = 320, 20
+  img = np.clip(_texture(n, seed=10), 0, 255).astype(np.uint8)[None, None]
+  yy, xx = np.mgrid[:17, :17].astype(np.float32)
+  cmap = np.stack([3 * np.sin(yy / 3.0), 2 * np.cos(xx / 4.0) - 1])[:, None]
+  box = BoundingBox(start=(0, 0, 0), size=(n, n, 1))
+  mbox = BoundingBox(start=(0, 0, 0), size=(17, 17, 1))
+  before = _build.launch_counts['warp_subvolume']
+  got = warp.warp_subvolume(img, box, cmap, mbox, s, box)
+  assert _build.launch_counts['warp_subvolume'] == before + 1
+  ref = warp.warp_subvolume(img, box, cmap, mbox, s, box, device='cpu')
+  d = np.abs(got.astype(int) - ref.astype(int))
+  assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+  before = _build.launch_counts['ndimage_warp']
+  got = warp.ndimage_warp(img[0, 0], cmap[:, 0], (s, s), (128, 128), (16, 16))
+  assert _build.launch_counts['ndimage_warp'] > before
+  ref = warp.ndimage_warp(img[0, 0], cmap[:, 0], (s, s), (128, 128), (16, 16),
+                          device='cpu')
+  d = np.abs(got.astype(int) - ref.astype(int))
+  assert d.max() <= 1 and (d > 0).mean() <= 1e-3
