@@ -1728,15 +1728,17 @@ def library_slice(dev, report, _build) -> dict:
         f'{K6_PATCH}, s = ({STRIDE}, {STRIDE}) (the strip path)')
   k6_calls = {}
   with recorded_calls(k6_calls):
-    flow_field.dense_flow_field(pre_f, post_f, K6_PATCH, (STRIDE, STRIDE))
+    flow_field.dense_flow_field(pre_f, post_f, K6_PATCH, (STRIDE, STRIDE),
+                                circular=True)
   sync()
   _build.reset_launch_counts()
-  got = flow_field.dense_flow_field(pre_f, post_f, K6_PATCH, (STRIDE, STRIDE))
+  got = flow_field.dense_flow_field(pre_f, post_f, K6_PATCH, (STRIDE, STRIDE),
+                                    circular=True)
   sync()
   k6_launches = _build.launch_counts['patch_flow_peaks']
   with plain_kernels():
     ref6 = flow_field.dense_flow_field(pre_f, post_f, K6_PATCH,
-                                       (STRIDE, STRIDE))
+                                       (STRIDE, STRIDE), circular=True)
   k6 = compare_flow(got, ref6, 'K6')
   check(k6_launches > 0, 'K6 was not launched on the strip path')
   p1, p2 = K6_PATCH

@@ -401,12 +401,19 @@ def _dense_flow_starts(pre_image: torch.Tensor, post_image: torch.Tensor,
 
 
 def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
-                     patch_size, step, mean: float | None = None,
-                     min_distance: int = 2, threshold_rel: float = 0.5,
-                     peak_radius: int = 5, circular: bool = True,
-                     pre_mask=None, post_mask=None,
-                     batch_size: int = 1024) -> torch.Tensor:
+                     patch_size, step, batch_size: int = 1024,
+                     mean: float | None = None, min_distance: int = 2,
+                     threshold_rel: float = 0.5, peak_radius: int = 5,
+                     post_patch_size=None, circular: bool = False,
+                     dft_matmul: bool = False, bf16: bool = False,
+                     pre_mask=None, post_mask=None) -> torch.Tensor:
   """Flow over the full dense patch grid.
+
+  The reference's parameters, order and defaults. Only the circular
+  branches are ported: `circular=False` (the default, as in the
+  reference), a `post_patch_size` and `bf16=True` (the port correlates
+  in float32) raise NotImplementedError. `dft_matmul` picks a TPU
+  transform and is ignored.
 
   2d: [4, gy, gx] (x, y, sharpness, ratio). Square patches: kernel K1,
   or K5 when a mask is given (float32 correlation; any geometry).
@@ -416,10 +423,20 @@ def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
   K6, or with masks on the batch-rule Padfield twin. 3d: [5, gz, gy, gx]
   (x, y, z, sharpness, ratio), via the strip path (stride must divide
   the patch size). Masks are True (or > 0) where a pixel is invalid.
-  Only the circular branches are ported.
   """
+  del dft_matmul
   if not circular:
-    raise NotImplementedError('only circular dense flow is ported')
+    raise NotImplementedError(
+        'dense_flow_field: only circular=True is ported (the reference\'s '
+        'default, circular=False, pads each post patch; pass circular=True)')
+  if post_patch_size is not None:
+    raise NotImplementedError(
+        'dense_flow_field: post_patch_size is not ported (circular mode '
+        'correlates equal pre/post patches)')
+  if bf16:
+    raise NotImplementedError(
+        'dense_flow_field: bf16=True is not ported (the port correlates in '
+        'float32)')
   if tuple(pre_image.shape) != tuple(post_image.shape):
     raise ValueError('pre and post images must share a shape')
   if pre_image.ndim == 3:
@@ -528,8 +545,8 @@ def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
     coarse = dense_flow_field(pre_image, post_image, patch_size, coarse_step,
                               min_distance=min_distance,
                               threshold_rel=threshold_rel,
-                              peak_radius=peak_radius, pre_mask=pre_mask,
-                              post_mask=post_mask)
+                              peak_radius=peak_radius, circular=True,
+                              pre_mask=pre_mask, post_mask=post_mask)
     cx, cy = coarse[0], coarse[1]
 
   def robustify(c):
@@ -636,7 +653,7 @@ def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
   fine = dense_flow_field(
       fine_crop(pre_image), fine_crop(post_w), fine_patch, step,
       min_distance=min_distance, threshold_rel=threshold_rel,
-      peak_radius=peak_radius, pre_mask=fine_crop(pre_mask),
+      peak_radius=peak_radius, circular=True, pre_mask=fine_crop(pre_mask),
       post_mask=fine_crop(post_mask_w))
   fine_c = fine[:, k0y:k0y + gy, k0x:k0x + gx]
   # The applied (rounded) shift at each node center (py//2 + i sy, ...).
@@ -830,8 +847,8 @@ class JAXMaskedXCorrWithStatsCalculator:
         placement.place(pre_image, dev, torch.float32),
         placement.place(post_image, dev, torch.float32), patch_t, step_t,
         mean=self._mean, min_distance=int(self._min_distance),
-        peak_radius=int(self._peak_radius), pre_mask=masks[0],
-        post_mask=masks[1], batch_size=batch_size)
+        peak_radius=int(self._peak_radius), circular=True,
+        pre_mask=masks[0], post_mask=masks[1], batch_size=batch_size)
     result = out.cpu().numpy().copy()
     result[:, ~keep] = np.nan
     return result

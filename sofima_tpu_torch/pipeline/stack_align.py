@@ -118,7 +118,7 @@ def _flow_phase(sec_prev: torch.Tensor, sec_cur: torch.Tensor,
         prior_step=None if prior is None else (s, s),
         prior_origin=None if prior is None else (origin, origin))
   else:
-    f4 = flow_field.dense_flow_field(pre, post, (p, p), (s, s))
+    f4 = flow_field.dense_flow_field(pre, post, (p, p), (s, s), circular=True)
   clean = flow_utils.clean_flow_device(
       f4[:, None], cfg.min_peak_ratio, cfg.min_peak_sharpness,
       cfg.max_magnitude, cfg.max_deviation)

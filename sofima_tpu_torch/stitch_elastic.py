@@ -124,7 +124,8 @@ def compute_flow_map(tile_map: Mapping[TileXY, Any], offset_map: np.ndarray,
 
       f = flow_field.dense_flow_field(
           pre[tuple(pre_sel)].contiguous(), post[tuple(post_sel)].contiguous(),
-          tuple(int(p) for p in patch_size), tuple(int(s) for s in stride))
+          tuple(int(p) for p in patch_size), tuple(int(s) for s in stride),
+          circular=True)
       flows[(x, y)] = torch.nn.functional.pad(
           f, (pad_x, pad_x - 1, pad_y, pad_y - 1), value=float('nan'))
       offsets[(x, y)] = ((-overlap, ortho_offset) if axis == 0

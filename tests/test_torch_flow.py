@@ -6,6 +6,9 @@ interpret mode, as the JAX tests run them) and the port:
     strip path flow_field._dense_flow_strips (the JAX CPU coarse path);
   * K2 (dense_flow_peaks_targeted) with clipped offsets, peak_crop 32 and
     None, vs pallas_flow.dense_flow_peaks_targeted;
+  * dense_flow_field's signature: the reference's defaults raise
+    (circular=False is not ported), and circular=True with batch_size
+    passed by position matches flow_field.dense_flow_field;
   * coarse_to_fine_flow (flow and overflow flag; with a mask and with a
     prior too), the peak contract, clean_flow_device and the median
     filter.
@@ -75,7 +78,7 @@ class TestDenseFlowPeaks:
         None, 2, 0.5, 5, rows_per_step=2, dft_matmul=True,
         use_pallas=False))
     got = tff.dense_flow_field(_t(pre), _t(post), (160, 160),
-                               (step, step)).numpy()
+                               (step, step), circular=True).numpy()
     _assert_flow_equal(got, ref)
 
   def test_rectangular_image(self):
@@ -111,6 +114,41 @@ class TestDenseFlowPeaks:
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6,
                                equal_nan=True)
     assert got[3, 3] == 0.0 and np.isnan(got[1]).all()
+
+
+class TestDenseFlowFieldSignature:
+  """dense_flow_field takes the reference's parameters, order and defaults;
+  what the port does not implement raises instead of running another
+  algorithm."""
+
+  def _pair(self):
+    pre = _texture(128, seed=6)
+    return pre, np.roll(pre, (3, -5), (0, 1))
+
+  def test_reference_defaults_raise(self):
+    pre, post = self._pair()
+    ref = np.asarray(jff.dense_flow_field(jnp.asarray(pre), jnp.asarray(post),
+                                          (32, 32), (16, 16)))
+    assert ref.shape == (4, 7, 7) and np.isfinite(ref[:2]).any()
+    with pytest.raises(NotImplementedError, match='circular'):
+      tff.dense_flow_field(_t(pre), _t(post), (32, 32), (16, 16))
+
+  @pytest.mark.parametrize('kw', [dict(post_patch_size=(32, 32)),
+                                  dict(bf16=True)])
+  def test_unported_options_raise(self, kw):
+    pre, post = self._pair()
+    with pytest.raises(NotImplementedError):
+      tff.dense_flow_field(_t(pre), _t(post), (32, 32), (16, 16),
+                           circular=True, **kw)
+
+  def test_circular_with_positional_batch_size(self):
+    pre, post = self._pair()
+    ref = np.asarray(jff.dense_flow_field(jnp.asarray(pre), jnp.asarray(post),
+                                          (32, 32), (16, 16), 16,
+                                          circular=True))
+    got = tff.dense_flow_field(_t(pre), _t(post), (32, 32), (16, 16), 16,
+                               circular=True, dft_matmul=True).numpy()
+    _assert_flow_equal(got, ref)
 
 
 class TestTargetedFlowPeaks:

@@ -188,7 +188,7 @@ class TestMaskedStrips3d:
         jnp.asarray(vol), jnp.asarray(post), patch, step, None, 2, 0.5, 5,
         pre_mask=jnp.asarray(pre_mask), post_mask=jnp.asarray(post_mask)))
     got = tff.dense_flow_field(_t(vol), _t(post), patch, step,
-                               pre_mask=_t(pre_mask),
+                               circular=True, pre_mask=_t(pre_mask),
                                post_mask=_t(post_mask)).numpy()
     assert got.shape == ref.shape == (5, 3, 5, 7)
     np.testing.assert_array_equal(np.nan_to_num(got[:3], nan=9e9),

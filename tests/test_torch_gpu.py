@@ -454,8 +454,9 @@ def test_rectangular_dense_flow(dev):
   post = torch.roll(pre, (4, -6), (0, 1)).contiguous()
   for patch, step in (((160, 80), (40, 40)), ((96, 64), (40, 40))):
     got = flow_field.dense_flow_field(pre.to(dev), post.to(dev), patch, step,
-                                      batch_size=256)
-    ref = flow_field.dense_flow_field(pre, post, patch, step, batch_size=256)
+                                      batch_size=256, circular=True)
+    ref = flow_field.dense_flow_field(pre, post, patch, step, batch_size=256,
+                                      circular=True)
     _masked_equal(got.cpu(), ref)
 
 

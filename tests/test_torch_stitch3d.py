@@ -127,7 +127,7 @@ class TestPieces:
         jnp.asarray(pre), jnp.asarray(post), (16, 16, 16), (8, 8, 8),
         circular=True))
     got = tflow.dense_flow_field(_t(pre), _t(post), (16, 16, 16),
-                                 (8, 8, 8)).numpy()
+                                 (8, 8, 8), circular=True).numpy()
     assert got.shape == ref.shape == (5, 4, 5, 5)
     np.testing.assert_array_equal(np.nan_to_num(got[:3], nan=9e9),
                                   np.nan_to_num(ref[:3], nan=9e9))
