@@ -54,7 +54,14 @@ call that computes the same function):
     their plain versions on their inputs, and the render against the
     plain render; then K6 through the rectangular strip path (timed on
     that path's launches) and K7 on the first 30 grid rows of that
-    pair's p = 160 patches.
+    pair's p = 160 patches (beside the torch.fft chain), and at 256^2
+    (its global-scratch route) and 31 x 37.
+
+K4 is held against its plain version in all four methods at 10k^2 (the
+shared-memory branch: the share of staged tiles is printed) and on a
+field of random positions (every tile on the direct branch). The
+redesigned kernels (K4, K7, and K4's launches as K12 and K4p) carry
+their times before the redesign as `prior_ms` in the kernels line.
 
 Each path runs with the launch counters set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the
@@ -133,6 +140,20 @@ E2E_GATE = 1.5          # px: residual flow after alignment (and < 1/5
 K6_PATCH = (160, 80)    # K6 through the rectangular strip path
 K7_ROWS = 30            # grid rows of p = 160, s = 40 pairs held for K7
 SURFACE_TOL = 1e-3      # K7 vs plain, relative to each surface's max
+# K7 also at a size over the shared-memory route (three launches through
+# global scratch) and at a prime, rectangular size: (pairs, p1, p2).
+K7_EXTRA = ((64, 256, 256), (512, 31, 37))
+K4_METHODS = ('nearest', 'linear', 'cubic', 'lanczos')
+K4_RANDOM = 2048        # edge of K4's random-position field
+K12_REPS = 20           # timed calls per K12 box (kernel and grid_sample)
+# The redesigned kernels' times before the redesign (the dense-DFT K7
+# and the runtime-tap K4 gather, measured by this script on an H100
+# 80GB HBM3 at 700 W), reported beside the new ones.
+K7_PRIOR_MS = 115.8
+K4_PRIOR_MS = 7.149
+K4_PRIOR_MS_LINEAR = 1.446
+K12_PRIOR_MS = 3.025
+K4P_PRIOR_MS = 7.227
 MIN_PATCH = 4           # reconcile_flows' min_patch_size in path (f)
 HOLE_SHARE = 0.45       # nodes dropped from a copy of path (f)'s 1x flow,
                         # leaving islands for the component pruning
@@ -416,9 +437,12 @@ def stack_slice(dev, report, _build) -> dict:
         f'{report["K3"]["plain_ms"]:.3f} ms, bound '
         f'{report["K3"]["bound_ms"]:.3f} ms')
 
-  # K4: a 10k^2 Lanczos render through a ~100 px displacement; the same
-  # coordinates rendered bilinear by K4 and by grid_sample.
-  print('K4 warp_gather, 10k^2 Lanczos')
+  # K4: a 10k^2 render through a ~100 px displacement, each method against
+  # its plain version; the bilinear render also by grid_sample. The kernel
+  # stages every warp tile's source window in shared memory on this
+  # smooth field; a field of random positions makes every tile gather
+  # from global memory.
+  print('K4 warp_gather, 10k^2, all four methods')
   node = torch.arange(g + 1, dtype=torch.float32, device=dev) * STRIDE
   disp = torch.stack([
       100.3 + 5.0 * torch.sin(node[None, :] / 900.0).expand(g + 1, g + 1),
@@ -429,15 +453,34 @@ def stack_slice(dev, report, _build) -> dict:
   coords = coords[None].contiguous()
   del dense
   img = tex[None].contiguous()
-  k4 = lambda: cuda_warp.shift_warp(img, coords, 'lanczos')
-  err = float((k4() - cuda_warp.shift_warp_plain(img, coords, 'lanczos'))
-              .abs().max())
-  print(f'  max |diff| {err:.3g} gray levels')
-  check(err < RENDER_TOL, f'K4 differs from the plain render by {err}')
-  k4l = lambda: cuda_warp.shift_warp(img, coords, 'linear')
-  err_l = float((k4l() - cuda_warp.shift_warp_plain(img, coords, 'linear'))
-                .abs().max())
-  check(err_l < RENDER_TOL, f'K4 (linear) differs from plain by {err_l}')
+  k4 = {m: (lambda m=m: cuda_warp.shift_warp(img, coords, m))
+        for m in K4_METHODS}
+  errs = {m: float((k4[m]() - cuda_warp.shift_warp_plain(img, coords, m))
+                   .abs().max()) for m in K4_METHODS}
+  for m in K4_METHODS:
+    check(errs[m] < RENDER_TOL, f'K4 ({m}) differs from plain by {errs[m]}')
+  stats = torch.zeros(2, dtype=torch.int32, device=dev)
+  cuda_warp.shift_warp(img, coords, 'lanczos', tile_stats=stats)
+  staged, tiles = stats.tolist()
+  # Random positions (the direct branch): 2048^2 outputs over the image.
+  rc = torch.from_numpy(np.random.RandomState(SEED + 2).rand(
+      1, 2, K4_RANDOM, K4_RANDOM).astype(np.float32) * N).to(dev)
+  errs_rand = {}
+  for m in K4_METHODS:
+    stats.zero_()
+    got = cuda_warp.shift_warp(img, rc, m, tile_stats=stats)
+    errs_rand[m] = float((got - cuda_warp.shift_warp_plain(img, rc, m))
+                         .abs().max())
+    check(errs_rand[m] < RENDER_TOL,
+          f'K4 ({m}, random) differs from plain by {errs_rand[m]}')
+    check(stats[0].item() == 0 and stats[1].item() > 0,
+          f'K4 ({m}, random) staged {stats.tolist()}')
+  del rc, got
+  print('  max |diff| vs plain, gray levels: ' + ', '.join(
+      f'{m} {errs[m]:.3g}' for m in K4_METHODS) + f' (bar {RENDER_TOL}); '
+      f'{staged} of {tiles} warp tiles staged (Lanczos)')
+  print(f'  random positions ({K4_RANDOM}^2, every tile direct): ' + ', '.join(
+      f'{m} {errs_rand[m]:.3g}' for m in K4_METHODS))
   # The library call computes the bilinear render: grid_sample with zero
   # padding and align_corners=True on normalized (x, y) coordinates.
   grid = torch.stack([coords[0, 1] * (2.0 / (N - 1)) - 1.0,
@@ -445,19 +488,30 @@ def stack_slice(dev, report, _build) -> dict:
   lib = lambda: torch.nn.functional.grid_sample(
       img[None], grid, mode='bilinear', padding_mode='zeros',
       align_corners=True)
-  lib_err = float((lib()[0, 0] - k4l()[0]).abs().max())
-  report['K4'] = dict(err=err, ms=cuda_ms(k4), plain_ms=wall_ms(
+  lib_err = float((lib()[0, 0] - k4['linear']()[0]).abs().max())
+  ms4 = {m: cuda_ms(k4[m]) for m in K4_METHODS}
+  report['K4'] = dict(err=errs['lanczos'], ms=ms4['lanczos'],
+                      prior_ms=K4_PRIOR_MS, plain_ms=wall_ms(
       lambda: cuda_warp.shift_warp_plain(img, coords, 'lanczos')),
-                      ms_linear=cuda_ms(k4l), max_abs_err_linear=err_l,
+                      ms_linear=ms4['linear'],
+                      prior_ms_linear=K4_PRIOR_MS_LINEAR,
+                      ms_nearest=ms4['nearest'], ms_cubic=ms4['cubic'],
+                      max_abs_err_by_method=errs,
+                      max_abs_err_random=errs_rand,
+                      staged_tiles=staged, tiles=tiles,
+                      staged_share=staged / max(tiles, 1),
                       library_ms=cuda_ms(lib), library_max_abs_diff=lib_err,
+                      bound_ms_linear=least_time(
+                          16 * N * N, LINEAR_FLOPS_PX * N * N)['bound_ms'],
                       **least_time(16 * N * N, LANCZOS_FLOPS_PX * N * N))
-  print(f'  kernel {report["K4"]["ms"]:.3f} ms (bilinear '
-        f'{report["K4"]["ms_linear"]:.3f} ms), plain '
-        f'{report["K4"]["plain_ms"]:.3f} ms, bound '
-        f'{report["K4"]["bound_ms"]:.3f} ms, grid_sample (bilinear) '
-        f'{report["K4"]["library_ms"]:.3f} ms, |K4 - grid_sample| '
-        f'{lib_err:.3g}')
-  del coords, img, grid
+  r4 = report['K4']
+  print(f'  kernel: Lanczos {r4["ms"]:.3f} ms (before {K4_PRIOR_MS}), bilinear '
+        f'{r4["ms_linear"]:.3f} ms (before {K4_PRIOR_MS_LINEAR}), nearest '
+        f'{r4["ms_nearest"]:.3f}, cubic {r4["ms_cubic"]:.3f}; plain '
+        f'{r4["plain_ms"]:.3f} ms; bound {r4["bound_ms"]:.3f} ms (bilinear '
+        f'{r4["bound_ms_linear"]:.3f}); grid_sample (bilinear) '
+        f'{r4["library_ms"]:.3f} ms, |K4 - grid_sample| {lib_err:.3g}')
+  del coords, img, grid, k4
 
   # K5: bench.py's flow_masked stage, the dense masked grid (p = 160,
   # s = 40) with its tissue mask on both planes.
@@ -1650,13 +1704,15 @@ def library_slice(dev, report, _build) -> dict:
   err = max(float((cuda_warp.shift_warp(*a) - shift_warp_plain(*a)).abs()
                   .max()) for a in k4p_in)
   px = coords.shape[-1] * coords.shape[-2]
-  report['K4p'] = dict(err=err, ms=cuda_ms(k4p), plain_ms=wall_ms(k4p_plain),
+  report['K4p'] = dict(err=err, ms=cuda_ms(k4p), prior_ms=K4P_PRIOR_MS,
+                       plain_ms=wall_ms(k4p_plain),
                        library_ms=None, calls=len(k4p_in),
                        **least_time(16 * px, LANCZOS_FLOPS_PX * px))
   print(f'  K4p (warp_subvolume\'s K4 launch, {list(coords.shape)}, '
         f'{method}): max |diff| {err:.3g} (bar {RENDER_TOL}); kernel '
-        f'{report["K4p"]["ms"]:.3f} ms, plain {report["K4p"]["plain_ms"]:.1f}'
-        f' ms, bound {report["K4p"]["bound_ms"]:.3f} ms')
+        f'{report["K4p"]["ms"]:.3f} ms (before {K4P_PRIOR_MS}), plain '
+        f'{report["K4p"]["plain_ms"]:.1f} ms, bound '
+        f'{report["K4p"]["bound_ms"]:.3f} ms')
   check(err < RENDER_TOL, f'K4p differs from the plain render by {err}')
   del img, coords, k4p_in
 
@@ -1667,21 +1723,25 @@ def library_slice(dev, report, _build) -> dict:
   for im, cd, meth in k12_in:
     err = max(err, float((cuda_warp.shift_warp(im, cd, meth)
                           - shift_warp_plain(im, cd, meth)).abs().max()))
-    ms += cuda_ms(lambda: cuda_warp.shift_warp(im, cd, meth))
+    # A box renders in ~40 us, about the host's time to issue one call:
+    # K12_REPS calls per timing keep the first call's issue time (which
+    # the events include) from weighing on the kernel or the library.
+    ms += cuda_ms(lambda: cuda_warp.shift_warp(im, cd, meth), K12_REPS)
     plain += wall_ms(lambda: shift_warp_plain(im, cd, meth))
     h, w = im.shape[-2:]
     grid = torch.stack([cd[0, 1] * (2.0 / (w - 1)) - 1.0,
                         cd[0, 0] * (2.0 / (h - 1)) - 1.0], dim=-1)[None]
     lib += cuda_ms(lambda: torch.nn.functional.grid_sample(
         im[None], grid, mode='bilinear', padding_mode='zeros',
-        align_corners=True))
+        align_corners=True), K12_REPS)
     px += cd.shape[-1] * cd.shape[-2]
-  report['K12'] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                       boxes=len(k12_in),
+  report['K12'] = dict(err=err, ms=ms, prior_ms=K12_PRIOR_MS, plain_ms=plain,
+                       library_ms=lib, boxes=len(k12_in),
                        **least_time(4 * N * N + 12 * px, LINEAR_FLOPS_PX * px))
   print(f'  K12 (ndimage_warp\'s K4 launches, {len(k12_in)} boxes of '
-        f'<= {ND_WORK}^2, linear): max |diff| {err:.3g}; kernel {ms:.3f} ms, '
-        f'plain {plain:.1f} ms, bound {report["K12"]["bound_ms"]:.3f} ms, '
+        f'<= {ND_WORK}^2, linear): max |diff| {err:.3g}; kernel {ms:.3f} ms '
+        f'(before {K12_PRIOR_MS}), plain {plain:.1f} ms, bound '
+        f'{report["K12"]["bound_ms"]:.3f} ms, '
         f'grid_sample {lib:.3f} ms (all boxes)')
   check(err < RENDER_TOL, f'K12 differs from the plain render by {err}')
   del calls, k12_in
@@ -1795,19 +1855,47 @@ def library_slice(dev, report, _build) -> dict:
   lib_err = float((lib7() - got).abs().max())
   report['K7'] = dict(err=err, max_rel_err=rel,
                       ms=cuda_ms(lambda: cuda_flow.corr_patches(a, b)),
+                      prior_ms=K7_PRIOR_MS,
                       plain_ms=wall_ms(
                           lambda: cuda_flow.corr_patches_plain(a, b)),
                       library_ms=cuda_ms(lib7),
                       library='torch.fft rfft2 * conj(rfft2) -> irfft2 -> roll',
                       library_max_abs_diff=lib_err, pairs=n7,
                       **least_time(3 * n7 * p * p * 4, n7 * xcorr_flops(p)))
-  print(f'  kernel {report["K7"]["ms"]:.3f} ms, plain '
+  print(f'  kernel {report["K7"]["ms"]:.3f} ms (before {K7_PRIOR_MS}), plain '
         f'{report["K7"]["plain_ms"]:.1f} ms, bound '
         f'{report["K7"]["bound_ms"]:.3f} ms ({report["K7"]["bound_by"]}), '
-        f'torch.fft chain {report["K7"]["library_ms"]:.3f} ms (|diff| '
-        f'{lib_err:.3g})')
+        f'torch.fft chain {report["K7"]["library_ms"]:.3f} ms (library_max'
+        f'_abs_diff {lib_err:.3g})')
   check(k7_launches == 1, 'K7 launches')
-  del a, b, got, pre_f, post_f, pre, post
+  del a, b, got
+
+  # K7 over the shared-memory budget (three launches through global
+  # scratch) and at a prime, rectangular size, against its plain version.
+  extra = {}
+  for n_x, q1, q2 in K7_EXTRA:
+    rows = q1 + 2 * STRIDE
+    a, b = cut(pre_f, rows, q1, q2)[:n_x], cut(post_f, rows, q1, q2)[:n_x]
+    check(a.shape[0] == n_x, f'K7 extra: {a.shape[0]} pairs of {q1} x {q2}')
+    got = cuda_flow.corr_patches(a, b)
+    check(same_bits(got, cuda_flow.corr_patches(a, b)),
+          f'K7 ({q1} x {q2}) does not repeat bit for bit')
+    ref7 = cuda_flow.corr_patches_plain(a, b)
+    rel_x = float(((got - ref7).abs().amax(dim=(1, 2))
+                   / ref7.abs().amax(dim=(1, 2)).clamp(min=1e-30)).max())
+    check(rel_x < SURFACE_TOL,
+          f'K7 ({q1} x {q2}) differs from plain by {rel_x} (relative)')
+    route = 'scratch' if int(_build.library().corr_fft_smem_bytes(
+        q1, q2)) > cuda_flow._MAX_SMEM_BYTES else 'shared'
+    extra[f'{q1}x{q2}'] = dict(
+        pairs=n_x, route=route, max_rel_err=rel_x,
+        ms=cuda_ms(lambda: cuda_flow.corr_patches(a, b)))
+    print(f'  {n_x} pairs of {q1} x {q2} ({route} route): {rel_x:.3g} of '
+          f'each surface\'s max, repeats bit for bit; kernel '
+          f'{extra[f"{q1}x{q2}"]["ms"]:.3f} ms')
+    del a, b, got, ref7
+  report['K7']['extra_sizes'] = extra
+  del pre_f, post_f, pre, post
   torch.cuda.empty_cache()
   print(f'  phase {time.perf_counter() - t_phase:.1f} s')
   return dict(patch_flow_peaks=k6_launches, corr_patches=k7_launches,
@@ -1869,7 +1957,7 @@ def main() -> int:
        'sofima_tpu/ops/pallas_warp.py:692'),
       ('K6', 'patch_flow_peaks', 'sofima_tpu_torch/csrc/patch_corr.cu',
        'sofima_tpu/ops/pallas_flow.py:202'),
-      ('K7', 'corr_patches', 'sofima_tpu_torch/csrc/patch_corr.cu',
+      ('K7', 'corr_patches', 'sofima_tpu_torch/csrc/corr_fft.cu',
        'sofima_tpu/ops/pallas_flow.py:75'),
       ('K12', 'ndimage_warp', 'sofima_tpu_torch/csrc/warp.cu',
        'sofima_tpu/ops/pallas_warp.py:60'),

@@ -1,29 +1,27 @@
-// Circular cross-correlation of pre-cut patch pairs: the peak statistics
-// (K6) or the centred surfaces (K7), one thread block per patch pair.
+// K6: peak statistics of the circular cross-correlation of pre-cut patch
+// pairs, one thread block per patch pair.
 //
-// Replaces (sofima_tpu/ops/pallas_flow.py):
-//   * _corr_peaks_kernel (flow_peaks_pallas, K6): [n, p1, p2] pairs ->
-//     [n, 4] rows (x, y, sharpness, ratio), the 2d strip path's kernel;
-//   * _corr_kernel (corr_patches_pallas, K7): [n, p1, p2] pairs ->
-//     [n, p1, p2] surfaces with the zero shift at (p1/2, p2/2).
-// One templated body serves both (kPeaks); K6 ends in the peak chain of
-// flow_peaks.cuh, shared with K1/K2/K5.
+// Replaces sofima_tpu/ops/pallas_flow.py `_corr_peaks_kernel`
+// (`flow_peaks_pallas`): [n, p1, p2] pairs -> [n, 4] rows (x, y,
+// sharpness, ratio), the 2d strip path's kernel. It ends in the peak chain
+// of flow_peaks.cuh, shared with K1/K2/K5. (K7, the centred surfaces, runs
+// on the shared-memory FFT in corr_fft.cu; moving this body onto it is
+// queued.)
 //
 // The function: per pair, remove each patch's mean (or a constant), form
 // irfft2(F(a) conj(F(b))) on the p1 x p2 torus, roll the zero shift to
-// the centre. Patches may be rectangular, so the two axes take their own
-// DFT tables: tab2 (length p2) for the half-spectrum row transforms, tab1
-// (length p1) for the full column transforms.
+// the centre, then the peak chain. Patches may be rectangular, so the two
+// axes take their own DFT tables: tab2 (length p2) for the half-spectrum
+// row transforms, tab1 (length p1) for the full column transforms.
 //
 // What bounds it on the H100: the transforms' multiply-adds, done here as
 // plain f32 FMA loops (~8 p1 p2 (p1 + p2) / 2 per pair against the FFT's
 // ~7.5 p1 p2 log2(p1 p2)), out of shared memory where the working set
 // fits (p1 = p2 = 32: 20 KB) and otherwise out of a per-block slice of
-// global scratch, as K1 does at p = 160 (517 KB per block; a persistent
-// grid of 4 blocks per SM). Each pair's patches are contiguous in the
-// batch, so the block reads them coalesced; K6 writes 16 bytes per pair,
-// K7 the whole surface. No tensor cores yet: this first port is simple
-// and exact, as K1's.
+// global scratch, as K1 does at p = 160 (160 x 80: 261 KB per block; a
+// persistent grid of 4 blocks per SM). Each pair's patches are contiguous
+// in the batch, so the block reads them coalesced and writes 16 bytes per
+// pair. No tensor cores: this first port is simple and exact, as K1's.
 
 #include "flow_peaks.cuh"
 
@@ -31,7 +29,6 @@ namespace {
 
 // tab1c[j * p1 + k] = cos(2 pi jk / p1), tab1s likewise with sin; tab2 the
 // same for p2.
-template <bool kPeaks>
 __global__ void __launch_bounds__(kThreads)
 patch_corr_kernel(const float* __restrict__ pre, const float* __restrict__ post,
                   int n, int p1, int p2, const float* __restrict__ tab1c,
@@ -50,7 +47,7 @@ patch_corr_kernel(const float* __restrict__ pre, const float* __restrict__ post,
   const int tid = threadIdx.x, nt = blockDim.x;
   float* base = scratch ? scratch + (int64_t)blockIdx.x * per_block : smem;
   // Region 0: the two patches, later the cross power, the column-inverse
-  // spectrum and (K6) the centred surface.
+  // spectrum and the centred surface.
   float* pa = base;
   float* pb = pa + area;
   float* cr = base;
@@ -148,7 +145,6 @@ patch_corr_kernel(const float* __restrict__ pre, const float* __restrict__ post,
 
     // 5. Hermitian row inverse; output column c is unshifted column
     //    (c - p2/2) mod p2.
-    float* dst = kPeaks ? corr : out + (int64_t)pidx * area;
     for (int e = tid; e < area; e += nt) {
       const int r = e / p2, c = e - r * p2;
       const int xc = (c - p2 / 2 + p2) % p2;
@@ -159,16 +155,14 @@ patch_corr_kernel(const float* __restrict__ pre, const float* __restrict__ post,
         const float sn = __ldg(tab2s + k * p2 + xc);
         acc += gr[r * h2 + k] * (alpha * cs) - gi[r * h2 + k] * (alpha * sn);
       }
-      dst[e] = acc / (float)p2;
+      corr[e] = acc / (float)p2;
     }
     __syncthreads();
 
-    // 6. K6: the peak chain on the centred surface (flow_peaks.cuh).
-    if (kPeaks) {
-      peak_chain(corr, p1, p2, min_distance, threshold_rel, peak_radius, out,
-                 (int64_t)n, pidx, redf, redi, redf2);
-      __syncthreads();
-    }
+    // 6. The peak chain on the centred surface (flow_peaks.cuh).
+    peak_chain(corr, p1, p2, min_distance, threshold_rel, peak_radius, out,
+               (int64_t)n, pidx, redf, redi, redf2);
+    __syncthreads();
   }
 }
 
@@ -177,31 +171,30 @@ patch_corr_kernel(const float* __restrict__ pre, const float* __restrict__ post,
 extern "C" {
 
 // Floats of per-block working memory, and the offset of region 1.
-int64_t patch_corr_region0(int p1, int p2, int peaks) {
+int64_t patch_corr_region0(int p1, int p2) {
   const int64_t h2 = p2 / 2 + 1;
   const int64_t a = 2LL * p1 * p2;
-  const int64_t b = 4LL * p1 * h2 + (peaks ? (int64_t)p1 * p2 : 0);
+  const int64_t b = 4LL * p1 * h2 + (int64_t)p1 * p2;
   return a > b ? a : b;
 }
 
-int64_t patch_corr_per_block(int p1, int p2, int peaks) {
-  return patch_corr_region0(p1, p2, peaks) + 4LL * p1 * (p2 / 2 + 1);
+int64_t patch_corr_per_block(int p1, int p2) {
+  return patch_corr_region0(p1, p2) + 4LL * p1 * (p2 / 2 + 1);
 }
 
-// Launches K6 (peaks != 0: out is [4, n], channel-major) or K7 (out is
-// [n, p1, p2]) on `stream`. `scratch` NULL keeps each block's working set
-// in dynamic shared memory; otherwise it is nblocks * per_block floats of
-// global memory. Returns cudaGetLastError().
+// Launches K6 on `stream`; out is [4, n], channel-major. `scratch` NULL
+// keeps each block's working set in dynamic shared memory; otherwise it is
+// nblocks * per_block floats of global memory. Returns cudaGetLastError().
 int patch_corr_launch(const float* pre, const float* post, int n, int p1,
                       int p2, const float* tab1c, const float* tab1s,
-                      const float* tab2c, const float* tab2s, int peaks,
+                      const float* tab2c, const float* tab2s,
                       int subtract_mean, float mean_value, int min_distance,
                       float threshold_rel, int peak_radius, float* scratch,
                       int nblocks, float* out, void* stream) {
-  const int64_t per_block = patch_corr_per_block(p1, p2, peaks);
-  const int64_t region0 = patch_corr_region0(p1, p2, peaks);
+  const int64_t per_block = patch_corr_per_block(p1, p2);
+  const int64_t region0 = patch_corr_region0(p1, p2);
   size_t smem = 0;
-  auto kernel = peaks ? patch_corr_kernel<true> : patch_corr_kernel<false>;
+  auto kernel = patch_corr_kernel;
   if (scratch == nullptr) {
     smem = (size_t)per_block * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(

@@ -87,6 +87,8 @@ def _nvcc() -> str:
 def library() -> ctypes.CDLL:
   """Builds (once per source hash) and loads the kernel library."""
   global _lib, build_seconds, build_log
+  if _lib is not None:  # loaded: no lock on the launch path
+    return _lib
   with _lock:
     if _lib is not None:
       return _lib
@@ -147,7 +149,10 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-  return torch.cuda.current_stream(t.device).cuda_stream
+  """The current stream of t's card, as a raw handle. The C hook returns
+  it directly: torch.cuda.current_stream builds a Stream object, a
+  third of a small launch's host time."""
+  return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor,

@@ -15,10 +15,12 @@ peak chain (csrc/flow_peaks.cuh); its denominator tolerance is per patch
 
 K6 (`flow_peaks`, Pallas `flow_peaks_pallas` / `_corr_peaks_kernel`)
 and K7 (`corr_patches`, `corr_patches_pallas` / `_corr_kernel`) take
-pre-cut [n, p1, p2] patch batches, rectangular allowed, and launch one
-templated kernel in csrc/patch_corr.cu: K6 writes the [n, 4] peak rows
-(the 2d strip path's and the start-list path's correlation), K7 the
-[n, p1, p2] centred surfaces.
+pre-cut [n, p1, p2] patch batches, rectangular allowed. K6
+(csrc/patch_corr.cu) writes the [n, 4] peak rows (the 2d strip path's
+and the start-list path's correlation) from a dense DFT; K7
+(csrc/corr_fft.cu) writes the [n, p1, p2] centred surfaces from the
+shared-memory mixed-radix FFT of csrc/fft_smem.cuh, whose plan and
+tables `_fft_axis_np` builds here.
 
 For every patch pair on the grid (pre at (i*sy, j*sx), post at the same
 position plus its offset, zeros outside the image) the kernel removes
@@ -49,6 +51,8 @@ _PLAIN_CHUNK = 512
 # (of the H100's 227 KB, less the static reduction arrays); above it each
 # block works in global scratch instead.
 _MAX_SMEM_BYTES = 226 * 1024
+# K7's global scratch (complex [pairs, p1, p2]) per launch, at most.
+_K7_SCRATCH_BYTES = 1 << 30
 
 
 def targeted_geometry(shape, patch_size, step, group=None, rows=None):
@@ -83,6 +87,78 @@ def _dft_tables_np(p: int):
   jk = np.outer(np.arange(p), np.arange(p)) % p
   ang = 2.0 * np.pi * jk / p
   return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+# Longest axis K7's FFT takes (csrc/fft_smem.cuh kMaxLength).
+_FFT_MAX_LENGTH = 2048
+
+
+def _fft_radices(n: int) -> list[int]:
+  """K7's factorization of n in DIF order: 8s, then a 4 or 2, then 5s, 3s
+  and the other primes (each a generic stage in the kernel)."""
+  rs, e2 = [], 0
+  while n % 2 == 0:
+    n //= 2
+    e2 += 1
+  rs += [8] * (e2 // 3) + {0: [], 1: [2], 2: [4]}[e2 % 3]
+  p = 5
+  while n > 1:
+    while n % p == 0:
+      rs.append(p)
+      n //= p
+    p = 3 if p == 5 else (7 if p == 3 else p + 2)
+  return rs
+
+
+@functools.lru_cache(maxsize=16)
+def _fft_axis_np(n: int):
+  """Plan and tables of one axis of K7's FFT (csrc/fft_smem.cuh).
+
+  Returns (radices, tw, root, inv, src, outpos): DIF stage s of radix r
+  and stride m = L / r on sub-transforms of length L has twiddles
+  tw[off + (t - 1) m + j] = w_L^{jt} (w_L = e^{-2 pi i / L}; float64
+  rounded to float32; padded to n entries); root[e] = w_n^e; after the
+  DIF stages position q holds frequency rev[q] (the digits of q read in
+  reverse radix order), and `inv` is rev's inverse; src[c] =
+  inv[(c - n//2) mod n] and outpos[q] = (rev[q] + n//2) mod n fold the
+  centring roll into the surface store.
+  """
+  rs = _fft_radices(n)
+  tw = np.ones(n, np.complex128)
+  rev = np.zeros(n, np.int64)
+  ell, off, mult = n, 0, 1
+  q = np.arange(n)
+  for r in rs:
+    m = ell // r
+    t, j = np.meshgrid(np.arange(1, r), np.arange(m), indexing='ij')
+    tw[off:off + (r - 1) * m] = np.exp(-2j * np.pi * (j * t) / ell).ravel()
+    rev += ((q // m) % r) * mult
+    off += (r - 1) * m
+    mult *= r
+    ell = m
+  root = np.exp(-2j * np.pi * np.arange(n) / n)
+  inv = np.argsort(rev)
+  src = inv[(np.arange(n) - n // 2) % n]
+  outpos = (rev + n // 2) % n
+
+  def f32(c):
+    return np.stack([c.real, c.imag], -1).astype(np.float32)
+
+  return (rs, f32(tw), f32(root), inv.astype(np.int32), src.astype(np.int32),
+          outpos.astype(np.int32))
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_tables(p1: int, p2: int, device: str):
+  """K7's launch tables for p1 x p2 pairs: the radices (host int32: nst1,
+  r..., nst2, r...), the twiddles tw1 | root1 | tw2 | root2 and the
+  indices inv1 | src1 | outpos1 | inv2 | src2 | outpos2 on `device`."""
+  a1, a2 = _fft_axis_np(p1), _fft_axis_np(p2)
+  radices = np.array([len(a1[0]), *a1[0], len(a2[0]), *a2[0]], np.int32)
+  tabs = np.concatenate([a1[1], a1[2], a2[1], a2[2]])
+  idx = np.concatenate([a1[3], a1[4], a1[5], a2[3], a2[4], a2[5]])
+  return (radices, torch.from_numpy(tabs).to(device),
+          torch.from_numpy(idx).to(device))
 
 
 @functools.lru_cache(maxsize=8)
@@ -627,16 +703,16 @@ def patch_flow_peaks_plain(pre_b: torch.Tensor, post_b: torch.Tensor,
       (0, 4), dtype=torch.float32, device=pre.device)
 
 
-def _launch_patches(pre, post, peaks: bool, mean, min_distance,
-                    threshold_rel, peak_radius, counter):
-  _build.require_cuda(counter, pre, post)
+def _launch_patch_peaks(pre, post, mean, min_distance, threshold_rel,
+                        peak_radius):
+  _build.require_cuda('patch_flow_peaks', pre, post)
   lib = _build.library()
-  lib.patch_corr_per_block.argtypes = [ctypes.c_int] * 3
+  lib.patch_corr_per_block.argtypes = [ctypes.c_int] * 2
   lib.patch_corr_per_block.restype = ctypes.c_int64
   fn = lib.patch_corr_launch
   fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                  + [ctypes.c_void_p] * 4
-                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
   fn.restype = ctypes.c_int
@@ -644,11 +720,10 @@ def _launch_patches(pre, post, peaks: bool, mean, min_distance,
   dev = pre.device
   t1c, t1s = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p1))
   t2c, t2s = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p2))
-  out = torch.empty((4, n) if peaks else (n, p1, p2), dtype=torch.float32,
-                    device=dev)
+  out = torch.empty((4, n), dtype=torch.float32, device=dev)
   if n == 0:
-    return out.T if peaks else out
-  per_block = int(lib.patch_corr_per_block(p1, p2, int(peaks)))
+    return out.T
+  per_block = int(lib.patch_corr_per_block(p1, p2))
   scratch = None
   if per_block * 4 <= _MAX_SMEM_BYTES:
     nblocks = n
@@ -658,13 +733,13 @@ def _launch_patches(pre, post, peaks: bool, mean, min_distance,
     scratch = torch.empty((nblocks, per_block), dtype=torch.float32,
                           device=dev)
   rc = fn(pre.data_ptr(), post.data_ptr(), n, p1, p2, t1c.data_ptr(),
-          t1s.data_ptr(), t2c.data_ptr(), t2s.data_ptr(), int(peaks),
+          t1s.data_ptr(), t2c.data_ptr(), t2s.data_ptr(),
           int(mean is None), float(mean or 0.0), int(min_distance),
           float(threshold_rel), int(peak_radius), _build.ptr(scratch),
           nblocks, out.data_ptr(), _build.stream_of(pre))
-  _build.launch_counts[counter] += 1
-  _build.check(rc, counter)
-  return out.T if peaks else out
+  _build.launch_counts['patch_flow_peaks'] += 1
+  _build.check(rc, 'patch_flow_peaks')
+  return out.T
 
 
 def flow_peaks(pre_b: torch.Tensor, post_b: torch.Tensor,
@@ -682,18 +757,53 @@ def flow_peaks(pre_b: torch.Tensor, post_b: torch.Tensor,
   if pre.device.type == 'cpu':
     return patch_flow_peaks_plain(pre, post, mean, min_distance,
                                   threshold_rel, peak_radius)
-  return _launch_patches(pre, post, True, mean, min_distance, threshold_rel,
-                         peak_radius, 'patch_flow_peaks')
+  return _launch_patch_peaks(pre, post, mean, min_distance, threshold_rel,
+                             peak_radius)
 
 
 def corr_patches(pre_b: torch.Tensor, post_b: torch.Tensor,
                  mean: float | None = None) -> torch.Tensor:
   """K7: centred circular xcorr surfaces of pre-cut patch pairs.
 
-  [n, p1, p2] batches in, [n, p1, p2] float32 out, the zero shift at
-  (p1//2, p2//2), each patch's mean (or the constant `mean`) removed.
+  [n, p1, p2] batches in (p1, p2 <= 2048), [n, p1, p2] float32 out, the
+  zero shift at (p1//2, p2//2), each patch's mean (or the constant
+  `mean`) removed. On the card: one launch with each pair's working set
+  in shared memory where it fits (`corr_fft_smem_bytes` <= 226 KB, e.g.
+  160^2), else three launches through a global scratch buffer, in
+  chunks of pairs of at most _K7_SCRATCH_BYTES.
   """
   pre, post = _patch_batches(pre_b, post_b)
   if pre.device.type == 'cpu':
     return corr_patches_plain(pre, post, mean)
-  return _launch_patches(pre, post, False, mean, 2, 0.5, 5, 'corr_patches')
+  _build.require_cuda('corr_patches', pre, post)
+  n, p1, p2 = pre.shape
+  if max(p1, p2) > _FFT_MAX_LENGTH:
+    raise ValueError(f'corr_patches: patch axes up to {_FFT_MAX_LENGTH}, '
+                     f'got {p1} x {p2}')
+  lib = _build.library()
+  fn = lib.corr_fft_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the objects
+    lib.corr_fft_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.corr_fft_smem_bytes.restype = ctypes.c_int64
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+  radices, tabs, idx = _fft_tables(p1, p2, str(pre.device))
+  out = torch.empty((n, p1, p2), dtype=torch.float32, device=pre.device)
+  if n == 0:
+    return out
+  chunk, scratch = n, None
+  if int(lib.corr_fft_smem_bytes(p1, p2)) > _MAX_SMEM_BYTES:
+    chunk = max(1, min(n, _K7_SCRATCH_BYTES // (8 * p1 * p2)))
+    scratch = torch.empty((chunk, p1, p2, 2), dtype=torch.float32,
+                          device=pre.device)
+  for c in range(0, n, chunk):
+    m = min(chunk, n - c)
+    rc = fn(pre[c].data_ptr(), post[c].data_ptr(), m, p1, p2,
+            radices.ctypes.data, tabs.data_ptr(), idx.data_ptr(),
+            int(mean is None), float(mean or 0.0), _build.ptr(scratch),
+            out[c].data_ptr(), _build.stream_of(pre))
+    _build.launch_counts['corr_patches'] += 1
+    _build.check(rc, 'corr_patches')
+  return out

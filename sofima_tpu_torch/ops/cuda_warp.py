@@ -93,14 +93,19 @@ def shift_warp_plain(images: torch.Tensor, coords: torch.Tensor,
 
 
 def shift_warp(images: torch.Tensor, coords: torch.Tensor,
-               method: str = 'lanczos',
-               counter: str = 'warp_gather') -> torch.Tensor:
+               method: str = 'lanczos', counter: str = 'warp_gather',
+               tile_stats: torch.Tensor | None = None) -> torch.Tensor:
   """Resamples [z, h, w] images at [z, 2, oy, ox] (y, x) coords.
 
-  CPU tensors take the plain version; CUDA tensors launch the kernel and
+  CPU tensors take the plain version; CUDA tensors launch the kernel (one
+  instantiation per method; each warp renders a 32-column tile, from its
+  source window staged in shared memory when that window is compact) and
   count the launch under `counter` ('warp_subvolume' and 'ndimage_warp'
   tell the library API's renders, the reference's K4p and K12, from the
-  pipelines' K4). Returns [z, oy, ox] float32.
+  pipelines' K4). `tile_stats`, an int32 CUDA tensor of two elements,
+  gains the number of tiles that took the staged branch and the number
+  of tiles with any tap. Planes below 2^31 pixels on the card. Returns
+  [z, oy, ox] float32.
   """
   if method not in _METHODS:
     raise ValueError(f'Unknown method {method!r}')
@@ -111,15 +116,26 @@ def shift_warp(images: torch.Tensor, coords: torch.Tensor,
   if images.device.type == 'cpu':
     return shift_warp_plain(images, coords, method)
   _build.require_cuda('shift_warp', images, coords)
-  lib = _build.library()
-  fn = lib.warp_gather_launch
-  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-  fn.restype = ctypes.c_int
   nz, h, w = images.shape
   oy, ox = coords.shape[2:]
+  if max(h * w, oy * ox) >= 2 ** 31 - 1 or nz > 65535:
+    raise ValueError(f'shift_warp: planes below 2^31 pixels and at most '
+                     f'65535 of them, got {tuple(images.shape)} -> '
+                     f'{tuple(coords.shape)}')
+  if tile_stats is not None:
+    _build.require_cuda('shift_warp', tile_stats, dtype=torch.int32)
+    if tile_stats.device != images.device or tile_stats.numel() != 2:
+      raise ValueError('shift_warp: tile_stats must be two int32 on the '
+                       'images\' card')
+  fn = _build.library().warp_gather_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the object
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
   out = torch.empty((nz, oy, ox), dtype=torch.float32, device=images.device)
   rc = fn(images.data_ptr(), coords.data_ptr(), out.data_ptr(), nz, h, w,
-          oy, ox, _METHODS[method], _build.stream_of(images))
+          oy, ox, _METHODS[method], _build.ptr(tile_stats),
+          _build.stream_of(images))
   _build.launch_counts[counter] += 1
   _build.check(rc, 'warp_gather')
   return out

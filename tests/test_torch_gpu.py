@@ -11,7 +11,8 @@ of them, with every clean-gate decision equal: near masked regions the
 statistics divide by correlation values close to 0); fused solver
 steps equal and nodes within 1e-3 px (2d and 3d), as the staged 2d
 solver with K8; 2d and 3d forces within 1e-4, K8 repeating bit for bit;
-renders (2d and 3d) within 1e-2 gray levels; K7's surfaces within 1e-3
+renders (2d and 3d) within 1e-2 gray levels, K4 from staged and from
+direct tiles; K7's surfaces within 1e-3
 of each surface's largest value and repeating bit for bit, K6's peaks as
 K1's (square and rectangular patches, in shared memory and in global
 scratch), the rectangular dense flow and the padfield calculator
@@ -301,19 +302,33 @@ def test_montage_small(dev):
   assert float(d.mean()) < 0.01 and float(d.max()) < 0.05
 
 
+# A smooth field stages every tile's source window in shared memory; a
+# field of random positions gathers every tile from global memory.
+@pytest.mark.parametrize('field', ['smooth', 'random'])
 @pytest.mark.parametrize('method', ['nearest', 'linear', 'cubic', 'lanczos'])
-def test_warp_gather(dev, method):
+def test_warp_gather(dev, method, field):
   rng = np.random.RandomState(1)
   img = torch.from_numpy((rng.rand(1, 300, 500) * 255).astype(np.float32))
   yy, xx = torch.meshgrid(torch.arange(300.), torch.arange(500.),
                           indexing='ij')
-  coords = torch.stack([yy + 100.3 + 2 * torch.sin(xx / 30),
-                        xx - 97.6 + 2 * torch.cos(yy / 25)])[None]
+  if field == 'smooth':
+    coords = torch.stack([yy + 100.3 + 2 * torch.sin(xx / 30),
+                          xx - 97.6 + 2 * torch.cos(yy / 25)])[None]
+  else:
+    coords = torch.from_numpy(
+        (rng.rand(1, 2, 300, 500) * [[[320.0]], [[520.0]]] - 10.0).astype(
+            np.float32))
   coords[0, :, 5, 7] = float('nan')
-  got = cuda_warp.shift_warp(img.to(dev), coords.contiguous().to(dev), method)
+  stats = torch.zeros(2, dtype=torch.int32, device=dev)
+  before = _build.launch_counts['warp_gather']
+  got = cuda_warp.shift_warp(img.to(dev), coords.contiguous().to(dev), method,
+                             tile_stats=stats)
+  assert _build.launch_counts['warp_gather'] == before + 1
   ref = cuda_warp.shift_warp(img, coords, method)
   assert float((got.cpu() - ref).abs().max()) < 1e-2
   assert float(got[0, 5, 7]) == 0.0
+  staged, tiles = stats.tolist()
+  assert tiles > 0 and staged == (tiles if field == 'smooth' else 0)
 
 
 def test_wrong_device_or_dtype_raises(dev):
@@ -427,9 +442,12 @@ def _patch_batch(shape, seed):
   return torch.from_numpy(a), torch.from_numpy(b)
 
 
-# Shared memory (32^2, 24 x 40) and global scratch (160^2, 160 x 80).
+# K7: shared memory up to 160^2 (a prime, rectangular 31 x 37 included),
+# global scratch at 256^2. K6: shared memory at 32^2 and 24 x 40, global
+# scratch for the rest.
 @pytest.mark.parametrize('shape', [(37, 32, 32), (29, 24, 40),
-                                   (11, 160, 160), (9, 160, 80)])
+                                   (11, 160, 160), (9, 160, 80),
+                                   (5, 31, 37), (3, 256, 256)])
 def test_patch_corr_kernels(dev, shape):
   a, b = _patch_batch(shape, seed=7)
   before = dict(_build.launch_counts)

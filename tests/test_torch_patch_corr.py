@@ -92,3 +92,76 @@ def test_patch_wrappers_check_shapes():
     cuda_flow.flow_peaks(a, torch.zeros(2, 16, 12))
   with pytest.raises(ValueError, match='batches'):
     cuda_flow.corr_patches(a[0], a[0])
+
+
+# K7's shared-memory FFT (csrc/fft_smem.cuh) runs only on the card; its
+# plan and tables come from `cuda_flow._fft_axis_np`. A numpy model of the
+# kernel's steps on those tables (digit-reversed load, DIT forward passes,
+# half-spectrum cross power, DIF column inverse, packed rows, DIF row
+# inverse, store through the roll-folded index tables) must give the
+# reference kernel's surfaces: a wrong table or stage order shows here.
+
+
+def _fft_pass(x, n, dit, inverse):
+  """All stages of K7's FFT along the last axis of x (complex64)."""
+  rs, tw, root, _, _, _ = cuda_flow._fft_axis_np(n)
+  tw = tw[:, 0] + 1j * tw[:, 1]
+  root = root[:, 0] + 1j * root[:, 1]
+  stages, ell, off = [], n, 0
+  for r in rs:
+    stages.append((r, ell // r, ell, off))
+    off += (r - 1) * (ell // r)
+    ell //= r
+  x = x.copy()
+  for r, m, ell, off in (stages[::-1] if dit else stages):
+    blk, j, t = np.meshgrid(np.arange(n // ell), np.arange(m), np.arange(r),
+                            indexing='ij')
+    idx = blk * ell + j + t * m
+    w = np.where(t > 0, tw[off + (np.maximum(t, 1) - 1) * m + j], 1.0)
+    dft = root[(np.outer(np.arange(r), np.arange(r)) % r) * (n // r)]
+    if inverse:
+      w, dft = np.conj(w), np.conj(dft)
+    v = x[..., idx]
+    if dit:
+      v = v * w
+    y = (v @ dft).astype(np.complex64)
+    x[..., idx] = y if dit else y * w
+  return x
+
+
+def _k7_model(a, b):
+  """K7's shared-memory route in numpy, one pair [p1, p2] at a time."""
+  p1, p2 = a.shape
+  ax1, ax2 = cuda_flow._fft_axis_np(p1), cuda_flow._fft_axis_np(p2)
+  z = np.zeros((p1, p2), np.complex64)
+  z[np.ix_(ax1[3], ax2[3])] = (a - a.mean()) + 1j * (b - b.mean())
+  z = _fft_pass(z, p2, True, False)
+  z = _fft_pass(z.T, p1, True, False).T
+  h2 = p2 // 2 + 1
+  z1 = z[:, :h2]
+  z2 = np.conj(z[(-np.arange(p1)) % p1][:, (-np.arange(h2)) % p2])
+  c = (z1 + z2) * 1j * np.conj(z1 - z2) * (0.25 / (p1 * p2))
+  g = _fft_pass(c.T, p1, False, True).T
+  g1, g2 = g[0::2], np.zeros_like(g[0::2])
+  g2[:g[1::2].shape[0]] = g[1::2]
+  sc = (np.arange(h2) == 0) | (2 * np.arange(h2) == p2)
+  g1 = np.where(sc, g1.real, g1)
+  g2 = np.where(sc, g2.real, g2)
+  y = np.zeros((g1.shape[0], p2), np.complex64)
+  y[:, (-np.arange(h2)) % p2] = np.conj(g1) + 1j * np.conj(g2)
+  y[:, :h2] = g1 + 1j * g2
+  y = _fft_pass(y, p2, False, True)
+  rows = ax1[4]
+  vals = y[rows // 2][:, ax2[4]]
+  return np.where((rows % 2 == 1)[:, None], vals.imag, vals.real)
+
+
+@pytest.mark.parametrize('shape', [(2, 7, 9), (2, 12, 10), (1, 40, 32)])
+def test_fft_plan_model_matches_pallas(shape):
+  rng = np.random.RandomState(3)
+  a = (rng.rand(*shape) * 100).astype(np.float32)
+  b = (rng.rand(*shape) * 100).astype(np.float32)
+  ref = np.asarray(pallas_flow.corr_patches_pallas(
+      jnp.asarray(a), jnp.asarray(b), group=1, interpret=True))
+  got = np.stack([_k7_model(x, y) for x, y in zip(a, b)])
+  np.testing.assert_allclose(got, ref, atol=1.0, rtol=1e-3)
