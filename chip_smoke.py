@@ -59,9 +59,13 @@ call that computes the same function):
 
 K4 is held against its plain version in all four methods at 10k^2 (the
 shared-memory branch: the share of staged tiles is printed) and on a
-field of random positions (every tile on the direct branch). The
-redesigned kernels (K4, K7, and K4's launches as K12 and K4p) carry
-their times before the redesign as `prior_ms` in the kernels line.
+field of random positions (every tile on the direct branch); K13 so in
+linear and Lanczos at path (a)'s render shape and on random positions.
+K5 is also timed route by route on bench's grid (the pure pairs on the
+shared-memory FFT, the impure on the dense DFT, each alone on its list),
+and its pure route must run on the masked path. The redesigned kernels
+(K4, K5, K7, K13, and K4's launches as K12 and K4p) carry their times
+before the redesign as `prior_ms` in the kernels line.
 
 Each path runs with the launch counters set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the
@@ -145,15 +149,20 @@ SURFACE_TOL = 1e-3      # K7 vs plain, relative to each surface's max
 K7_EXTRA = ((64, 256, 256), (512, 31, 37))
 K4_METHODS = ('nearest', 'linear', 'cubic', 'lanczos')
 K4_RANDOM = 2048        # edge of K4's random-position field
+K13_RANDOM = (64, 256, 256)   # K13's random-position output (z, y, x)
 K12_REPS = 20           # timed calls per K12 box (kernel and grid_sample)
-# The redesigned kernels' times before the redesign (the dense-DFT K7
-# and the runtime-tap K4 gather, measured by this script on an H100
-# 80GB HBM3 at 700 W), reported beside the new ones.
+# The redesigned kernels' times before the redesign (the dense-DFT K7,
+# the runtime-tap K4 gather, K5 with every pair on the dense DFT and the
+# runtime-tap, unstaged K13, measured by this script on an H100 80GB
+# HBM3 at 700 W), reported beside the new ones.
 K7_PRIOR_MS = 115.8
 K4_PRIOR_MS = 7.149
 K4_PRIOR_MS_LINEAR = 1.446
 K12_PRIOR_MS = 3.025
 K4P_PRIOR_MS = 7.227
+K5_PRIOR_MS = 985.7
+K13_PRIOR_MS = 1.070
+K13_PRIOR_MS_LANCZOS = 10.82
 MIN_PATCH = 4           # reconcile_flows' min_patch_size in path (f)
 HOLE_SHARE = 0.45       # nodes dropped from a copy of path (f)'s 1x flow,
                         # leaving islands for the component pruning
@@ -183,6 +192,9 @@ F32_FLOP_S = 67e12
 LANCZOS_FLOPS_PX = 350
 LINEAR_FLOPS_PX = 30    # bilinear render: 4 weights, 4 taps, row sums
 LINEAR3D_FLOPS_VOX = 50
+# Lanczos 3d render: 512 taps of 2, 64 + 8 row sums of 2, 24 weights of
+# ~12.
+LANCZOS3D_FLOPS_VOX = 512 * 2 + 72 * 2 + 24 * 12
 FORCE3D_FLOPS_NODE = 13 * 24
 FORCE2D_FLOPS_NODE = 8 * 15
 FIRE2D_FLOPS_NODE_STEP = 8 * 15 + 60
@@ -344,6 +356,66 @@ def compare_flow(got, ref, name, fraction=STAT_FRACTION):
   return dict(
       err=float(torch.nan_to_num((got[:2] - ref[:2]).abs(), nan=0.0).max()),
       stat_frac=frac, stat_max_rel=rel, stat_max_abs=float(d.max()))
+
+
+def k5_phase(dev, report, pre, post) -> None:
+  """K5 on bench.py's flow_masked stage: the dense masked grid (p = 160,
+  s = 40) of a 10k^2 pair with its tissue mask on both planes, against
+  the plain version; each route alone on its own list."""
+  from sofima_tpu_torch.ops import _build
+  from sofima_tpu_torch.ops import cuda_flow
+  print('K5 masked_flow_peaks, 10k^2, p = 160, s = 40, bench.py\'s mask')
+  valid = (~bench_mask(N, dev)).to(torch.float32)
+  gm = (N - (160 - 40)) // 40
+  cls = cuda_flow.masked_patch_classes(valid, valid, 160, (40, 40))
+  n_impure, n_pure, n_dead = (int((cls == c).sum()) for c in range(3))
+  print(f'  {gm * gm} patches: {n_dead} dead, {n_pure} pure, {n_impure} '
+        f'impure; invalid share {1 - float(valid.mean()):.3f}')
+  check(min(n_dead, n_pure, n_impure) > 0, 'K5: a branch is missing')
+  k5 = lambda: cuda_flow.masked_dense_flow_peaks(pre, post, valid, valid,
+                                                 (160, 160), (40, 40))
+  k5p = lambda: cuda_flow.masked_flow_peaks_plain(
+      pre, post, valid, valid, (gm, gm), 160, (40, 40), None, 2, 0.5, 5)
+  got = k5()
+  check(same_bits(got, k5()), 'K5 does not repeat bit for bit')
+  print('  a second launch repeats the first bit for bit')
+  ref = k5p()
+  check(bool(torch.isnan(got[0][cls == 2]).all()), 'K5: dead rows not NaN')
+  # Each route alone, on its own list (the other's rows stay NaN): the
+  # pure pairs on the shared-memory FFT, the impure on the dense DFT.
+  lib = _build.library()
+  flat = cls.reshape(-1)
+  lists = {r: torch.nonzero(flat == c).flatten().to(torch.int32)
+           for r, c in (('pure', 1), ('impure', 0))}
+  rows = torch.full((4, gm * gm), float('nan'), device=dev)
+  route = {
+      'pure': lambda: cuda_flow._launch_masked_pure(
+          lib, pre, post, lists['pure'], gm, 160, (40, 40), None, 2, 0.5, 5,
+          rows),
+      'impure': lambda: cuda_flow._launch_masked_dense(
+          lib, pre, post, valid, valid, lists['impure'], gm, 160, (40, 40),
+          None, 2, 0.5, 5, rows)}
+  ms_route = {r: cuda_ms(fn) for r, fn in route.items()}
+  check(same_bits(rows.reshape(4, gm, gm), got),
+        'K5: the routes alone differ from the whole call')
+  nbytes = 4 * N * N * 4 + 16 * gm * gm
+  report['K5'] = dict(compare_flow(got, ref, 'K5', STAT_FRACTION_MASKED),
+                      ms=cuda_ms(k5), prior_ms=K5_PRIOR_MS,
+                      ms_pure=ms_route['pure'], ms_impure=ms_route['impure'],
+                      plain_ms=wall_ms(k5p), library_ms=None,
+                      dead=n_dead, pure=n_pure, impure=n_impure,
+                      bound_ms_pure=least_time(
+                          nbytes, masked_flops(160, n_pure, 0))['bound_ms'],
+                      bound_ms_impure=least_time(
+                          nbytes, masked_flops(160, 0, n_impure))['bound_ms'],
+                      **least_time(nbytes,
+                                   masked_flops(160, n_pure, n_impure)))
+  r5 = report['K5']
+  print(f'  kernel {r5["ms"]:.3f} ms (before {K5_PRIOR_MS}; routes alone: '
+        f'pure {r5["ms_pure"]:.3f} ms, bound {r5["bound_ms_pure"]:.3f}; '
+        f'impure {r5["ms_impure"]:.3f} ms, bound '
+        f'{r5["bound_ms_impure"]:.3f}), plain {r5["plain_ms"]:.3f} ms, bound '
+        f'{r5["bound_ms"]:.3f} ms ({r5["bound_by"]})')
 
 
 def stack_slice(dev, report, _build) -> dict:
@@ -513,34 +585,7 @@ def stack_slice(dev, report, _build) -> dict:
         f'{r4["library_ms"]:.3f} ms, |K4 - grid_sample| {lib_err:.3g}')
   del coords, img, grid, k4
 
-  # K5: bench.py's flow_masked stage, the dense masked grid (p = 160,
-  # s = 40) with its tissue mask on both planes.
-  print('K5 masked_flow_peaks, 10k^2, p = 160, s = 40, bench.py\'s mask')
-  valid = (~bench_mask(N, dev)).to(torch.float32)
-  gm = (N - (160 - 40)) // 40
-  cls = cuda_flow.masked_patch_classes(valid, valid, 160, (40, 40))
-  n_impure, n_pure, n_dead = (int((cls == c).sum()) for c in range(3))
-  print(f'  {gm * gm} patches: {n_dead} dead, {n_pure} pure, {n_impure} '
-        f'impure; invalid share {1 - float(valid.mean()):.3f}')
-  check(min(n_dead, n_pure, n_impure) > 0, 'K5: a branch is missing')
-  k5 = lambda: cuda_flow.masked_dense_flow_peaks(pre, post, valid, valid,
-                                                 (160, 160), (40, 40))
-  k5p = lambda: cuda_flow.masked_flow_peaks_plain(
-      pre, post, valid, valid, (gm, gm), 160, (40, 40), None, 2, 0.5, 5)
-  got = k5()
-  check(same_bits(got, k5()), 'K5 does not repeat bit for bit')
-  print('  a second launch repeats the first bit for bit')
-  ref = k5p()
-  check(bool(torch.isnan(got[0][cls == 2]).all()), 'K5: dead rows not NaN')
-  report['K5'] = dict(compare_flow(got, ref, 'K5', STAT_FRACTION_MASKED),
-                      ms=cuda_ms(k5), plain_ms=wall_ms(k5p), library_ms=None,
-                      dead=n_dead, pure=n_pure, impure=n_impure,
-                      **least_time(4 * N * N * 4 + 16 * gm * gm,
-                                   masked_flops(160, n_pure, n_impure)))
-  print(f'  kernel {report["K5"]["ms"]:.3f} ms, plain '
-        f'{report["K5"]["plain_ms"]:.3f} ms, bound '
-        f'{report["K5"]["bound_ms"]:.3f} ms ({report["K5"]["bound_by"]})')
-  del valid, cls, got, ref
+  k5_phase(dev, report, pre, post)
 
   print(f'stack: {N_Z} sections of {N}^2 (bench.py runs 16; cut for time)')
   stack = make_stack(post, N_Z)
@@ -693,7 +738,7 @@ def plain_kernels():
 def masked_warm_slice(dev, report, _build, stack) -> dict:
   """The masked coarse-to-fine path and the warm-start stack path.
 
-  Returns K5's launch count from the masked path's run."""
+  Returns the launch counts of the masked path's run."""
   from sofima_tpu_torch import flow_field
   from sofima_tpu_torch.ops import cuda_warp
   from sofima_tpu_torch.pipeline import stack_align
@@ -763,6 +808,8 @@ def masked_warm_slice(dev, report, _build, stack) -> dict:
         'masked c2f differs from the plain path')
   check(not bool(ov) and not bool(ov_ref), 'masked c2f overflow')
   check(launches['masked_flow_peaks'] == 2, 'K5 launches on the masked path')
+  check(launches['masked_flow_pure'] > 0,
+        'K5\'s pure route was not launched on the masked path')
   check(launches['warp_gather'] == 2, 'K4 (nearest) launches on masked path')
   report['path_masked'] = dict(wall_s=wall, plain_s=wall_plain,
                                xy_differ=xy_bad,
@@ -872,13 +919,104 @@ def liconn_inputs(vol: torch.Tensor, tile_yx: int, overlap: int):
   return tiles, cx, cy, coarse
 
 
+def k13_phase(dev, report) -> None:
+  """K13 at one LICONN tile's render shape (a 64 x 576 x 576 tile renders
+  128 x 640 x 640 voxels with its 2-node halo at stride 16): coordinates
+  of a smooth ~1.5 px residual with NaN holes, bounds as the render
+  buckets them (every block tile staged), in linear and Lanczos against
+  the plain version and beside the 5-D grid_sample; then random
+  positions over the volume (every block tile direct)."""
+  from sofima_tpu_torch.ops import cuda_warp
+  zdim, tile_yx, _ = LICONN
+  halo = 2 * 16
+  oz, oy, ox = zdim + 2 * halo, tile_yx + 2 * halo, tile_yx + 2 * halo
+  print(f'K13 warp_gather_3d, {zdim} x {tile_yx} x {tile_yx} -> '
+        f'{oz} x {oy} x {ox}')
+  vol = texture3d((zdim, tile_yx, tile_yx), SEED + 4, dev)
+  org = (-halo, -halo, -halo)
+  zz = torch.arange(oz, dtype=torch.float32, device=dev)[:, None, None] - halo
+  yy = torch.arange(oy, dtype=torch.float32, device=dev)[None, :, None] - halo
+  xx = torch.arange(ox, dtype=torch.float32, device=dev)[None, None, :] - halo
+  coords = torch.stack([
+      (zz + 0.6 * torch.sin(yy / 57.0)).expand(oz, oy, ox),
+      (yy + 1.5 * torch.cos(xx / 83.0 + zz / 40.0)).expand(oz, oy, ox),
+      (xx + 1.4 * torch.sin(yy / 61.0 + 0.3)).expand(oz, oy, ox)]).contiguous()
+  coords[:, oz // 2, 10:20, 30:90] = float('nan')
+  bnds = (-2, 2, -4, 4, -4, 4)
+  k13 = {m: (lambda m=m: cuda_warp.shift_warp_3d(vol, coords, m, *bnds,
+                                                  *org))
+         for m in ('linear', 'lanczos')}
+  errs = {m: float((k13[m]() - cuda_warp.shift_warp_3d_plain(
+      vol, coords, m, bnds, org)).abs().max()) for m in k13}
+  stats = torch.zeros(2, dtype=torch.int32, device=dev)
+  cuda_warp.shift_warp_3d(vol, coords, 'lanczos', *bnds, *org,
+                          tile_stats=stats)
+  staged, tiles = stats.tolist()
+  print(f'  max |diff| trilinear {errs["linear"]:.3g}, Lanczos '
+        f'{errs["lanczos"]:.3g} gray levels; {staged} of {tiles} block '
+        f'tiles staged (Lanczos)')
+  for m in k13:
+    check(errs[m] < RENDER_TOL, f'K13 ({m}) differs from plain by {errs[m]}')
+  # Random positions over the volume, bounds wide enough that every tap
+  # is live: no block tile's brick fits its budget.
+  rz, ry, rx = K13_RANDOM
+  rc = torch.from_numpy(np.random.RandomState(SEED + 5).rand(
+      3, rz, ry, rx).astype(np.float32) * np.array(
+          [zdim, tile_yx, tile_yx], np.float32)[:, None, None, None]).to(dev)
+  wide = (-rz, zdim, -ry, tile_yx, -rx, tile_yx)
+  errs_rand = {}
+  for m in k13:
+    stats.zero_()
+    got = cuda_warp.shift_warp_3d(vol, rc, m, *wide, tile_stats=stats)
+    errs_rand[m] = float((got - cuda_warp.shift_warp_3d_plain(
+        vol, rc, m, wide, (0, 0, 0))).abs().max())
+    check(errs_rand[m] < RENDER_TOL,
+          f'K13 ({m}, random) differs from plain by {errs_rand[m]}')
+    check(stats[0].item() == 0 and stats[1].item() > 0,
+          f'K13 ({m}, random) staged {stats.tolist()}')
+  print(f'  random positions ({rz} x {ry} x {rx}, every tile direct): '
+        + ', '.join(f'{m} {e:.3g}' for m, e in errs_rand.items()))
+  del rc, got
+  d, h, w = vol.shape
+  norm = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1), 2.0 / (d - 1)],
+                      device=dev)
+  grid = (torch.stack([coords[2], coords[1], coords[0]], dim=-1) * norm
+          - 1.0)[None]
+  lib = lambda: torch.nn.functional.grid_sample(
+      vol[None, None], grid, mode='bilinear', padding_mode='zeros',
+      align_corners=True)
+  lib_diff = float(torch.nan_to_num(lib()[0, 0] - k13['linear']()).abs()
+                   .max())
+  n_out = oz * oy * ox
+  nbytes = 16 * n_out + 4 * vol.numel()
+  report['K13'] = dict(
+      err=errs['linear'], ms=cuda_ms(k13['linear']),
+      prior_ms=K13_PRIOR_MS, plain_ms=wall_ms(
+          lambda: cuda_warp.shift_warp_3d_plain(vol, coords, 'linear', bnds,
+                                                org)),
+      max_abs_err_lanczos=errs['lanczos'], ms_lanczos=cuda_ms(k13['lanczos']),
+      prior_ms_lanczos=K13_PRIOR_MS_LANCZOS,
+      max_abs_err_random=errs_rand, staged_tiles=staged, tiles=tiles,
+      staged_share=staged / max(tiles, 1),
+      library_ms=cuda_ms(lib), library_max_abs_diff=lib_diff,
+      bound_ms_lanczos=least_time(
+          nbytes, LANCZOS3D_FLOPS_VOX * n_out)['bound_ms'],
+      **least_time(nbytes, LINEAR3D_FLOPS_VOX * n_out))
+  r = report['K13']
+  print(f'  kernel: trilinear {r["ms"]:.3f} ms (before {K13_PRIOR_MS}), '
+        f'Lanczos {r["ms_lanczos"]:.3f} ms (before {K13_PRIOR_MS_LANCZOS}); '
+        f'plain {r["plain_ms"]:.3f} ms; bound {r["bound_ms"]:.3f} ms '
+        f'(Lanczos {r["bound_ms_lanczos"]:.3f}); grid_sample '
+        f'{r["library_ms"]:.3f} ms (|diff| {lib_diff:.3g}: grid_sample has '
+        f'no static bounds)')
+
+
 def stitch_slice(dev, report, _build) -> dict:
   """K9, K11 and K13 at their paths' shapes, then paths (a), (b), (c).
 
   Returns the kernels' launch counts from their paths' runs."""
   from sofima_tpu_torch import mesh
   from sofima_tpu_torch.ops import cuda_mesh
-  from sofima_tpu_torch.ops import cuda_warp
   from sofima_tpu_torch.pipeline import stitch3d
 
   launches = {}
@@ -941,61 +1079,10 @@ def stitch_slice(dev, report, _build) -> dict:
         f'{report["K11"]["plain_ms"]:.3f} ms, bound '
         f'{report["K11"]["bound_ms"]:.3f} ms')
 
-  # K13: one LICONN tile's render shape (a 64 x 576 x 576 tile renders
-  # 128 x 640 x 640 voxels with its 2-node halo at stride 16),
-  # coordinates of a smooth ~1.5 px residual with NaN holes, bounds as
-  # the render buckets them.
-  zdim, tile_yx, overlap = LICONN
-  halo = 2 * 16
-  oz, oy, ox = zdim + 2 * halo, tile_yx + 2 * halo, tile_yx + 2 * halo
-  print(f'K13 warp_gather_3d, {zdim} x {tile_yx} x {tile_yx} -> '
-        f'{oz} x {oy} x {ox}')
-  vol = texture3d((zdim, tile_yx, tile_yx), SEED + 4, dev)
-  org = (-halo, -halo, -halo)
-  zz = torch.arange(oz, dtype=torch.float32, device=dev)[:, None, None] - halo
-  yy = torch.arange(oy, dtype=torch.float32, device=dev)[None, :, None] - halo
-  xx = torch.arange(ox, dtype=torch.float32, device=dev)[None, None, :] - halo
-  coords = torch.stack([
-      (zz + 0.6 * torch.sin(yy / 57.0)).expand(oz, oy, ox),
-      (yy + 1.5 * torch.cos(xx / 83.0 + zz / 40.0)).expand(oz, oy, ox),
-      (xx + 1.4 * torch.sin(yy / 61.0 + 0.3)).expand(oz, oy, ox)]).contiguous()
-  coords[:, oz // 2, 10:20, 30:90] = float('nan')
-  bnds = (-2, 2, -4, 4, -4, 4)
-  k13 = lambda: cuda_warp.shift_warp_3d(vol, coords, 'linear', *bnds, *org)
-  k13p = lambda: cuda_warp.shift_warp_3d_plain(vol, coords, 'linear', bnds,
-                                               org)
-  err = float((k13() - k13p()).abs().max())
-  k13z = lambda: cuda_warp.shift_warp_3d(vol, coords, 'lanczos', *bnds, *org)
-  err_z = float((k13z() - cuda_warp.shift_warp_3d_plain(
-      vol, coords, 'lanczos', bnds, org)).abs().max())
-  print(f'  max |diff| trilinear {err:.3g}, Lanczos {err_z:.3g} gray levels')
-  check(err < RENDER_TOL, f'K13 differs from the plain render by {err}')
-  check(err_z < RENDER_TOL, f'K13 (Lanczos) differs from plain by {err_z}')
-  d, h, w = vol.shape
-  norm = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1), 2.0 / (d - 1)],
-                      device=dev)
-  grid = (torch.stack([coords[2], coords[1], coords[0]], dim=-1) * norm
-          - 1.0)[None]
-  lib = lambda: torch.nn.functional.grid_sample(
-      vol[None, None], grid, mode='bilinear', padding_mode='zeros',
-      align_corners=True)
-  lib_diff = float(torch.nan_to_num(lib()[0, 0] - k13()).abs().max())
-  n_out = oz * oy * ox
-  report['K13'] = dict(err=err, ms=cuda_ms(k13), plain_ms=wall_ms(k13p),
-                       max_abs_err_lanczos=err_z, ms_lanczos=cuda_ms(k13z),
-                       library_ms=cuda_ms(lib),
-                       library_max_abs_diff=lib_diff,
-                       **least_time(16 * n_out + 4 * vol.numel(),
-                                    LINEAR3D_FLOPS_VOX * n_out))
-  print(f'  kernel {report["K13"]["ms"]:.3f} ms (Lanczos '
-        f'{report["K13"]["ms_lanczos"]:.3f} ms), plain '
-        f'{report["K13"]["plain_ms"]:.3f} ms, bound '
-        f'{report["K13"]["bound_ms"]:.3f} ms, grid_sample '
-        f'{report["K13"]["library_ms"]:.3f} ms (|diff| {lib_diff:.3g}: '
-        f'grid_sample has no static bounds)')
-  del vol, coords, grid
+  k13_phase(dev, report)
 
   # Path (a): stitch_and_render_3d at bench.py's LICONN geometry.
+  zdim, tile_yx, overlap = LICONN
   n3 = 2 * tile_yx - overlap
   print(f'path (a): stitch_and_render_3d, 2 x 2 tiles of {zdim} x {tile_yx}'
         f'^2, union {zdim} x {n3}^2')
@@ -1924,8 +2011,9 @@ def main() -> int:
   report = {}
   launches, stack = stack_slice(dev, report, _build)
   torch.cuda.empty_cache()
-  launches['masked_flow_peaks'] = masked_warm_slice(
-      dev, report, _build, stack)['masked_flow_peaks']
+  masked = masked_warm_slice(dev, report, _build, stack)
+  launches['masked_flow_peaks'] = masked['masked_flow_peaks']
+  report['K5']['launches_pure'] = masked['masked_flow_pure']
   del stack
   torch.cuda.empty_cache()
   launches.update(stitch_slice(dev, report, _build))

@@ -41,7 +41,8 @@ import torch
 
 # The hand-written kernels by their CUDA function names (csrc/*.cu).
 KERNELS = ('flow_peaks_kernel', 'fused_fire_kernel', 'warp_gather_kernel')
-KERNELS_MASKED = ('masked_flow_kernel', 'warp_gather_kernel')
+KERNELS_MASKED = ('masked_pure_kernel', 'masked_flow_kernel',
+                  'warp_gather_kernel')
 KERNELS_3D = ('force3d_kernel', 'warp3d_kernel')
 KERNELS_MONTAGE = ('flow_peaks_kernel', 'force2d_kernel',
                    'warp_gather_kernel')

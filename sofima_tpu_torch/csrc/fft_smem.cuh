@@ -4,8 +4,10 @@
 // Replaces the dense O(p^3) DFT that the correlation kernels ported from
 // sofima_tpu/ops/pallas_flow.py compute per patch pair (the TPU feeds its
 // matrix unit DFT matrices; an SM has no such unit for f32). First user:
-// K7 (corr_fft.cu, the reference's `_corr_kernel`); K1, K2, K5 and K6 still
-// run their DFT bodies.
+// K7 (corr_fft.cu, the reference's `_corr_kernel`), then K5's fully valid
+// pairs (masked_flow.cu); K1, K2, K6 and K5's other pairs still run their
+// DFT bodies. Its functions have internal linkage: each translation unit
+// that includes it keeps its own copy.
 //
 // What bounds it on the H100: at p = 160 a pair's packed complex array is
 // 200 KB, so one block per SM holds it and every transform stage is a
@@ -326,7 +328,8 @@ __device__ __forceinline__ float2 cross_power(float2 z1, float2 zm,
 // row stride p2), in place. A column k < p2/2 reads its mirror -k, which
 // lies outside the half and is never written; the self-conjugate columns
 // (k = 0, p2/2) pair (u, k) with (-u, k) on one thread.
-__device__ void cross_power_half(float2* Z, int p1, int p2, float scale) {
+static __device__ void cross_power_half(float2* Z, int p1, int p2,
+                                        float scale) {
   const int h2 = p2 / 2 + 1;
   for (int e = threadIdx.x; e < p1 * h2; e += blockDim.x) {
     const int u = e / h2, k = e - u * h2;
@@ -359,7 +362,7 @@ __device__ __forceinline__ void pack_pair(float2 h1, float2 h2, bool self_conj,
 // Packs the half-spectrum rows of Z (row stride p2) two by two in place:
 // row 2j becomes the full Y of rows 2j and 2j + 1 (0 past the last row).
 // Entry p2 - k of row 2j lies outside the half and is read by no one.
-__device__ void pack_rows(float2* Z, int p1, int p2) {
+static __device__ void pack_rows(float2* Z, int p1, int p2) {
   const int h2 = p2 / 2 + 1, npair = (p1 + 1) / 2;
   for (int e = threadIdx.x; e < npair * h2; e += blockDim.x) {
     const int j = e / h2, k = e - j * h2;
@@ -381,10 +384,10 @@ __device__ void pack_rows(float2* Z, int p1, int p2) {
 // half spectrum and the packed row inverse (DIF). The surface value of
 // unshifted (y, x) is then `surface_at(Z, p2, inv1[y], inv2[x])`.
 // `a1` is the column axis (length p1), `a2` the row axis (p2).
-__device__ void corr_surface(float2* Z, const Axis& a1, const Axis& a2,
-                             const float2* tw1, const float2* root1,
-                             const float2* tw2, const float2* root2,
-                             float scale) {
+static __device__ void corr_surface(float2* Z, const Axis& a1,
+                                    const Axis& a2, const float2* tw1,
+                                    const float2* root1, const float2* tw2,
+                                    const float2* root2, float scale) {
   const int p1 = a1.n, p2 = a2.n;
   fft_pass<true, false>(Z, p1, 1, p2, a2, tw2, root2);
   fft_pass<true, false>(Z, p2, p2, 1, a1, tw1, root1);

@@ -48,9 +48,9 @@
 // Lanczos, taps outside the image read 0 but count in the norm, the norm
 // sum(w_y) * sum(w_x) clamped at 1e-12, row sums in the reference's
 // order; NaN coordinates, and coordinates 1e8 or more away, render 0.
-// Nearest, linear and cubic weights are sofima::weight's functions of
-// t, evaluated from f = d - floor(d) (last-bit differences from the
-// plain version's per-tap t = d - s).
+// Nearest, linear and cubic weights are sofima::poly_weights, evaluated
+// from f = d - floor(d) (last-bit differences from the plain version's
+// per-tap t = d - s).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,32 +106,7 @@ __device__ __forceinline__ void axis_weights(float d, int s0, float* w) {
       w[j] = at < 4.0f ? wv : 0.0f;
     }
   } else {
-    // The taps sit at t = f + kLeft - j from d, f = d - floor(d) in
-    // [0, 1), so each tap's branch of sofima::weight is known: nearest
-    // takes the tap with |t| < 1/2, linear 1 - |t|, cubic the near
-    // polynomial for the two inner taps and the far one for the outer
-    // two (both are 0 at |t| = 1 and the far one at |t| = 2, where
-    // sofima::weight switches).
-    const float f = d - floorf(d);
-    if constexpr (M == kNearest) {
-      w[0] = f < 0.5f ? 1.0f : 0.0f;
-      w[1] = 1.0f - w[0];
-    } else if constexpr (M == kLinear) {
-      w[0] = 1.0f - f;
-      w[1] = f;
-    } else {
-      constexpr float a = -0.75f;
-      auto near = [](float x) {
-        return (a + 2.0f) * (x * x * x) - (a + 3.0f) * (x * x) + 1.0f;
-      };
-      auto far = [](float x) {
-        return a * (x * x * x) - 5.0f * a * (x * x) + 8.0f * a * x - 4.0f * a;
-      };
-      w[0] = far(1.0f + f);
-      w[1] = near(f);
-      w[2] = near(1.0f - f);
-      w[3] = far(2.0f - f);
-    }
+    sofima::poly_weights<M>(d, w);
   }
 }
 

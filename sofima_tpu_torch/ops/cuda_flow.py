@@ -11,7 +11,9 @@ with per-patch post-window offsets expanded from the per-block
 (`masked_dense_flow_peaks`, csrc/masked_flow.cu) computes the circular
 Padfield NCC of each patch pair under its valid masks and shares the
 peak chain (csrc/flow_peaks.cuh); its denominator tolerance is per patch
-(see `padfield_ncc` and the kernel's source note).
+(see `padfield_ncc` and the kernel's source note). It splits the grid
+into dead, pure and impure lists: the pure pairs run the closed-form NCC
+on K7's shared-memory FFT, the impure ones the dense-DFT Padfield chain.
 
 K6 (`flow_peaks`, Pallas `flow_peaks_pallas` / `_corr_peaks_kernel`)
 and K7 (`corr_patches`, `corr_patches_pallas` / `_corr_kernel`) take
@@ -596,6 +598,130 @@ def _valid_plane(valid, like: torch.Tensor) -> torch.Tensor:
   return valid.to(torch.float32).contiguous()
 
 
+def masked_route_plain(pre: torch.Tensor, post: torch.Tensor,
+                       pre_valid: torch.Tensor, post_valid: torch.Tensor,
+                       pairs: torch.Tensor, gx: int, patch: int,
+                       step: tuple[int, int], mean: float | None, pure: bool,
+                       min_distance: int, threshold_rel: float,
+                       peak_radius: int) -> torch.Tensor:
+  """Plain version of one of K5's two routes -> [n, 4] peak rows.
+
+  `pairs`: grid indices gi * gx + gj of the route's patch pairs. The
+  pure route (both patches fully valid) takes the closed-form NCC of
+  the plain cross-correlation and the patch moments, the other the
+  Padfield chain (`padfield_ncc`, per-patch tolerance); the arithmetic
+  is `masked_flow_peaks_plain`'s for those branches.
+  """
+  sy, sx = step
+  pairs = pairs.to(torch.int64)
+  y0, x0 = (pairs // gx) * sy, (pairs % gx) * sx
+  area = float(patch * patch)
+  eps = float(np.finfo(np.float32).eps)
+  icorr = functools.partial(_irdft2_of_product, n1=patch, n2=patch)
+  out = []
+  for c0 in range(0, pairs.numel(), _PLAIN_CHUNK):
+    sl = slice(c0, min(pairs.numel(), c0 + _PLAIN_CHUNK))
+    a = _patches(pre, y0[sl], x0[sl], patch)
+    b = _patches(post, y0[sl], x0[sl], patch)
+    va = _patches(pre_valid, y0[sl], x0[sl], patch) > 0
+    vb = _patches(post_valid, y0[sl], x0[sl], patch) > 0
+    zero = torch.zeros_like(a)
+    if mean is None:
+      ma = (torch.where(va, a, zero).sum(dim=(1, 2), keepdim=True)
+            / torch.clamp(va.sum(dim=(1, 2), keepdim=True), min=1))
+      mb = (torch.where(vb, b, zero).sum(dim=(1, 2), keepdim=True)
+            / torch.clamp(vb.sum(dim=(1, 2), keepdim=True), min=1))
+    else:
+      ma = mb = mean
+    pz = torch.where(va, a - ma, zero)
+    cz = torch.where(vb, b - mb, zero)
+    if pure:
+      s1, s3 = pz.sum(dim=(1, 2)), cz.sum(dim=(1, 2))
+      var_p = torch.clamp((pz * pz).sum(dim=(1, 2)) - s1 * s1 / area, min=0.0)
+      var_c = torch.clamp((cz * cz).sum(dim=(1, 2)) - s3 * s3 / area, min=0.0)
+      denom = torch.sqrt(var_p * var_c)[:, None, None]
+      tol = 1e3 * eps * denom
+      numc = (s1 * s3 / area)[:, None, None]
+      xc = circular_xcorr(pz, cz)
+      corr = torch.where(
+          denom > tol,
+          torch.clamp((xc - numc) / torch.where(denom > tol, denom,
+                                                torch.ones_like(denom)),
+                      -1.0, 1.0),
+          torch.zeros_like(xc))
+    else:
+      corr = padfield_ncc(pz, cz, va, vb, _rdft2, icorr, per_patch=True)
+    corr = torch.roll(corr, (patch // 2, patch // 2), dims=(1, 2))
+    out.append(batched_peaks(corr, (patch // 2, patch // 2), min_distance,
+                             threshold_rel, peak_radius))
+  return torch.cat(out) if out else torch.empty(
+      (0, 4), dtype=torch.float32, device=pre.device)
+
+
+def _masked_pure_fits(lib, p: int) -> bool:
+  """Does K5's pure route (shared-memory FFT) serve p x p pairs?"""
+  if lib.masked_pure_smem_bytes.argtypes is None:
+    lib.masked_pure_smem_bytes.argtypes = [ctypes.c_int]
+    lib.masked_pure_smem_bytes.restype = ctypes.c_int64
+  return 0 <= int(lib.masked_pure_smem_bytes(p)) <= _MAX_SMEM_BYTES
+
+
+def _launch_masked_pure(lib, pre, post, pairs, gx, p, step, mean,
+                        min_distance, threshold_rel, peak_radius, out):
+  fn = lib.masked_pure_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the object
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+  radices, tabs, idx = _fft_tables(p, p, str(pre.device))
+  rc = fn(pre.data_ptr(), post.data_ptr(), pre.shape[1], pairs.data_ptr(),
+          pairs.numel(), gx, p, step[0], step[1], radices.ctypes.data,
+          tabs.data_ptr(), idx.data_ptr(), int(mean is None),
+          float(mean or 0.0), int(min_distance), float(threshold_rel),
+          int(peak_radius), out[0].numel(), out.data_ptr(),
+          _build.stream_of(pre))
+  _build.launch_counts['masked_flow_pure'] += 1
+  _build.check(rc, 'masked_flow_peaks (pure route)')
+
+
+def _launch_masked_dense(lib, pre, post, va, vb, pairs, gx, p, step, mean,
+                         min_distance, threshold_rel, peak_radius, out):
+  fn = lib.masked_flow_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the objects
+    lib.masked_flow_per_block.argtypes = [ctypes.c_int]
+    lib.masked_flow_per_block.restype = ctypes.c_int64
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+  dev = pre.device
+  n = pairs.numel()
+  ctab, stab = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p))
+  per_block = int(lib.masked_flow_per_block(p))
+  scratch = None
+  if per_block * 4 <= _MAX_SMEM_BYTES:
+    nblocks = n
+  else:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblocks = min(n, 4 * sms)
+    scratch = torch.empty((nblocks, per_block), dtype=torch.float32,
+                          device=dev)
+  rc = fn(pre.data_ptr(), post.data_ptr(), va.data_ptr(), vb.data_ptr(),
+          pre.shape[1], pairs.data_ptr(), n, gx, p, step[0], step[1],
+          ctab.data_ptr(), stab.data_ptr(), int(mean is None),
+          float(mean or 0.0), _overlap_cut(p * p), int(min_distance),
+          float(threshold_rel), int(peak_radius), _build.ptr(scratch),
+          nblocks, out[0].numel(), out.data_ptr(), _build.stream_of(pre))
+  _build.check(rc, 'masked_flow_peaks (dense route)')
+
+
 def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
                             pre_valid: torch.Tensor | None,
                             post_valid: torch.Tensor | None,
@@ -607,8 +733,16 @@ def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
 
   `pre_valid` / `post_valid`: planes of the images' shape, > 0 where a
   pixel is valid (None: all valid). Circular Padfield NCC per patch pair
-  with dead / pure / impure branches and a per-patch denominator
-  tolerance (csrc/masked_flow.cu), then the peak statistics of K1.
+  with a per-patch denominator tolerance, then the peak statistics of
+  K1. The grid is classified on the device (`masked_patch_classes`) into
+  three lists: dead pairs keep the NaN rows the output starts with; pure
+  pairs (both patches fully valid) take the pure route, the closed-form
+  NCC on the shared-memory FFT (csrc/masked_flow.cu `masked_pure_kernel`,
+  p <= 160); impure pairs (and pure ones where the pure route does not
+  serve p) the dense-DFT Padfield chain. On CPU tensors each route runs
+  its plain version (`masked_route_plain`). A call that launches counts
+  one 'masked_flow_peaks' launch, and the pure route's launch also counts
+  under 'masked_flow_pure'.
   """
   p = _check_square(patch_size)
   sy, sx = step
@@ -618,45 +752,38 @@ def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
   post = post_image.to(torch.float32).contiguous()
   va = _valid_plane(pre_valid, pre)
   vb = _valid_plane(post_valid, post)
-  if pre.device.type == 'cpu':
-    return masked_flow_peaks_plain(pre, post, va, vb, grid, p, (sy, sx), mean,
-                                   min_distance, threshold_rel, peak_radius)
-  _build.require_cuda('masked_flow_peaks', pre, post, va, vb)
-  lib = _build.library()
-  lib.masked_flow_per_block.argtypes = [ctypes.c_int]
-  lib.masked_flow_per_block.restype = ctypes.c_int64
-  fn = lib.masked_flow_launch
-  fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p] * 2
-                 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                    ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p])
-  fn.restype = ctypes.c_int
+  on_cpu = pre.device.type == 'cpu'
+  if not on_cpu:
+    _build.require_cuda('masked_flow_peaks', pre, post, va, vb)
   gy, gx = grid
-  dev = pre.device
-  ctab, stab = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p))
-  per_block = int(lib.masked_flow_per_block(p))
-  npatch = gy * gx
-  out = torch.empty((4, gy, gx), dtype=torch.float32, device=dev)
-  if npatch == 0:
-    return out
-  scratch = None
-  if per_block * 4 <= _MAX_SMEM_BYTES:
-    nblocks = npatch
-  else:
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblocks = min(npatch, 4 * sms)
-    scratch = torch.empty((nblocks, per_block), dtype=torch.float32,
-                          device=dev)
-  rc = fn(pre.data_ptr(), post.data_ptr(), va.data_ptr(), vb.data_ptr(), w,
-          gy, gx, p, sy, sx, ctab.data_ptr(), stab.data_ptr(),
-          int(mean is None), float(mean or 0.0), _overlap_cut(p * p),
-          int(min_distance), float(threshold_rel), int(peak_radius),
-          _build.ptr(scratch), nblocks, out.data_ptr(), _build.stream_of(pre))
+  out = torch.full((4, gy * gx), float('nan'), dtype=torch.float32,
+                   device=pre.device)
+  if gy * gx == 0:
+    return out.reshape(4, gy, gx)
+  classes = masked_patch_classes(va, vb, p, (sy, sx)).reshape(-1)
+  pure, impure = (torch.nonzero(classes == c).flatten().to(torch.int32)
+                  for c in (1, 0))
+  args = (min_distance, threshold_rel, peak_radius)
+  if on_cpu:
+    for pairs, is_pure in ((pure, True), (impure, False)):
+      if pairs.numel():
+        out[:, pairs.long()] = masked_route_plain(
+            pre, post, va, vb, pairs, gx, p, (sy, sx), mean, is_pure,
+            *args).T
+    return out.reshape(4, gy, gx)
+  if pure.numel() + impure.numel() == 0:
+    return out.reshape(4, gy, gx)
+  lib = _build.library()
+  if pure.numel() and not _masked_pure_fits(lib, p):
+    pure, impure = pure[:0], torch.cat([pure, impure])
+  if pure.numel():
+    _launch_masked_pure(lib, pre, post, pure, gx, p, (sy, sx), mean, *args,
+                        out)
+  if impure.numel():
+    _launch_masked_dense(lib, pre, post, va, vb, impure, gx, p, (sy, sx),
+                         mean, *args, out)
   _build.launch_counts['masked_flow_peaks'] += 1
-  _build.check(rc, 'masked_flow_peaks')
-  return out
+  return out.reshape(4, gy, gx)
 
 
 def _patch_batches(pre_b, post_b):

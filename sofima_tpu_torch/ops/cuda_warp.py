@@ -209,14 +209,19 @@ def shift_warp_3d_plain(volume: torch.Tensor, coords: torch.Tensor,
 def shift_warp_3d(volume: torch.Tensor, coords: torch.Tensor, method: str,
                   dz_lo: int, dz_hi: int, dy_lo: int, dy_hi: int,
                   dx_lo: int, dx_hi: int, origin_z: int = 0,
-                  origin_y: int = 0, origin_x: int = 0) -> torch.Tensor:
+                  origin_y: int = 0, origin_x: int = 0,
+                  tile_stats: torch.Tensor | None = None) -> torch.Tensor:
   """K13: warps a [d, h, w] volume by per-voxel (z, y, x) coords.
 
   Same contract as sofima_tpu's pallas_shift_warp_3d: the inclusive
   static bounds of the displacement coords[c] - (output position[c] +
   origin[c]) per axis, 0 outside the volume, the bounds or at NaN
   coords. CPU tensors take the plain version; CUDA tensors launch the
-  kernel. Returns [oz, oy, ox] float32.
+  kernel (one instantiation per method; each block renders a 32 x 8 x 4
+  voxel tile, from its source brick staged in shared memory when that
+  brick is compact). `tile_stats`, an int32 CUDA tensor of two elements,
+  gains the number of tiles that took the staged branch and the number
+  of tiles with any tap. Returns [oz, oy, ox] float32.
   """
   if method not in _METHODS:
     raise ValueError(f'Unknown method {method!r}')
@@ -230,17 +235,23 @@ def shift_warp_3d(volume: torch.Tensor, coords: torch.Tensor, method: str,
   volume = volume.to(torch.float32).contiguous()
   coords = coords.to(torch.float32).contiguous()
   _build.require_cuda('shift_warp_3d', volume, coords)
-  lib = _build.library()
-  fn = lib.warp_gather_3d_launch
-  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
-  fn.restype = ctypes.c_int
+  if tile_stats is not None:
+    _build.require_cuda('shift_warp_3d', tile_stats, dtype=torch.int32)
+    if tile_stats.device != volume.device or tile_stats.numel() != 2:
+      raise ValueError('shift_warp_3d: tile_stats must be two int32 on the '
+                       'volume\'s card')
+  fn = _build.library().warp_gather_3d_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the object
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
   d, h, w = volume.shape
   oz, oy, ox = coords.shape[1:]
   out = torch.empty((oz, oy, ox), dtype=torch.float32, device=volume.device)
   (s0z, s1z), (s0y, s1y), (s0x, s1x) = _shift_range(method, bounds)
   rc = fn(volume.data_ptr(), coords.data_ptr(), out.data_ptr(), d, h, w, oz,
           oy, ox, *origin, s0z, s1z, s0y, s1y, s0x, s1x, _METHODS[method],
-          _build.stream_of(volume))
+          _build.ptr(tile_stats), _build.stream_of(volume))
   _build.launch_counts['warp_gather_3d'] += 1
   _build.check(rc, 'warp_gather_3d')
   return out

@@ -6,7 +6,9 @@ interpret mode, as the JAX tests run them) and the port:
     pallas_flow.dense_flow_peaks_pallas(pre_valid, post_valid) on the
     520^2 case of tests/test_flow_field.py, and against the XLA strip
     path with the whole grid in one batch;
-  * its dead / pure / impure branches, and the per-patch denominator
+  * its dead / pure / impure branches, the wrapper's split of the grid
+    into those three lists (each list's plain route, reassembled, equal
+    to the one-pass plain version), and the per-patch denominator
     tolerance beside the grid kernel's per-subgroup one;
   * 3d masked strips against flow_field._dense_flow_strips_3d;
   * the calculator's dense masked branch against
@@ -169,6 +171,34 @@ class TestMaskedDenseFlowPeaks:
     assert (got[0][in_flat] == 2).all() and (got[1][in_flat] == -3).all()
     assert np.isnan(ref[0][in_flat]).all()
     _xy_equal(got[:, apart], ref[:, apart])
+
+
+  @pytest.mark.parametrize('mean', [None, 7.0])
+  def test_three_lists_match_plain(self, mean):
+    # The wrapper splits the grid into dead, pure and impure lists and
+    # reassembles the rows (on the card: NaN rows, the FFT route and the
+    # dense route); on the CPU each list runs its plain route. Together
+    # they equal the one-pass plain version.
+    n = 160
+    pre = _texture(n, 2)
+    post = np.roll(pre, (2, -3), (0, 1))
+    pre_valid = np.ones((n, n), bool)
+    pre_valid[:48, :48] = False         # dead patches in the corner
+    pre_valid[100:103, :] = False       # a crack: impure patches
+    post_valid = np.ones((n, n), bool)
+    post_valid[120:, 120:] = False
+    va, vb = _t(pre_valid), _t(post_valid)
+    cls = cuda_flow.masked_patch_classes(va, vb, 32, (16, 16)).numpy()
+    assert set(np.unique(cls)) == {0, 1, 2}
+    got = cuda_flow.masked_dense_flow_peaks(_t(pre), _t(post), va, vb,
+                                            (32, 32), (16, 16),
+                                            mean=mean).numpy()
+    ref = cuda_flow.masked_flow_peaks_plain(
+        _t(pre), _t(post), va.float(), vb.float(), cls.shape, 32, (16, 16),
+        mean, 2, 0.5, 5).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert np.isnan(got[:, cls == 2]).all()
+    assert np.isfinite(got[:2, cls == 1]).all()
 
 
 class TestMaskedStrips3d:

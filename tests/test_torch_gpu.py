@@ -11,8 +11,8 @@ of them, with every clean-gate decision equal: near masked regions the
 statistics divide by correlation values close to 0); fused solver
 steps equal and nodes within 1e-3 px (2d and 3d), as the staged 2d
 solver with K8; 2d and 3d forces within 1e-4, K8 repeating bit for bit;
-renders (2d and 3d) within 1e-2 gray levels, K4 from staged and from
-direct tiles; K7's surfaces within 1e-3
+renders (2d and 3d) within 1e-2 gray levels, K4 and K13 from staged
+and from direct tiles; K7's surfaces within 1e-3
 of each surface's largest value and repeating bit for bit, K6's peaks as
 K1's (square and rectangular patches, in shared memory and in global
 scratch), the rectangular dense flow and the padfield calculator
@@ -130,15 +130,59 @@ def test_masked_flow_peaks(dev, p, s):
   assert set(cls.unique().tolist()) == {0, 1, 2}
   args = (pre.to(dev), post.to(dev), valid.to(dev), valid.to(dev), (p, p),
           (s, s))
-  before = _build.launch_counts['masked_flow_peaks']
+  before = dict(_build.launch_counts)
   got = cuda_flow.masked_dense_flow_peaks(*args)
-  assert _build.launch_counts['masked_flow_peaks'] == before + 1
+  assert _build.launch_counts['masked_flow_peaks'] == (
+      before['masked_flow_peaks'] + 1)
+  assert _build.launch_counts['masked_flow_pure'] == (
+      before['masked_flow_pure'] + 1)
   again = cuda_flow.masked_dense_flow_peaks(*args)
   assert torch.equal(got.view(torch.int32), again.view(torch.int32))
   ref = cuda_flow.masked_dense_flow_peaks(pre, post, valid, valid, (p, p),
                                           (s, s))
   _masked_equal(got.cpu(), ref)
   assert torch.isnan(got[0].cpu()[cls == 2]).all()
+
+
+# Grids of one class each (K5's three lists, each alone) at both K5 patch
+# sizes: all pure (the shared-memory FFT route), all impure (the dense
+# route; a thin invalid lattice puts invalid pixels in every patch) and
+# all dead (no launch, NaN rows). An odd p takes the pure route's scalar
+# loads; pure pairs above p = 160 take the dense route.
+@pytest.mark.parametrize('kind,p', [(k, p) for p in (80, 160)
+                                    for k in ('pure', 'impure', 'dead')]
+                         + [('pure', 81), ('pure', 192)])
+def test_masked_flow_routes(dev, kind, p):
+  n = 600
+  pre = torch.from_numpy(_texture(n, seed=6))
+  post = torch.roll(pre, (-4, 7), (0, 1)).contiguous()
+  valid = torch.ones((n, n), dtype=torch.bool)
+  if kind == 'impure':
+    valid[::37] = False
+    valid[:, ::41] = False
+  elif kind == 'dead':
+    valid[:] = False
+  cls = cuda_flow.masked_patch_classes(valid, valid, p, (40, 40))
+  assert set(cls.unique().tolist()) == {{'pure': 1, 'impure': 0,
+                                         'dead': 2}[kind]}
+  args = (pre.to(dev), post.to(dev), valid.to(dev), valid.to(dev), (p, p),
+          (40, 40))
+  before = dict(_build.launch_counts)
+  got = cuda_flow.masked_dense_flow_peaks(*args)
+  launched = {k: _build.launch_counts[k] - before[k]
+              for k in ('masked_flow_peaks', 'masked_flow_pure')}
+  assert launched == {'masked_flow_peaks': int(kind != 'dead'),
+                      'masked_flow_pure': int(kind == 'pure' and p <= 160)}
+  again = cuda_flow.masked_dense_flow_peaks(*args)
+  assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+  ref = cuda_flow.masked_flow_peaks_plain(
+      pre, post, valid.float(), valid.float(), tuple(cls.shape), p, (40, 40),
+      None, 2, 0.5, 5)
+  if kind == 'dead':
+    assert torch.isnan(got).all() and torch.isnan(ref).all()
+  else:
+    _masked_equal(got.cpu(), ref)
+    assert torch.isfinite(got[:2]).any()
 
 
 def test_masked_coarse_to_fine(dev):
@@ -377,27 +421,43 @@ def test_fused_fire_3d(dev, prefer):
   assert float(torch.nan_to_num((got - ref).abs()).max()) < 1e-3
 
 
+# Odd sizes, asymmetric bounds (some voxels' x taps leave their shift
+# range) and a NaN voxel. A smooth field stages every block tile's brick
+# in shared memory; random positions with wide bounds gather every tile
+# from global memory.
+@pytest.mark.parametrize('field', ['smooth', 'random'])
 @pytest.mark.parametrize('method', ['nearest', 'linear', 'cubic', 'lanczos'])
-def test_warp_gather_3d(dev, method):
+def test_warp_gather_3d(dev, method, field):
   rng = np.random.RandomState(1)
-  vol = torch.from_numpy((rng.rand(20, 40, 60) * 255).astype(np.float32))
-  zz, yy, xx = torch.meshgrid(torch.arange(24.) - 2, torch.arange(44.) - 2,
-                              torch.arange(64.) - 2, indexing='ij')
-  coords = torch.stack([zz + 0.7 * torch.sin(yy / 7), yy + 2.3 * torch.cos(
-      xx / 9) - 0.4, xx + 3.1 * torch.sin(zz / 5 + yy / 11) + 0.2])
+  vol = torch.from_numpy((rng.rand(21, 37, 61) * 255).astype(np.float32))
+  origin = (-1, -2, -3)
+  zz, yy, xx = torch.meshgrid(torch.arange(23.) - 1, torch.arange(41.) - 2,
+                              torch.arange(67.) - 3, indexing='ij')
+  if field == 'smooth':
+    coords = torch.stack([zz + 0.4 * torch.sin(yy / 13),
+                          yy + 1.1 * torch.cos(xx / 17) - 0.3,
+                          xx + 1.3 * torch.sin(zz / 9 + yy / 19) + 0.2])
+    bounds = (-1, 2, -2, 1, -1, 2)
+  else:
+    coords = torch.from_numpy((rng.rand(3, 23, 41, 67) * np.array(
+        [25.0, 41.0, 65.0])[:, None, None, None] - 2.0).astype(np.float32))
+    bounds = (-30, 28, -50, 45, -70, 66)
   coords[:, 3, 4, 5] = float('nan')
-  bounds = (-1, 1, -2, 2, -2, 2)
+  coords = coords.contiguous()
+  stats = torch.zeros(2, dtype=torch.int32, device=dev)
   before = _build.launch_counts['warp_gather_3d']
   got = cuda_warp.shift_warp_3d(vol.to(dev), coords.to(dev), method,
-                                *bounds, -2, -2, -2)
+                                *bounds, *origin, tile_stats=stats)
   assert _build.launch_counts['warp_gather_3d'] == before + 1
   # The plain version on the card: raw Lanczos weights near integer
   # displacements are ill-conditioned (the reference's hoisted form), so
   # the comparison needs the card's own sin.
   ref = cuda_warp.shift_warp_3d_plain(vol.to(dev), coords.to(dev), method,
-                                      bounds, (-2, -2, -2))
+                                      bounds, origin)
   assert float((got - ref).abs().max()) < 1e-2
   assert float(got[3, 4, 5]) == 0.0
+  staged, tiles = stats.tolist()
+  assert tiles > 0 and staged == (tiles if field == 'smooth' else 0)
 
 
 def test_stitch3d_small(dev):

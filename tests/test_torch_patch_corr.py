@@ -12,6 +12,8 @@ integer peaks exact and sharpness / ratio within rtol 1e-3; a batch
 without a peak gives NaN rows.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,12 +131,15 @@ def _fft_pass(x, n, dit, inverse):
   return x
 
 
-def _k7_model(a, b):
-  """K7's shared-memory route in numpy, one pair [p1, p2] at a time."""
+def _k7_model(a, b, centre=True):
+  """K7's shared-memory route in numpy, one pair [p1, p2] at a time
+  (`centre`: each patch's mean removed first)."""
   p1, p2 = a.shape
   ax1, ax2 = cuda_flow._fft_axis_np(p1), cuda_flow._fft_axis_np(p2)
+  if centre:
+    a, b = a - a.mean(), b - b.mean()
   z = np.zeros((p1, p2), np.complex64)
-  z[np.ix_(ax1[3], ax2[3])] = (a - a.mean()) + 1j * (b - b.mean())
+  z[np.ix_(ax1[3], ax2[3])] = a + 1j * b
   z = _fft_pass(z, p2, True, False)
   z = _fft_pass(z.T, p1, True, False).T
   h2 = p2 // 2 + 1
@@ -165,3 +170,46 @@ def test_fft_plan_model_matches_pallas(shape):
       jnp.asarray(a), jnp.asarray(b), group=1, interpret=True))
   got = np.stack([_k7_model(x, y) for x, y in zip(a, b)])
   np.testing.assert_allclose(got, ref, atol=1.0, rtol=1e-3)
+
+
+# K5's pure route (csrc/masked_flow.cu `masked_pure_kernel`) runs K7's
+# transform on a fully valid pair with each patch's mean removed, takes
+# the four moments and rescales the surface in closed form. A numpy model
+# of those steps on K7's tables must give the Padfield NCC of the pair
+# (all pixels valid) that the dense route and the plain version compute:
+# a wrong moment, tolerance or centring shows here. Within 1e-4 (NCC in
+# [-1, 1], float32 transforms of different order).
+
+
+def _k5_pure_model(a, b):
+  p = a.shape[0]
+  area = np.float32(p * p)
+  pz = (a - np.float32(a.sum(dtype=np.float32) / area)).astype(np.float32)
+  cz = (b - np.float32(b.sum(dtype=np.float32) / area)).astype(np.float32)
+  s1, s2 = pz.sum(dtype=np.float32), (pz * pz).sum(dtype=np.float32)
+  s3, s4 = cz.sum(dtype=np.float32), (cz * cz).sum(dtype=np.float32)
+  var_p = max(s2 - s1 * s1 / area, np.float32(0))
+  var_c = max(s4 - s3 * s3 / area, np.float32(0))
+  denom = np.sqrt(np.float32(var_p * var_c))
+  tol = np.float32(1e3) * np.finfo(np.float32).eps * denom
+  x = _k7_model(pz, cz, centre=False)
+  ncc = np.clip((x - s1 * s3 / area) / denom, -1.0, 1.0)
+  return np.where(denom > tol, ncc, 0.0), pz, cz
+
+
+@pytest.mark.parametrize('p', [32, 27])
+def test_k5_pure_route_model_matches_padfield(p):
+  rng = np.random.RandomState(4)
+  a = (rng.rand(p, p) * 100).astype(np.float32)
+  b = (np.roll(a, (2, -3), (0, 1)) + rng.rand(p, p) * 20).astype(np.float32)
+  got, pz, cz = _k5_pure_model(a, b)
+  ones = torch.ones((1, p, p), dtype=torch.bool)
+  icorr = functools.partial(cuda_flow._irdft2_of_product, n1=p, n2=p)
+  ref = cuda_flow.padfield_ncc(torch.from_numpy(pz)[None],
+                               torch.from_numpy(cz)[None], ones, ones,
+                               cuda_flow._rdft2, icorr, per_patch=True)
+  ref = torch.roll(ref, (p // 2, p // 2), dims=(1, 2))[0].numpy()
+  np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+  # The peak sits at the centre minus b's roll, near the NCC's 1.
+  r, c = np.unravel_index(np.argmax(got), got.shape)
+  assert (r - p // 2, c - p // 2) == (-2, 3) and got[r, c] > 0.9
