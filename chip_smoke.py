@@ -807,9 +807,11 @@ def masked_warm_slice(dev, report, _build, stack) -> dict:
         and xy_bad <= MASKED_TIE_SHARE * int(both.sum()),
         'masked c2f differs from the plain path')
   check(not bool(ov) and not bool(ov_ref), 'masked c2f overflow')
-  check(launches['masked_flow_peaks'] == 2, 'K5 launches on the masked path')
-  check(launches['masked_flow_pure'] > 0,
-        'K5\'s pure route was not launched on the masked path')
+  # Both passes hold pure and impure pairs: each launches both routes.
+  check(launches['masked_flow_peaks'] == 2,
+        'K5\'s dense route launches on the masked path')
+  check(launches['masked_flow_pure'] == 2,
+        'K5\'s pure route launches on the masked path')
   check(launches['warp_gather'] == 2, 'K4 (nearest) launches on masked path')
   report['path_masked'] = dict(wall_s=wall, plain_s=wall_plain,
                                xy_differ=xy_bad,
@@ -2012,7 +2014,10 @@ def main() -> int:
   launches, stack = stack_slice(dev, report, _build)
   torch.cuda.empty_cache()
   masked = masked_warm_slice(dev, report, _build, stack)
-  launches['masked_flow_peaks'] = masked['masked_flow_peaks']
+  # K5's launches: both of its kernels, each route's count beside them.
+  launches['masked_flow_peaks'] = (masked['masked_flow_peaks']
+                                   + masked['masked_flow_pure'])
+  report['K5']['launches_dense'] = masked['masked_flow_peaks']
   report['K5']['launches_pure'] = masked['masked_flow_pure']
   del stack
   torch.cuda.empty_cache()

@@ -26,7 +26,9 @@
 //            transforms' worth of one complex 2d FFT pair;
 //   * impure: masked_flow_kernel, the six forward half spectra (pz, cz,
 //            va, vb, pz^2, cz^2) and six inverse surfaces (12 dense O(p^3)
-//            DFTs), walking its list.
+//            DFTs), walking its list. Pure pairs the FFT route does not
+//            serve (p > 160) join this list, and the kernel gives them
+//            the same closed form on 3 dense DFTs.
 // The tolerance is per patch, tol = 1e3 eps max|denom| over the patch's
 // own surface (a constant denom for a pure pair). The reference shares it
 // per TPU subgroup (grid kernel) or per dispatch batch (strip path); the
@@ -47,8 +49,7 @@
 //    centred position goes to registers (25 per thread at p = 160),
 //    then over the first p^2 floats of the buffer, where the peak chain
 //    (flow_peaks.cuh) reads it. Served for p^2 <= 25 x 1024 (p <= 160;
-//    larger pure pairs join the dense route, whose chain computes the
-//    same NCC).
+//    larger pure pairs take the dense route's closed form).
 //  * Impure: 12 real 2d DFTs of O(p^3) multiply-adds each (plain FMA
 //    loops, f32); the four p^2 input planes are read from L2/HBM a few
 //    times each. Memory: a half spectrum S = 2 p (p/2 + 1) floats, a
@@ -214,7 +215,7 @@ masked_flow_kernel(const float* __restrict__ pre,
   const int64_t S = 2LL * p * (p / 2 + 1), P = (int64_t)p * p;
   float* base = scratch ? scratch + (int64_t)blockIdx.x * per_block : smem;
   float* T = base;       // row spectra / column-inverse scratch
-  float* A = T + S;      // F(va)
+  float* A = T + S;      // F(va), or F(pz) for a pure pair
   float* B = A + S;      // F(vb), then F(cz)
   float* C = B + S;      // F(pz), then F(cz^2)
   float* D = C + S;      // F(pz^2), then sum_c, then the NCC surface
@@ -223,6 +224,7 @@ masked_flow_kernel(const float* __restrict__ pre,
   float* VP = SP + P;    // var_p, then denom
   float* SC = D;
   float* corr = D;
+  const float area = (float)P;
   const float eps = 1.1920928955078125e-07f;  // float32 machine epsilon
 
   for (int k = blockIdx.x; k < n; k += gridDim.x) {
@@ -253,44 +255,73 @@ masked_flow_kernel(const float* __restrict__ pre,
     q.ma = subtract_mean ? sa / fmaxf(na, 1.0f) : mean_value;
     q.mb = subtract_mean ? sb / fmaxf(nb, 1.0f) : mean_value;
 
-    // 2. The six-term chain, sequenced (see the header note).
-    forward(q, kVa, A, T, ctab, stab);
-    forward(q, kVb, B, T, ctab, stab);
-    inverse_product(A, B, T, p, ctab, stab, [&](int e, float x) {
-      O[e] = fmaxf(rintf(x), eps);
-    });
-    forward(q, kPz, C, T, ctab, stab);
-    inverse_product(C, B, T, p, ctab, stab, [&](int e, float x) {
-      SP[e] = x;
-    });
-    forward(q, kPz2, D, T, ctab, stab);
-    inverse_product(D, B, T, p, ctab, stab, [&](int e, float x) {
-      const float inv = 1.0f / O[e];
-      VP[e] = fmaxf(x - SP[e] * SP[e] * inv, 0.0f);
-    });
-    forward(q, kCz, B, T, ctab, stab);
-    inverse_product(A, B, T, p, ctab, stab, [&](int e, float x) {
-      SC[e] = x;
-    });
-    inverse_product(C, B, T, p, ctab, stab, [&](int e, float x) {
-      const float inv = 1.0f / O[e];
-      SP[e] = x - SP[e] * SC[e] * inv;
-    });
-    forward(q, kCz2, C, T, ctab, stab);
-    inverse_product(A, C, T, p, ctab, stab, [&](int e, float x) {
-      const float inv = 1.0f / O[e];
-      const float var_c = fmaxf(x - SC[e] * SC[e] * inv, 0.0f);
-      VP[e] = sqrtf(VP[e] * var_c);
-    });
-    float lmax = 0.0f;
-    for (int e = tid; e < p * p; e += nt) lmax = fmaxf(lmax, fabsf(VP[e]));
-    const float tol = 1e3f * eps * block_reduce(lmax, redf, Max(), 0.0f);
-    for (int e = tid; e < p * p; e += nt) {
-      const float d = VP[e];
-      const float v = d > tol ? clip1(SP[e] / d) : 0.0f;
-      corr[e] = O[e] < cut ? 0.0f : v;
+    if (na == area && nb == area) {
+      // 2a. Pure (listed here where the FFT route does not serve p): the
+      // overlap is p^2 at every shift and the masked sums are the patch
+      // moments, so the NCC is an affine rescale of the plain
+      // cross-correlation.
+      float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f, s4 = 0.0f;
+      for (int e = tid; e < p * p; e += nt) {
+        const float a = plane_value(q, kPz, e), b = plane_value(q, kCz, e);
+        s1 += a;
+        s2 += a * a;
+        s3 += b;
+        s4 += b * b;
+      }
+      s1 = block_reduce(s1, redf, Add(), 0.0f);
+      s2 = block_reduce(s2, redf, Add(), 0.0f);
+      s3 = block_reduce(s3, redf, Add(), 0.0f);
+      s4 = block_reduce(s4, redf, Add(), 0.0f);
+      const float var_p = fmaxf(s2 - s1 * s1 / area, 0.0f);
+      const float var_c = fmaxf(s4 - s3 * s3 / area, 0.0f);
+      const float denom = sqrtf(var_p * var_c);
+      const float tol = 1e3f * eps * denom;
+      const float numc = s1 * s3 / area;
+      forward(q, kPz, A, T, ctab, stab);
+      forward(q, kCz, B, T, ctab, stab);
+      inverse_product(A, B, T, p, ctab, stab, [&](int e, float x) {
+        corr[e] = denom > tol ? clip1((x - numc) / denom) : 0.0f;
+      });
+    } else {
+      // 2b. Impure: the six-term chain, sequenced (see the header note).
+      forward(q, kVa, A, T, ctab, stab);
+      forward(q, kVb, B, T, ctab, stab);
+      inverse_product(A, B, T, p, ctab, stab, [&](int e, float x) {
+        O[e] = fmaxf(rintf(x), eps);
+      });
+      forward(q, kPz, C, T, ctab, stab);
+      inverse_product(C, B, T, p, ctab, stab, [&](int e, float x) {
+        SP[e] = x;
+      });
+      forward(q, kPz2, D, T, ctab, stab);
+      inverse_product(D, B, T, p, ctab, stab, [&](int e, float x) {
+        const float inv = 1.0f / O[e];
+        VP[e] = fmaxf(x - SP[e] * SP[e] * inv, 0.0f);
+      });
+      forward(q, kCz, B, T, ctab, stab);
+      inverse_product(A, B, T, p, ctab, stab, [&](int e, float x) {
+        SC[e] = x;
+      });
+      inverse_product(C, B, T, p, ctab, stab, [&](int e, float x) {
+        const float inv = 1.0f / O[e];
+        SP[e] = x - SP[e] * SC[e] * inv;
+      });
+      forward(q, kCz2, C, T, ctab, stab);
+      inverse_product(A, C, T, p, ctab, stab, [&](int e, float x) {
+        const float inv = 1.0f / O[e];
+        const float var_c = fmaxf(x - SC[e] * SC[e] * inv, 0.0f);
+        VP[e] = sqrtf(VP[e] * var_c);
+      });
+      float lmax = 0.0f;
+      for (int e = tid; e < p * p; e += nt) lmax = fmaxf(lmax, fabsf(VP[e]));
+      const float tol = 1e3f * eps * block_reduce(lmax, redf, Max(), 0.0f);
+      for (int e = tid; e < p * p; e += nt) {
+        const float d = VP[e];
+        const float v = d > tol ? clip1(SP[e] / d) : 0.0f;
+        corr[e] = O[e] < cut ? 0.0f : v;
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
     // 3. Peak chain on the centered [p, p] surface (flow_peaks.cuh).
     peak_chain(corr, p, p, min_distance, threshold_rel, peak_radius, out, plane,

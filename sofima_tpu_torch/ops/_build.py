@@ -48,7 +48,7 @@ build_log: str = ''
 launch_counts: dict[str, int] = {
     'dense_flow_peaks': 0,      # K1: coarse pass
     'targeted_flow_peaks': 0,   # K2: fine pass
-    'masked_flow_peaks': 0,     # K5: masked passes (one per call)
+    'masked_flow_peaks': 0,     # K5's dense-DFT route (impure pairs)
     'masked_flow_pure': 0,      # K5's pure route (shared-memory FFT)
     'patch_flow_peaks': 0,      # K6: peaks of pre-cut patch batches
     'corr_patches': 0,          # K7: surfaces of pre-cut patch batches

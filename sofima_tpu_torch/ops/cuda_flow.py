@@ -406,24 +406,28 @@ def masked_flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
                             grid: tuple[int, int], patch: int,
                             step: tuple[int, int], mean: float | None,
                             min_distance: int, threshold_rel: float,
-                            peak_radius: int) -> torch.Tensor:
+                            peak_radius: int,
+                            pairs: torch.Tensor | None = None) -> torch.Tensor:
   """Plain PyTorch version of K5 -> [4, gy, gx].
 
   Per patch pair, the branch of `masked_patch_classes`: dead pairs give
   NaN rows; pure pairs the closed-form NCC of the plain cross-correlation
   and the patch moments; impure pairs the Padfield chain of
   flow_field._masked_xcorr_circular (`padfield_ncc`, per-patch
-  tolerance). Then the peak chain of `batched_peaks`.
+  tolerance). Then the peak chain of `batched_peaks`. `pairs`: grid
+  indices gi * gx + gj of the only pairs to compute, whose rows come
+  back as [4, len(pairs)].
   """
   gy, gx = grid
   sy, sx = step
   dev = pre.device
-  n = gy * gx
-  ii = torch.arange(n, device=dev)
+  ii = (torch.arange(gy * gx, device=dev) if pairs is None
+        else pairs.to(device=dev, dtype=torch.int64))
+  n = ii.numel()
   y0 = (ii // gx) * sy
   x0 = (ii % gx) * sx
   classes = masked_patch_classes(pre_valid, post_valid, patch,
-                                 step).reshape(-1)[:n]
+                                 step).reshape(-1)[ii]
   area = float(patch * patch)
   eps = float(np.finfo(np.float32).eps)
   icorr = functools.partial(_irdft2_of_product, n1=patch, n2=patch)
@@ -471,7 +475,10 @@ def masked_flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
                          threshold_rel, peak_radius)
     out.append(torch.where((cls == 2)[:, None],
                            torch.full_like(rows, float('nan')), rows))
-  return torch.cat(out).reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
+  rows = torch.cat(out) if out else pre.new_empty((0, 4))
+  if pairs is not None:
+    return rows.T
+  return rows.reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
 
 
 def _launch(pre, post, offsets, grid, patch, step, crop, mean, min_distance,
@@ -598,66 +605,6 @@ def _valid_plane(valid, like: torch.Tensor) -> torch.Tensor:
   return valid.to(torch.float32).contiguous()
 
 
-def masked_route_plain(pre: torch.Tensor, post: torch.Tensor,
-                       pre_valid: torch.Tensor, post_valid: torch.Tensor,
-                       pairs: torch.Tensor, gx: int, patch: int,
-                       step: tuple[int, int], mean: float | None, pure: bool,
-                       min_distance: int, threshold_rel: float,
-                       peak_radius: int) -> torch.Tensor:
-  """Plain version of one of K5's two routes -> [n, 4] peak rows.
-
-  `pairs`: grid indices gi * gx + gj of the route's patch pairs. The
-  pure route (both patches fully valid) takes the closed-form NCC of
-  the plain cross-correlation and the patch moments, the other the
-  Padfield chain (`padfield_ncc`, per-patch tolerance); the arithmetic
-  is `masked_flow_peaks_plain`'s for those branches.
-  """
-  sy, sx = step
-  pairs = pairs.to(torch.int64)
-  y0, x0 = (pairs // gx) * sy, (pairs % gx) * sx
-  area = float(patch * patch)
-  eps = float(np.finfo(np.float32).eps)
-  icorr = functools.partial(_irdft2_of_product, n1=patch, n2=patch)
-  out = []
-  for c0 in range(0, pairs.numel(), _PLAIN_CHUNK):
-    sl = slice(c0, min(pairs.numel(), c0 + _PLAIN_CHUNK))
-    a = _patches(pre, y0[sl], x0[sl], patch)
-    b = _patches(post, y0[sl], x0[sl], patch)
-    va = _patches(pre_valid, y0[sl], x0[sl], patch) > 0
-    vb = _patches(post_valid, y0[sl], x0[sl], patch) > 0
-    zero = torch.zeros_like(a)
-    if mean is None:
-      ma = (torch.where(va, a, zero).sum(dim=(1, 2), keepdim=True)
-            / torch.clamp(va.sum(dim=(1, 2), keepdim=True), min=1))
-      mb = (torch.where(vb, b, zero).sum(dim=(1, 2), keepdim=True)
-            / torch.clamp(vb.sum(dim=(1, 2), keepdim=True), min=1))
-    else:
-      ma = mb = mean
-    pz = torch.where(va, a - ma, zero)
-    cz = torch.where(vb, b - mb, zero)
-    if pure:
-      s1, s3 = pz.sum(dim=(1, 2)), cz.sum(dim=(1, 2))
-      var_p = torch.clamp((pz * pz).sum(dim=(1, 2)) - s1 * s1 / area, min=0.0)
-      var_c = torch.clamp((cz * cz).sum(dim=(1, 2)) - s3 * s3 / area, min=0.0)
-      denom = torch.sqrt(var_p * var_c)[:, None, None]
-      tol = 1e3 * eps * denom
-      numc = (s1 * s3 / area)[:, None, None]
-      xc = circular_xcorr(pz, cz)
-      corr = torch.where(
-          denom > tol,
-          torch.clamp((xc - numc) / torch.where(denom > tol, denom,
-                                                torch.ones_like(denom)),
-                      -1.0, 1.0),
-          torch.zeros_like(xc))
-    else:
-      corr = padfield_ncc(pz, cz, va, vb, _rdft2, icorr, per_patch=True)
-    corr = torch.roll(corr, (patch // 2, patch // 2), dims=(1, 2))
-    out.append(batched_peaks(corr, (patch // 2, patch // 2), min_distance,
-                             threshold_rel, peak_radius))
-  return torch.cat(out) if out else torch.empty(
-      (0, 4), dtype=torch.float32, device=pre.device)
-
-
 def _masked_pure_fits(lib, p: int) -> bool:
   """Does K5's pure route (shared-memory FFT) serve p x p pairs?"""
   if lib.masked_pure_smem_bytes.argtypes is None:
@@ -719,6 +666,7 @@ def _launch_masked_dense(lib, pre, post, va, vb, pairs, gx, p, step, mean,
           float(mean or 0.0), _overlap_cut(p * p), int(min_distance),
           float(threshold_rel), int(peak_radius), _build.ptr(scratch),
           nblocks, out[0].numel(), out.data_ptr(), _build.stream_of(pre))
+  _build.launch_counts['masked_flow_peaks'] += 1
   _build.check(rc, 'masked_flow_peaks (dense route)')
 
 
@@ -739,10 +687,11 @@ def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
   pairs (both patches fully valid) take the pure route, the closed-form
   NCC on the shared-memory FFT (csrc/masked_flow.cu `masked_pure_kernel`,
   p <= 160); impure pairs (and pure ones where the pure route does not
-  serve p) the dense-DFT Padfield chain. On CPU tensors each route runs
-  its plain version (`masked_route_plain`). A call that launches counts
-  one 'masked_flow_peaks' launch, and the pure route's launch also counts
-  under 'masked_flow_pure'.
+  serve p) the dense-DFT kernel (`masked_flow_kernel`: the Padfield
+  chain, or the closed form for a pure pair). On CPU tensors each list
+  runs through `masked_flow_peaks_plain`. The dense kernel's launches
+  count under 'masked_flow_peaks', the pure route's under
+  'masked_flow_pure'.
   """
   p = _check_square(patch_size)
   sy, sx = step
@@ -765,11 +714,10 @@ def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
                   for c in (1, 0))
   args = (min_distance, threshold_rel, peak_radius)
   if on_cpu:
-    for pairs, is_pure in ((pure, True), (impure, False)):
+    for pairs in (pure, impure):
       if pairs.numel():
-        out[:, pairs.long()] = masked_route_plain(
-            pre, post, va, vb, pairs, gx, p, (sy, sx), mean, is_pure,
-            *args).T
+        out[:, pairs.long()] = masked_flow_peaks_plain(
+            pre, post, va, vb, grid, p, (sy, sx), mean, *args, pairs=pairs)
     return out.reshape(4, gy, gx)
   if pure.numel() + impure.numel() == 0:
     return out.reshape(4, gy, gx)
@@ -782,7 +730,6 @@ def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
   if impure.numel():
     _launch_masked_dense(lib, pre, post, va, vb, impure, gx, p, (sy, sx),
                          mean, *args, out)
-  _build.launch_counts['masked_flow_peaks'] += 1
   return out.reshape(4, gy, gx)
 
 

@@ -7,9 +7,9 @@ interpret mode, as the JAX tests run them) and the port:
     520^2 case of tests/test_flow_field.py, and against the XLA strip
     path with the whole grid in one batch;
   * its dead / pure / impure branches, the wrapper's split of the grid
-    into those three lists (each list's plain route, reassembled, equal
-    to the one-pass plain version), and the per-patch denominator
-    tolerance beside the grid kernel's per-subgroup one;
+    into those three lists (each list through the plain version,
+    reassembled, equal to the one-pass plain version), and the per-patch
+    denominator tolerance beside the grid kernel's per-subgroup one;
   * 3d masked strips against flow_field._dense_flow_strips_3d;
   * the calculator's dense masked branch against
     JAXMaskedXCorrWithStatsCalculator(mode='circular_dft');
@@ -177,8 +177,8 @@ class TestMaskedDenseFlowPeaks:
   def test_three_lists_match_plain(self, mean):
     # The wrapper splits the grid into dead, pure and impure lists and
     # reassembles the rows (on the card: NaN rows, the FFT route and the
-    # dense route); on the CPU each list runs its plain route. Together
-    # they equal the one-pass plain version.
+    # dense route); on the CPU each list runs through the plain version.
+    # Together they equal the one-pass plain version.
     n = 160
     pre = _texture(n, 2)
     post = np.roll(pre, (2, -3), (0, 1))

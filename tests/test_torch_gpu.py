@@ -148,7 +148,7 @@ def test_masked_flow_peaks(dev, p, s):
 # sizes: all pure (the shared-memory FFT route), all impure (the dense
 # route; a thin invalid lattice puts invalid pixels in every patch) and
 # all dead (no launch, NaN rows). An odd p takes the pure route's scalar
-# loads; pure pairs above p = 160 take the dense route.
+# loads; pure pairs above p = 160 take the dense route's closed form.
 @pytest.mark.parametrize('kind,p', [(k, p) for p in (80, 160)
                                     for k in ('pure', 'impure', 'dead')]
                          + [('pure', 81), ('pure', 192)])
@@ -171,8 +171,9 @@ def test_masked_flow_routes(dev, kind, p):
   got = cuda_flow.masked_dense_flow_peaks(*args)
   launched = {k: _build.launch_counts[k] - before[k]
               for k in ('masked_flow_peaks', 'masked_flow_pure')}
-  assert launched == {'masked_flow_peaks': int(kind != 'dead'),
-                      'masked_flow_pure': int(kind == 'pure' and p <= 160)}
+  fft = kind == 'pure' and p <= 160
+  assert launched == {'masked_flow_peaks': int(kind != 'dead' and not fft),
+                      'masked_flow_pure': int(fft)}
   again = cuda_flow.masked_dense_flow_peaks(*args)
   assert torch.equal(got.view(torch.int32), again.view(torch.int32))
   ref = cuda_flow.masked_flow_peaks_plain(
@@ -194,7 +195,9 @@ def test_masked_coarse_to_fine(dev):
   got, ov = flow_field.coarse_to_fine_flow(
       pre.to(dev), post.to(dev), pre_mask=mask.to(dev),
       post_mask=mask.to(dev), return_overflow=True)
+  # Each pass launches both routes: pure and impure pairs on both grids.
   assert _build.launch_counts['masked_flow_peaks'] == 2
+  assert _build.launch_counts['masked_flow_pure'] == 2
   assert _build.launch_counts['warp_gather'] == 2
   ref, ov_ref = flow_field.coarse_to_fine_flow(
       pre, post, pre_mask=mask, post_mask=mask, return_overflow=True)
@@ -372,7 +375,10 @@ def test_warp_gather(dev, method, field):
   assert float((got.cpu() - ref).abs().max()) < 1e-2
   assert float(got[0, 5, 7]) == 0.0
   staged, tiles = stats.tolist()
-  assert tiles > 0 and staged == (tiles if field == 'smooth' else 0)
+  if field == 'overrun':
+    assert tiles >= staged
+  else:
+    assert tiles > 0 and staged == (tiles if field == 'smooth' else 0)
 
 
 def test_wrong_device_or_dtype_raises(dev):
@@ -424,16 +430,28 @@ def test_fused_fire_3d(dev, prefer):
 # Odd sizes, asymmetric bounds (some voxels' x taps leave their shift
 # range) and a NaN voxel. A smooth field stages every block tile's brick
 # in shared memory; random positions with wide bounds gather every tile
-# from global memory.
-@pytest.mark.parametrize('field', ['smooth', 'random'])
+# from global memory; an overrun field (displacements up to 3.1 px
+# against bounds of +-1 / +-2) leaves some voxels without a live tap on
+# an axis, which render 0.
+@pytest.mark.parametrize('field', ['smooth', 'random', 'overrun'])
 @pytest.mark.parametrize('method', ['nearest', 'linear', 'cubic', 'lanczos'])
 def test_warp_gather_3d(dev, method, field):
   rng = np.random.RandomState(1)
-  vol = torch.from_numpy((rng.rand(21, 37, 61) * 255).astype(np.float32))
-  origin = (-1, -2, -3)
-  zz, yy, xx = torch.meshgrid(torch.arange(23.) - 1, torch.arange(41.) - 2,
-                              torch.arange(67.) - 3, indexing='ij')
-  if field == 'smooth':
+  if field == 'overrun':
+    vol = torch.from_numpy((rng.rand(20, 40, 60) * 255).astype(np.float32))
+    origin = (-2, -2, -2)
+    zz, yy, xx = torch.meshgrid(torch.arange(24.) - 2, torch.arange(44.) - 2,
+                                torch.arange(64.) - 2, indexing='ij')
+  else:
+    vol = torch.from_numpy((rng.rand(21, 37, 61) * 255).astype(np.float32))
+    origin = (-1, -2, -3)
+    zz, yy, xx = torch.meshgrid(torch.arange(23.) - 1, torch.arange(41.) - 2,
+                                torch.arange(67.) - 3, indexing='ij')
+  if field == 'overrun':
+    coords = torch.stack([zz + 0.7 * torch.sin(yy / 7), yy + 2.3 * torch.cos(
+        xx / 9) - 0.4, xx + 3.1 * torch.sin(zz / 5 + yy / 11) + 0.2])
+    bounds = (-1, 1, -2, 2, -2, 2)
+  elif field == 'smooth':
     coords = torch.stack([zz + 0.4 * torch.sin(yy / 13),
                           yy + 1.1 * torch.cos(xx / 17) - 0.3,
                           xx + 1.3 * torch.sin(zz / 9 + yy / 19) + 0.2])
@@ -457,7 +475,10 @@ def test_warp_gather_3d(dev, method, field):
   assert float((got - ref).abs().max()) < 1e-2
   assert float(got[3, 4, 5]) == 0.0
   staged, tiles = stats.tolist()
-  assert tiles > 0 and staged == (tiles if field == 'smooth' else 0)
+  if field == 'overrun':
+    assert tiles >= staged
+  else:
+    assert tiles > 0 and staged == (tiles if field == 'smooth' else 0)
 
 
 def test_stitch3d_small(dev):
