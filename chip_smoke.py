@@ -63,9 +63,16 @@ field of random positions (every tile on the direct branch); K13 so in
 linear and Lanczos at path (a)'s render shape and on random positions.
 K5 is also timed route by route on bench's grid (the pure pairs on the
 shared-memory FFT, the impure on the dense DFT, each alone on its list),
-and its pure route must run on the masked path. The redesigned kernels
-(K4, K5, K7, K13, and K4's launches as K12 and K4p) carry their times
-before the redesign as `prior_ms` in the kernels line.
+and its pure route must run on the masked path. K1 and K2 must take
+their FFT route at the stack path's shapes (no launch counted under
+'flow_peaks_dft' there, nor on the cold and warm stack paths); torch.fft's
+time for the same pairs' surfaces (pre-cut patches) is printed beside
+them as a yardstick for the transform alone, and their dense-DFT route is
+held against the plain version at p = 192 on a 2048^2 pair. The
+redesigned kernels (K1, K2, K4, K5, K7, K13, and K4's launches as K12 and
+K4p) print their times before the redesign beside the new ones; the
+kernels line holds only numbers measured (or, for bound_ms, computed) in
+this run.
 
 Each path runs with the launch counters set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the
@@ -152,9 +159,12 @@ K4_RANDOM = 2048        # edge of K4's random-position field
 K13_RANDOM = (64, 256, 256)   # K13's random-position output (z, y, x)
 K12_REPS = 20           # timed calls per K12 box (kernel and grid_sample)
 # The redesigned kernels' times before the redesign (the dense-DFT K7,
-# the runtime-tap K4 gather, K5 with every pair on the dense DFT and the
-# runtime-tap, unstaged K13, measured by this script on an H100 80GB
-# HBM3 at 700 W), reported beside the new ones.
+# K1 and K2, the runtime-tap K4 gather, K5 with every pair on the dense
+# DFT and the runtime-tap, unstaged K13, measured by this script on an
+# H100 80GB HBM3 at 700 W), printed beside the new ones and kept out of
+# the kernels line.
+K1_PRIOR_MS = 56.77
+K2_PRIOR_MS = 70.46
 K7_PRIOR_MS = 115.8
 K4_PRIOR_MS = 7.149
 K4_PRIOR_MS_LINEAR = 1.446
@@ -163,6 +173,9 @@ K4P_PRIOR_MS = 7.227
 K5_PRIOR_MS = 985.7
 K13_PRIOR_MS = 1.070
 K13_PRIOR_MS_LANCZOS = 10.82
+# K1's dense-DFT route (sizes the FFT route does not serve): image edge,
+# p and step of the pair it is held on.
+DFT_ROUTE = (2048, 192, 64)
 MIN_PATCH = 4           # reconcile_flows' min_patch_size in path (f)
 HOLE_SHARE = 0.45       # nodes dropped from a copy of path (f)'s 1x flow,
                         # leaving islands for the component pruning
@@ -358,6 +371,49 @@ def compare_flow(got, ref, name, fraction=STAT_FRACTION):
       stat_frac=frac, stat_max_rel=rel, stat_max_abs=float(d.max()))
 
 
+def fft_surfaces_ms(pre, post, offsets, grid, p, step) -> float:
+  """torch.fft's time for the circular cross-correlation surfaces of a
+  flow grid's pairs, cut from the images beforehand (untimed): rfft2 of
+  both batches, the conjugate product, irfft2. A yardstick for the
+  transform alone: it neither takes the means off nor searches peaks."""
+  from sofima_tpu_torch.ops import cuda_flow
+  gy, gx = grid
+  n = gy * gx
+  ii = torch.arange(n, device=pre.device)
+  y0, x0 = (ii // gx) * step[0], (ii % gx) * step[1]
+  qy0, qx0 = y0, x0
+  if offsets is not None:
+    off = offsets.reshape(n, 2).to(torch.int64)
+    qy0, qx0 = y0 + off[:, 0], x0 + off[:, 1]
+  cut = lambda img, ys, xs: torch.cat([
+      cuda_flow._patches(img, ys[c:c + 4096], xs[c:c + 4096], p)
+      for c in range(0, n, 4096)])
+  a, b = cut(pre, y0, x0), cut(post, qy0, qx0)
+  return cuda_ms(lambda: torch.fft.irfft2(
+      torch.fft.rfft2(a) * torch.conj(torch.fft.rfft2(b)), s=(p, p)))
+
+
+def fft_route(fn, name, _build):
+  """One call of K1 or K2 that must take the FFT route (no launch under
+  'flow_peaks_dft') and repeat bit for bit; returns its rows."""
+  before = _build.launch_counts['flow_peaks_dft']
+  got = fn()
+  check(_build.launch_counts['flow_peaks_dft'] == before,
+        f'{name} did not take the FFT route')
+  check(same_bits(got, fn()), f'{name} does not repeat bit for bit')
+  print(f'  {name}: FFT route; a second launch repeats the first bit for bit')
+  return got
+
+
+def print_flow_times(r, prior_ms) -> None:
+  print(f'  FFT route: {r["threads"]} threads a block, {r["blocks_per_sm"]} '
+        'blocks per SM')
+  print(f'  kernel {r["ms"]:.3f} ms (before {prior_ms}), plain '
+        f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.3f} ms; torch.fft '
+        f'surfaces alone (rfft2, conj product, irfft2 of the pre-cut '
+        f'patches) {r["torch_fft_ms"]:.3f} ms')
+
+
 def k5_phase(dev, report, pre, post) -> None:
   """K5 on bench.py's flow_masked stage: the dense masked grid (p = 160,
   s = 40) of a 10k^2 pair with its tissue mask on both planes, against
@@ -400,7 +456,7 @@ def k5_phase(dev, report, pre, post) -> None:
         'K5: the routes alone differ from the whole call')
   nbytes = 4 * N * N * 4 + 16 * gm * gm
   report['K5'] = dict(compare_flow(got, ref, 'K5', STAT_FRACTION_MASKED),
-                      ms=cuda_ms(k5), prior_ms=K5_PRIOR_MS,
+                      ms=cuda_ms(k5),
                       ms_pure=ms_route['pure'], ms_impure=ms_route['impure'],
                       plain_ms=wall_ms(k5p), library_ms=None,
                       dead=n_dead, pure=n_pure, impure=n_impure,
@@ -418,19 +474,11 @@ def k5_phase(dev, report, pre, post) -> None:
         f'{r5["bound_ms"]:.3f} ms ({r5["bound_by"]})')
 
 
-def stack_slice(dev, report, _build) -> dict:
-  """K1-K4 at the stack path's shapes, then the stack path itself.
-
-  Returns the kernels' launch counts from the stack path's run."""
+def k1_k2_phase(report, pre, post, _build, rng) -> None:
+  """K1 and K2 at the stack path's shapes on the 10k^2 pair (both on the
+  FFT route; K2's offsets drawn from `rng`), and K1's dense-DFT route at
+  p = 192."""
   from sofima_tpu_torch.ops import cuda_flow
-  from sofima_tpu_torch.ops import cuda_mesh
-  from sofima_tpu_torch.ops import cuda_warp
-  from sofima_tpu_torch.ops import interp
-  from sofima_tpu_torch.pipeline import stack_align
-
-  tex = texture(N, dev)
-  pre = tex.contiguous()
-  post = torch.roll(tex, (7, -12), (0, 1)).contiguous()
   image_bytes = 2 * N * N * 4
 
   # K1: the coarse pass, p = step = 160 on the 10k^2 pair.
@@ -439,23 +487,48 @@ def stack_slice(dev, report, _build) -> dict:
   gy = (N - (160 - 160)) // 160
   k1p = lambda: cuda_flow.flow_peaks_plain(
       pre, post, None, (gy, gy), 160, (160, 160), 160, None, 2, 0.5, 5)
-  report['K1'] = dict(compare_flow(k1(), k1p(), 'K1'), ms=cuda_ms(k1),
-                      plain_ms=wall_ms(k1p), library_ms=None,
+  got = fft_route(k1, 'K1', _build)
+  report['K1'] = dict(compare_flow(got, k1p(), 'K1'), ms=cuda_ms(k1),
+                      plain_ms=wall_ms(k1p),
+                      library_ms=None,
+                      torch_fft_ms=fft_surfaces_ms(pre, post, None, (gy, gy),
+                                                   160, (160, 160)),
+                      **dict(zip(('threads', 'blocks_per_sm'),
+                                 cuda_flow.flow_fft_config(160, 160))),
                       **least_time(image_bytes + 16 * gy * gy,
                                    gy * gy * xcorr_flops(160)))
-  print(f'  kernel {report["K1"]["ms"]:.3f} ms, plain '
-        f'{report["K1"]["plain_ms"]:.3f} ms, bound '
-        f'{report["K1"]["bound_ms"]:.3f} ms')
+  print_flow_times(report['K1'], K1_PRIOR_MS)
+
+  # K1's dense-DFT route, for sizes the FFT route does not serve.
+  n_d, p_d, s_d = DFT_ROUTE
+  print(f'K1 dense-DFT route, {n_d}^2, p = {p_d}, s = {s_d}')
+  pre_d, post_d = (t[:n_d, :n_d].contiguous() for t in (pre, post))
+  g_d = (n_d - (p_d - s_d)) // s_d
+  kd = lambda: cuda_flow.dense_flow_peaks(pre_d, post_d, (p_d, p_d),
+                                          (s_d, s_d))
+  kdp = lambda: cuda_flow.flow_peaks_plain(
+      pre_d, post_d, None, (g_d, g_d), p_d, (s_d, s_d), p_d, None, 2, 0.5, 5)
+  before = _build.launch_counts['flow_peaks_dft']
+  got = kd()
+  check(_build.launch_counts['flow_peaks_dft'] == before + 1,
+        f'K1 at p = {p_d} did not take the dense-DFT route')
+  rd = compare_flow(got, kdp(), 'K1 dense-DFT route')
+  report['K1'].update(dft_route_p=p_d, dft_route_ms=cuda_ms(kd),
+                      dft_route_plain_ms=wall_ms(kdp),
+                      dft_route_err=rd['err'],
+                      dft_route_stat_frac=rd['stat_frac'])
+  print(f'  kernel {report["K1"]["dft_route_ms"]:.3f} ms, plain '
+        f'{report["K1"]["dft_route_plain_ms"]:.3f} ms')
+  del pre_d, post_d
 
   # K2: the fine pass, p = 80, s = 40, 4-row blocks. As on the main path,
   # each block's window is targeted near the true shift (7, -12), here
   # with a random error of up to 3 px.
   print('K2 targeted_flow_peaks, 10k^2, p = 80, s = 40, peak_crop = 32')
   geo = cuda_flow.targeted_geometry((N, N), (80, 80), (40, 40), rows=4)
-  rng = np.random.RandomState(SEED + 1)
   jitter = rng.randint(-3, 4, size=(geo['nrsteps'], geo['ngroups'], 2))
   offs = torch.from_numpy((jitter + np.array([7, -12])).astype(np.int32))
-  offs = offs.to(dev)
+  offs = offs.to(pre.device)
   k2 = lambda: cuda_flow.dense_flow_peaks_targeted(
       pre, post, offs, (80, 80), (40, 40), max_offset=128, peak_crop=32,
       rows=4)
@@ -465,13 +538,35 @@ def stack_slice(dev, report, _build) -> dict:
       pre, post, ex, (geo['gy'], geo['gx']), 80, (40, 40), 32, None, 2,
       0.5, 5)
   n2 = geo['gy'] * geo['gx']
-  report['K2'] = dict(compare_flow(k2(), k2p(), 'K2'), ms=cuda_ms(k2),
-                      plain_ms=wall_ms(k2p), library_ms=None,
+  got = fft_route(k2, 'K2', _build)
+  report['K2'] = dict(compare_flow(got, k2p(), 'K2'), ms=cuda_ms(k2),
+                      plain_ms=wall_ms(k2p),
+                      library_ms=None,
+                      torch_fft_ms=fft_surfaces_ms(
+                          pre, post, ex, (geo['gy'], geo['gx']), 80,
+                          (40, 40)),
+                      **dict(zip(('threads', 'blocks_per_sm'),
+                                 cuda_flow.flow_fft_config(80, 32))),
                       **least_time(image_bytes + offs.numel() * 4 + 16 * n2,
                                    n2 * xcorr_flops(80)))
-  print(f'  kernel {report["K2"]["ms"]:.3f} ms, plain '
-        f'{report["K2"]["plain_ms"]:.3f} ms, bound '
-        f'{report["K2"]["bound_ms"]:.3f} ms')
+  print_flow_times(report['K2'], K2_PRIOR_MS)
+  del got
+
+
+def stack_slice(dev, report, _build) -> dict:
+  """K1-K4 at the stack path's shapes, then the stack path itself.
+
+  Returns the kernels' launch counts from the stack path's run."""
+  from sofima_tpu_torch.ops import cuda_mesh
+  from sofima_tpu_torch.ops import cuda_warp
+  from sofima_tpu_torch.ops import interp
+  from sofima_tpu_torch.pipeline import stack_align
+
+  tex = texture(N, dev)
+  pre = tex.contiguous()
+  post = torch.roll(tex, (7, -12), (0, 1)).contiguous()
+  rng = np.random.RandomState(SEED + 1)
+  k1_k2_phase(report, pre, post, _build, rng)
 
   # K3: the fused FIRE solve on a 250^2 mesh (headline solver config).
   print('K3 fused_fire, 250^2 nodes')
@@ -563,10 +658,9 @@ def stack_slice(dev, report, _build) -> dict:
   lib_err = float((lib()[0, 0] - k4['linear']()[0]).abs().max())
   ms4 = {m: cuda_ms(k4[m]) for m in K4_METHODS}
   report['K4'] = dict(err=errs['lanczos'], ms=ms4['lanczos'],
-                      prior_ms=K4_PRIOR_MS, plain_ms=wall_ms(
+                      plain_ms=wall_ms(
       lambda: cuda_warp.shift_warp_plain(img, coords, 'lanczos')),
                       ms_linear=ms4['linear'],
-                      prior_ms_linear=K4_PRIOR_MS_LINEAR,
                       ms_nearest=ms4['nearest'], ms_cubic=ms4['cubic'],
                       max_abs_err_by_method=errs,
                       max_abs_err_random=errs_rand,
@@ -624,6 +718,13 @@ def stack_slice(dev, report, _build) -> dict:
   for k in ('dense_flow_peaks', 'targeted_flow_peaks', 'fused_fire',
             'warp_gather'):
     check(launches[k] > 0, f'kernel {k} was not launched on the stack path')
+  check(launches['flow_peaks_dft'] == 0,
+        'K1/K2 took the dense-DFT route on the stack path')
+  # Launches by route: the dense-DFT route's counter (K1's and K2's
+  # together) is 0 here, so every launch of each took the FFT route.
+  for key, name in (('K1', 'dense_flow_peaks'), ('K2', 'targeted_flow_peaks')):
+    report[key].update(launches_fft=launches[name],
+                       launches_dft=launches['flow_peaks_dft'])
   report['stack_cold'] = dict(wall_s=wall, mpix_s=mpix, max_err=max(errs),
                               **timings)
   del rendered, solved
@@ -846,6 +947,8 @@ def masked_warm_slice(dev, report, _build, stack) -> dict:
         f'overflow {bool(overflow)}; refreshes {refreshes}; launches {warm_l}')
   check(max(errs) <= MAX_ERR, f'warm interior error {max(errs)} > {MAX_ERR}')
   check(not bool(overflow), 'envelope overflow on the warm path')
+  check(warm_l['flow_peaks_dft'] == 0,
+        'K1/K2 took the dense-DFT route on the warm path')
   check(refreshes >= 0 and warm_l['targeted_flow_peaks'] == N_Z - 1
         + refreshes, 'K1 launched beyond pair 0 and the refreshes')
   report['stack_warm'] = dict(wall_s=wall, max_err=max(errs),
@@ -993,11 +1096,10 @@ def k13_phase(dev, report) -> None:
   nbytes = 16 * n_out + 4 * vol.numel()
   report['K13'] = dict(
       err=errs['linear'], ms=cuda_ms(k13['linear']),
-      prior_ms=K13_PRIOR_MS, plain_ms=wall_ms(
+      plain_ms=wall_ms(
           lambda: cuda_warp.shift_warp_3d_plain(vol, coords, 'linear', bnds,
                                                 org)),
       max_abs_err_lanczos=errs['lanczos'], ms_lanczos=cuda_ms(k13['lanczos']),
-      prior_ms_lanczos=K13_PRIOR_MS_LANCZOS,
       max_abs_err_random=errs_rand, staged_tiles=staged, tiles=tiles,
       staged_share=staged / max(tiles, 1),
       library_ms=cuda_ms(lib), library_max_abs_diff=lib_diff,
@@ -1793,7 +1895,7 @@ def library_slice(dev, report, _build) -> dict:
   err = max(float((cuda_warp.shift_warp(*a) - shift_warp_plain(*a)).abs()
                   .max()) for a in k4p_in)
   px = coords.shape[-1] * coords.shape[-2]
-  report['K4p'] = dict(err=err, ms=cuda_ms(k4p), prior_ms=K4P_PRIOR_MS,
+  report['K4p'] = dict(err=err, ms=cuda_ms(k4p),
                        plain_ms=wall_ms(k4p_plain),
                        library_ms=None, calls=len(k4p_in),
                        **least_time(16 * px, LANCZOS_FLOPS_PX * px))
@@ -1824,7 +1926,7 @@ def library_slice(dev, report, _build) -> dict:
         im[None], grid, mode='bilinear', padding_mode='zeros',
         align_corners=True), K12_REPS)
     px += cd.shape[-1] * cd.shape[-2]
-  report['K12'] = dict(err=err, ms=ms, prior_ms=K12_PRIOR_MS, plain_ms=plain,
+  report['K12'] = dict(err=err, ms=ms, plain_ms=plain,
                        library_ms=lib, boxes=len(k12_in),
                        **least_time(4 * N * N + 12 * px, LINEAR_FLOPS_PX * px))
   print(f'  K12 (ndimage_warp\'s K4 launches, {len(k12_in)} boxes of '
@@ -1944,7 +2046,6 @@ def library_slice(dev, report, _build) -> dict:
   lib_err = float((lib7() - got).abs().max())
   report['K7'] = dict(err=err, max_rel_err=rel,
                       ms=cuda_ms(lambda: cuda_flow.corr_patches(a, b)),
-                      prior_ms=K7_PRIOR_MS,
                       plain_ms=wall_ms(
                           lambda: cuda_flow.corr_patches_plain(a, b)),
                       library_ms=cuda_ms(lib7),

@@ -39,12 +39,15 @@ import time
 
 import torch
 
-# The hand-written kernels by their CUDA function names (csrc/*.cu).
-KERNELS = ('flow_peaks_kernel', 'fused_fire_kernel', 'warp_gather_kernel')
+# The hand-written kernels by their CUDA function names (csrc/*.cu); K1
+# and K2 are `flow_fft_kernel` (FFT route) or `flow_peaks_kernel` (dense
+# route).
+KERNELS = ('flow_fft_kernel', 'flow_peaks_kernel', 'fused_fire_kernel',
+           'warp_gather_kernel')
 KERNELS_MASKED = ('masked_pure_kernel', 'masked_flow_kernel',
                   'warp_gather_kernel')
 KERNELS_3D = ('force3d_kernel', 'warp3d_kernel')
-KERNELS_MONTAGE = ('flow_peaks_kernel', 'force2d_kernel',
+KERNELS_MONTAGE = ('flow_fft_kernel', 'flow_peaks_kernel', 'force2d_kernel',
                    'warp_gather_kernel')
 SECTIONS = 4    # as chip_smoke.py's main path
 RUNS = 3

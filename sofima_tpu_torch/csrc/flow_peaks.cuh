@@ -97,6 +97,8 @@ __device__ __forceinline__ void write_row(float* __restrict__ out,
 
 // Peak statistics of the [n1, n2] surface `corr` whose zero shift sits at
 // (n1/2, n2/2). Every thread of the block calls it; thread 0 writes.
+// The threshold is tested before the local-max window, so a value at or
+// below it (or NaN) costs one read instead of (2 min_distance + 1)^2.
 __device__ void peak_chain(const float* corr, int n1, int n2, int min_distance,
                            float threshold_rel, int peak_radius,
                            float* __restrict__ out, int64_t plane,
@@ -118,6 +120,7 @@ __device__ void peak_chain(const float* corr, int n1, int n2, int min_distance,
   for (int e = tid; e < area; e += nt) {
     const int r = e / n2, c = e - r * n2;
     const float v = corr[e];
+    if (!(v > thr)) continue;
     float m = -INFINITY;
     for (int dy = -min_distance; dy <= min_distance; ++dy) {
       const int rr = r + dy;
@@ -128,7 +131,7 @@ __device__ void peak_chain(const float* corr, int n1, int n2, int min_distance,
         m = fmaxf(m, corr[rr * n2 + cc]);
       }
     }
-    if (v == m && v > thr) {
+    if (v == m) {
       Top2 u;
       u.v1 = v; u.i1 = e; u.v2 = -INFINITY;
       t = merge(t, u);

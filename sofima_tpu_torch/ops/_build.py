@@ -48,6 +48,8 @@ build_log: str = ''
 launch_counts: dict[str, int] = {
     'dense_flow_peaks': 0,      # K1: coarse pass
     'targeted_flow_peaks': 0,   # K2: fine pass
+    'flow_peaks_dft': 0,        # K1/K2's dense-DFT route (also counted
+                                # above; sizes the FFT route does not serve)
     'masked_flow_peaks': 0,     # K5's dense-DFT route (impure pairs)
     'masked_flow_pure': 0,      # K5's pure route (shared-memory FFT)
     'patch_flow_peaks': 0,      # K6: peaks of pre-cut patch batches

@@ -5,9 +5,12 @@ Pallas body `_grid_kernel`, unmasked), `dense_flow_peaks_targeted`
 (K2, `_grid_kernel_targeted`) and `dense_flow_peaks_pallas` with valid
 planes (K5, `_grid_kernel_masked`), plus `targeted_geometry`, ported only
 as the rule for the granularity of the fine-pass window offsets. K1 and
-K2 launch the one kernel in csrc/flow_peaks.cu: K1 with no offsets, K2
-with per-patch post-window offsets expanded from the per-block
-[nrsteps, ngroups, 2] offsets and an optional centered `peak_crop`. K5
+K2 launch csrc/flow_peaks.cu: K1 with no offsets, K2 with per-patch
+post-window offsets expanded from the per-block [nrsteps, ngroups, 2]
+offsets and an optional centered `peak_crop`. Both run on K7's
+shared-memory FFT (the FFT route) where the packed pair fits in shared
+memory and the core in the block's registers (p <= 168, crop <= 160),
+else on the dense-DFT route. K5
 (`masked_dense_flow_peaks`, csrc/masked_flow.cu) computes the circular
 Padfield NCC of each patch pair under its valid masks and shares the
 peak chain (csrc/flow_peaks.cuh); its denominator tolerance is per patch
@@ -337,6 +340,35 @@ def _patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
   return torch.where(inb, vals, torch.zeros_like(vals))
 
 
+def flow_surfaces_plain(pre: torch.Tensor, post: torch.Tensor,
+                        offsets: torch.Tensor | None, grid: tuple[int, int],
+                        patch: int, step: tuple[int, int], crop: int,
+                        mean: float | None,
+                        pairs: slice = slice(None)) -> torch.Tensor:
+  """The centred [crop, crop] correlation cores of the flow-peaks grid's
+  pairs `pairs` (grid indices gi * gx + gj) -> [n, crop, crop]."""
+  gy, gx = grid
+  sy, sx = step
+  ii = torch.arange(gy * gx, device=pre.device)[pairs]
+  y0 = (ii // gx) * sy
+  x0 = (ii % gx) * sx
+  qy0, qx0 = y0, x0
+  if offsets is not None:
+    off = offsets.reshape(gy * gx, 2).to(torch.int64)[pairs]
+    qy0, qx0 = y0 + off[:, 0], x0 + off[:, 1]
+  a = _patches(pre, y0, x0, patch)
+  b = _patches(post, qy0, qx0, patch)
+  if mean is None:
+    a = a - a.mean(dim=(1, 2), keepdim=True)
+    b = b - b.mean(dim=(1, 2), keepdim=True)
+  else:
+    a, b = a - mean, b - mean
+  corr = torch.roll(circular_xcorr(a, b), (patch // 2, patch // 2),
+                    dims=(1, 2))
+  lo = patch // 2 - crop // 2
+  return corr[:, lo:lo + crop, lo:lo + crop]
+
+
 def flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
                      offsets: torch.Tensor | None, grid: tuple[int, int],
                      patch: int, step: tuple[int, int], crop: int,
@@ -344,30 +376,11 @@ def flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
                      threshold_rel: float, peak_radius: int) -> torch.Tensor:
   """Plain PyTorch version of the flow-peaks kernel -> [4, gy, gx]."""
   gy, gx = grid
-  sy, sx = step
-  dev = pre.device
   n = gy * gx
-  ii = torch.arange(n, device=dev)
-  y0 = (ii // gx) * sy
-  x0 = (ii % gx) * sx
-  qy0, qx0 = y0, x0
-  if offsets is not None:
-    off = offsets.reshape(n, 2).to(torch.int64)
-    qy0, qx0 = y0 + off[:, 0], x0 + off[:, 1]
-  lo = patch // 2 - crop // 2
   out = []
   for c0 in range(0, n, _PLAIN_CHUNK):
-    sl = slice(c0, min(n, c0 + _PLAIN_CHUNK))
-    a = _patches(pre, y0[sl], x0[sl], patch)
-    b = _patches(post, qy0[sl], qx0[sl], patch)
-    if mean is None:
-      a = a - a.mean(dim=(1, 2), keepdim=True)
-      b = b - b.mean(dim=(1, 2), keepdim=True)
-    else:
-      a, b = a - mean, b - mean
-    corr = circular_xcorr(a, b)
-    corr = torch.roll(corr, (patch // 2, patch // 2), dims=(1, 2))
-    corr = corr[:, lo:lo + crop, lo:lo + crop]
+    corr = flow_surfaces_plain(pre, post, offsets, grid, patch, step, crop,
+                               mean, slice(c0, min(n, c0 + _PLAIN_CHUNK)))
     out.append(batched_peaks(corr, (crop // 2, crop // 2), min_distance,
                              threshold_rel, peak_radius))
   return torch.cat(out).reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
@@ -481,32 +494,69 @@ def masked_flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
   return rows.reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
 
 
-def _launch(pre, post, offsets, grid, patch, step, crop, mean, min_distance,
-            threshold_rel, peak_radius, counter):
-  _build.require_cuda('flow_peaks', pre, post)
-  if offsets is not None:
-    _build.require_cuda('flow_peaks offsets', offsets, dtype=torch.int32)
+def _flow_fft_fits(lib, p: int, crop: int) -> bool:
+  """Does K1/K2's FFT route (shared-memory FFT) serve p x p pairs with a
+  crop x crop core?"""
+  if lib.flow_fft_smem_bytes.argtypes is None:
+    lib.flow_fft_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flow_fft_smem_bytes.restype = ctypes.c_int64
+  return 0 <= int(lib.flow_fft_smem_bytes(p, crop)) <= _MAX_SMEM_BYTES
+
+
+def flow_fft_config(patch: int, crop: int) -> tuple[int, int]:
+  """(threads per block, resident blocks per SM) of K1/K2's FFT route on
+  the current card for patch x patch pairs and a crop x crop core."""
   lib = _build.library()
-  lib.flow_peaks_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
-  lib.flow_peaks_per_block.restype = ctypes.c_int64
+  fn = lib.flow_fft_config
+  if fn.argtypes is None:
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+  threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
+  _build.check(fn(patch, crop, ctypes.byref(threads), ctypes.byref(blocks)),
+               'flow_fft_config')
+  return threads.value, blocks.value
+
+
+def _launch_flow_fft(lib, pre, post, offsets, grid, patch, step, crop, mean,
+                     min_distance, threshold_rel, peak_radius, out):
+  fn = lib.flow_fft_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the object
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+  radices, tabs, idx = _fft_tables(patch, patch, str(pre.device))
+  h, w = pre.shape
+  return fn(pre.data_ptr(), post.data_ptr(), h, w, _build.ptr(offsets),
+            grid[0], grid[1], patch, step[0], step[1], radices.ctypes.data,
+            tabs.data_ptr(), idx.data_ptr(), crop, int(mean is None),
+            float(mean or 0.0), int(min_distance), float(threshold_rel),
+            int(peak_radius), out.data_ptr(), _build.stream_of(pre))
+
+
+def _launch_flow_dft(lib, pre, post, offsets, grid, patch, step, crop, mean,
+                     min_distance, threshold_rel, peak_radius, out):
   fn = lib.flow_peaks_launch
-  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p] + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p])
-  fn.restype = ctypes.c_int
+  if fn.argtypes is None:  # once per library: ctypes keeps the objects
+    lib.flow_peaks_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flow_peaks_per_block.restype = ctypes.c_int64
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
   gy, gx = grid
-  sy, sx = step
   dev = pre.device
   ctab, stab = (torch.as_tensor(t, device=dev)
                 for t in _dft_tables_np(patch))
   per_block = int(lib.flow_peaks_per_block(patch, crop))
   npatch = gy * gx
-  out = torch.empty((4, gy, gx), dtype=torch.float32, device=dev)
-  if npatch == 0:
-    return out
   scratch = None
   if per_block * 4 <= _MAX_SMEM_BYTES:
     nblocks = npatch
@@ -517,10 +567,31 @@ def _launch(pre, post, offsets, grid, patch, step, crop, mean, min_distance,
                           device=dev)
   h, w = pre.shape
   rc = fn(pre.data_ptr(), post.data_ptr(), h, w, _build.ptr(offsets), gy, gx,
-          patch, sy, sx, ctab.data_ptr(), stab.data_ptr(), crop,
+          patch, step[0], step[1], ctab.data_ptr(), stab.data_ptr(), crop,
           int(mean is None), float(mean or 0.0), int(min_distance),
           float(threshold_rel), int(peak_radius), _build.ptr(scratch),
           nblocks, out.data_ptr(), _build.stream_of(pre))
+  _build.launch_counts['flow_peaks_dft'] += 1
+  return rc
+
+
+def _launch(pre, post, offsets, grid, patch, step, crop, mean, min_distance,
+            threshold_rel, peak_radius, counter):
+  """K1 / K2 on the card: the FFT route where it serves (patch, crop),
+  else the dense-DFT route. `counter` counts every launch, whatever the
+  route; the dense route also counts under 'flow_peaks_dft'."""
+  _build.require_cuda('flow_peaks', pre, post)
+  if offsets is not None:
+    _build.require_cuda('flow_peaks offsets', offsets, dtype=torch.int32)
+  lib = _build.library()
+  gy, gx = grid
+  out = torch.empty((4, gy, gx), dtype=torch.float32, device=pre.device)
+  if gy * gx == 0:
+    return out
+  route = (_launch_flow_fft if _flow_fft_fits(lib, patch, crop)
+           else _launch_flow_dft)
+  rc = route(lib, pre, post, offsets, grid, patch, step, crop, mean,
+             min_distance, threshold_rel, peak_radius, out)
   _build.launch_counts[counter] += 1
   _build.check(rc, 'flow_peaks')
   return out

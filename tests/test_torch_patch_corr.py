@@ -131,9 +131,11 @@ def _fft_pass(x, n, dit, inverse):
   return x
 
 
-def _k7_model(a, b, centre=True):
+def _k7_model(a, b, centre=True, crop=None):
   """K7's shared-memory route in numpy, one pair [p1, p2] at a time
-  (`centre`: each patch's mean removed first)."""
+  (`centre`: each patch's mean removed first; `crop`: only the centred
+  [crop, crop] core of a square pair, gathered as K1/K2's FFT route
+  does)."""
   p1, p2 = a.shape
   ax1, ax2 = cuda_flow._fft_axis_np(p1), cuda_flow._fft_axis_np(p2)
   if centre:
@@ -156,8 +158,11 @@ def _k7_model(a, b, centre=True):
   y[:, (-np.arange(h2)) % p2] = np.conj(g1) + 1j * np.conj(g2)
   y[:, :h2] = g1 + 1j * g2
   y = _fft_pass(y, p2, False, True)
-  rows = ax1[4]
-  vals = y[rows // 2][:, ax2[4]]
+  rows, cols = ax1[4], ax2[4]
+  if crop is not None:
+    lo = p1 // 2 - crop // 2
+    rows, cols = rows[lo:lo + crop], cols[lo:lo + crop]
+  vals = y[rows // 2][:, cols]
   return np.where((rows % 2 == 1)[:, None], vals.imag, vals.real)
 
 
@@ -213,3 +218,99 @@ def test_k5_pure_route_model_matches_padfield(p):
   # The peak sits at the centre minus b's roll, near the NCC's 1.
   r, c = np.unravel_index(np.argmax(got), got.shape)
   assert (r - p // 2, c - p // 2) == (-2, 3) and got[r, c] > 0.9
+
+
+# K1/K2's FFT route (csrc/flow_peaks.cu `flow_fft_kernel`) reads each pair
+# from the images (the post patch at its offset, zeros outside the image),
+# scatters it into K7's digit-reversed order, takes each patch's mean (or
+# a given constant) off, runs K7's transform and gathers only the centred
+# [crop, crop] core through the tables' `src` entries; a pair with a
+# patch that is 0 everywhere after its mean (here: post patches wholly
+# off the image) has the all-zero surface. A numpy model of those steps
+# must give flow_peaks_plain's cores (within 1e-3 of each core's largest
+# value) and, through the plain peak chain, its integer peaks and NaN
+# rows exactly: a wrong offset, edge, mean or crop shows.
+
+
+def _smooth_image(n, seed):
+  rng = np.random.RandomState(seed)
+  f = np.fft.rfft2(rng.rand(n, n))
+  f *= np.exp(-((np.fft.rfftfreq(n)[None, :] ** 2
+                 + np.fft.fftfreq(n)[:, None] ** 2) / (2 * 0.1 ** 2)))
+  img = np.fft.irfft2(f, s=(n, n))
+  return ((img - img.min()) / (img.max() - img.min()) * 255).astype(
+      np.float32)
+
+
+def _k12_fft_model(pre, post, offsets, grid, p, step, crop, mean):
+  """The FFT route's cores [gy * gx, crop, crop] in numpy."""
+  h, w = pre.shape
+  gy, gx = grid
+  cores = []
+  for k in range(gy * gx):
+    y0, x0 = (k // gx) * step[0], (k % gx) * step[1]
+    qy0, qx0 = y0, x0
+    if offsets is not None:
+      qy0 += offsets[k // gx, k % gx, 0]
+      qx0 += offsets[k // gx, k % gx, 1]
+    yy, xx = np.mgrid[:p, :p]
+    inb = ((qy0 + yy >= 0) & (qy0 + yy < h) & (qx0 + xx >= 0)
+           & (qx0 + xx < w))
+    b = np.where(inb, post[np.clip(qy0 + yy, 0, h - 1),
+                           np.clip(qx0 + xx, 0, w - 1)], 0).astype(np.float32)
+    a = pre[y0:y0 + p, x0:x0 + p]
+    if mean is None:
+      area = np.float32(p * p)
+      a = a - a.sum(dtype=np.float32) / area
+      b = b - b.sum(dtype=np.float32) / area
+    else:
+      a, b = a - np.float32(mean), b - np.float32(mean)
+    if not (a.any() and b.any()):
+      # A patch that is 0 everywhere: the all-zero surface (the kernel
+      # writes its NaN row without the transform).
+      cores.append(np.zeros((crop, crop), np.float32))
+      continue
+    # _k7_model scatters the pair into the digit-reversed order and runs
+    # the transform; `crop` gathers the core through the `src` tables.
+    cores.append(_k7_model(a, b, centre=False, crop=crop))
+  return np.stack(cores)
+
+
+@pytest.mark.parametrize('p,step,n,crop,offset,mean', [
+    (32, 16, 96, None, None, None),      # K1
+    (27, 27, 81, None, None, 120.0),     # K1, odd p, a constant mean
+    (40, 20, 120, 16, (3, -2), None),    # K2, 1-5 px off the edges
+    (40, 20, 120, 16, (-13, 17), None),  # K2, far off the top and right
+    (40, 20, 120, 16, (-45, 3), None),   # K2, top row wholly off the image
+])
+def test_flow_fft_route_model_matches_plain(p, step, n, crop, offset, mean):
+  pre = _smooth_image(n, 5)
+  post = np.roll(pre, (2, -3), (0, 1)) + _smooth_image(n, 6) * 0.05
+  gy = gx = (n - (p - step)) // step
+  offs = None
+  if offset is not None:
+    rng = np.random.RandomState(7)
+    offs = (rng.randint(-2, 3, size=(gy, gx, 2)) + offset).astype(np.int32)
+  core = p if crop is None else crop
+  got = _k12_fft_model(pre, post, offs, (gy, gx), p, (step, step), core,
+                       mean)
+  args = (torch.from_numpy(pre), torch.from_numpy(post),
+          None if offs is None else torch.from_numpy(offs), (gy, gx), p,
+          (step, step), core, mean)
+  ref = cuda_flow.flow_surfaces_plain(*args).numpy()
+  scale = np.maximum(np.abs(ref).max(axis=(1, 2), keepdims=True), 1e-30)
+  assert float((np.abs(got - ref) / scale).max()) < 1e-3
+  if offset is not None and offset[0] < -p:
+    # The top row's post patches lie wholly above the image: NaN rows.
+    assert (offs[0, :, 0] <= -p).all() and not (ref[:gx] != 0).any()
+  elif offset is not None and offset[0] < 0:
+    # Some post patches hang off the top and some off the right edge.
+    assert (offs[0, :, 0] < 0).any() and (
+        (gx - 1) * step + offs[:, -1, 1] + p > n).any()
+  rows = cuda_flow.batched_peaks(torch.from_numpy(got), (core // 2,
+                                                         core // 2))
+  peaks = cuda_flow.flow_peaks_plain(*args, 2, 0.5, 5)
+  rows = rows.reshape(gy, gx, 4).permute(2, 0, 1)
+  np.testing.assert_array_equal(np.nan_to_num(rows[:2].numpy(), nan=9e9),
+                                np.nan_to_num(peaks[:2].numpy(), nan=9e9))
+  assert np.isfinite(peaks[:2].numpy()).any()
