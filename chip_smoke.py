@@ -22,7 +22,7 @@ call that computes the same function):
     K5 and K4 swapped for their plain versions), the warm-start stack
     path on the same stack, and a forced
     stale-prior refresh at 640^2;
-  * 3d tile stitching: K9 (3d force; also on path (a)'s tile meshes),
+  * 3d tile stitching: K9 (3d force; also held and timed on path (a)'s tile meshes),
     K11 (fused 3d FIRE) and K13 (3d render); then (a) `stitch_and_render_3d` on bench.py's LICONN
     geometry (2 x 2 tiles of 64 x 576 x 576, seeded band-limited
     texture) with bench.py's quality gates, (b) `mesh.relax_mesh` with
@@ -52,10 +52,12 @@ call that computes the same function):
     e2e's gate on the residual flow; one 2d `ndimage_warp` (K4 per work
     box, K12) against its plain version; K4's launches from both against
     their plain versions on their inputs, and the render against the
-    plain render; then K6 through the rectangular strip path (timed on
-    that path's launches) and K7 on the first 30 grid rows of that
-    pair's p = 160 patches (beside the torch.fft chain), and at 256^2
-    (its global-scratch route) and 31 x 37.
+    plain render; then K6 through the rectangular strip path (every
+    launch on its FFT route, timed on that path's launches beside
+    torch.fft's surfaces of the same pairs; its dense-DFT route held at
+    256 x 128) and K7 on the first 30 grid rows of that pair's p = 160
+    patches (beside the torch.fft chain), and at 256^2 (its
+    global-scratch route) and 31 x 37.
 
 K4 is held against its plain version in all four methods at 10k^2 (the
 shared-memory branch: the share of staged tiles is printed) and on a
@@ -69,8 +71,8 @@ their FFT route at the stack path's shapes (no launch counted under
 time for the same pairs' surfaces (pre-cut patches) is printed beside
 them as a yardstick for the transform alone, and their dense-DFT route is
 held against the plain version at p = 192 on a 2048^2 pair. The
-redesigned kernels (K1, K2, K4, K5, K7, K13, and K4's launches as K12 and
-K4p) print their times before the redesign beside the new ones; the
+redesigned kernels (K1, K2, K4, K5, K6, K7, K8, K13, and K4's launches as
+K12 and K4p) print their times before the redesign beside the new ones; the
 kernels line holds only numbers measured (or, for bound_ms, computed) in
 this run.
 
@@ -149,6 +151,8 @@ E2E_BATCH = 256
 E2E_GATE = 1.5          # px: residual flow after alignment (and < 1/5
                         # of before), e2e_alignment's gate
 K6_PATCH = (160, 80)    # K6 through the rectangular strip path
+# K6's dense-DFT route (shapes the FFT route does not serve): pairs, shape.
+K6_DFT_ROUTE = (256, (256, 128))
 K7_ROWS = 30            # grid rows of p = 160, s = 40 pairs held for K7
 SURFACE_TOL = 1e-3      # K7 vs plain, relative to each surface's max
 # K7 also at a size over the shared-memory route (three launches through
@@ -159,10 +163,10 @@ K4_RANDOM = 2048        # edge of K4's random-position field
 K13_RANDOM = (64, 256, 256)   # K13's random-position output (z, y, x)
 K12_REPS = 20           # timed calls per K12 box (kernel and grid_sample)
 # The redesigned kernels' times before the redesign (the dense-DFT K7,
-# K1 and K2, the runtime-tap K4 gather, K5 with every pair on the dense
-# DFT and the runtime-tap, unstaged K13, measured by this script on an
-# H100 80GB HBM3 at 700 W), printed beside the new ones and kept out of
-# the kernels line.
+# K1, K2 and K6, the runtime-tap K4 gather, K5 with every pair on the
+# dense DFT, the runtime-tap, unstaged K13 and the per-node K8, measured
+# by this script on an H100 80GB HBM3 at 700 W), printed beside the new
+# ones and kept out of the kernels line.
 K1_PRIOR_MS = 56.77
 K2_PRIOR_MS = 70.46
 K7_PRIOR_MS = 115.8
@@ -173,6 +177,8 @@ K4P_PRIOR_MS = 7.227
 K5_PRIOR_MS = 985.7
 K13_PRIOR_MS = 1.070
 K13_PRIOR_MS_LANCZOS = 10.82
+K6_PRIOR_MS = 340.5     # the dense DFT, summed over the strip path
+K8_PRIOR_MS = 0.0884    # one thread per node, every link from both ends
 # K1's dense-DFT route (sizes the FFT route does not serve): image edge,
 # p and step of the pair it is held on.
 DFT_ROUTE = (2048, 192, 64)
@@ -1251,11 +1257,19 @@ def stitch_slice(dev, report, _build) -> dict:
     errs_a.append(float((got - ref).abs().max()))
     check(bool(torch.isfinite(got).all()), 'K9 force not finite (path a)')
   err_a = max(errs_a)
+  # Its time per launch at that shape, beside its bound there: path (a)
+  # launches K9 on these meshes, path (b) on the larger one timed above.
+  nodes_a = xa[0].numel()
+  ms_a = cuda_ms(lambda: cuda_mesh.force_3d(xa, 0.1, stride3), reps=20)
+  bound_a = least_time(24 * nodes_a, FORCE3D_FLOPS_NODE * nodes_a)['bound_ms']
   print(f'K9 at path (a)\'s shape {list(xa.shape)}: max |df| '
-        f'{errs_a[0]:.3g} (prefer_orig_order {errs_a[1]:.3g})')
+        f'{errs_a[0]:.3g} (prefer_orig_order {errs_a[1]:.3g}); kernel '
+        f'{ms_a:.4f} ms, bound {bound_a:.5f} ms')
   check(err_a < FORCE_TOL, f'K9 differs from the plain force by {err_a} '
         'on the tile meshes')
   report['K9']['max_abs_err_tile_meshes'] = err_a
+  report['K9']['ms_tile_meshes'] = ms_a
+  report['K9']['bound_ms_tile_meshes'] = bound_a
   report['K9']['err'] = max(report['K9']['err'], err_a)
   del out, tiles, vol3, truth, solved, xa, holes_a, got, ref
 
@@ -1551,8 +1565,8 @@ def montage_slice(dev, report, _build) -> dict:
   report['K8'] = dict(err=err, ms=cuda_ms(k8, reps=20), plain_ms=wall_ms(
       lambda: mesh.inplane_force_plain(xm, 0.1, stride)), library_ms=None,
                       **least_time(16 * nodes, FORCE2D_FLOPS_NODE * nodes))
-  print(f'  kernel {report["K8"]["ms"]:.4f} ms, plain '
-        f'{report["K8"]["plain_ms"]:.3f} ms, bound '
+  print(f'  kernel {report["K8"]["ms"]:.4f} ms (before {K8_PRIOR_MS}), '
+        f'plain {report["K8"]["plain_ms"]:.3f} ms, bound '
         f'{report["K8"]["bound_ms"]:.4f} ms ({report["K8"]["bound_by"]})')
   del xh, holes, got, ref
   print(f'  phase {time.perf_counter() - t_phase:.1f} s')
@@ -1987,32 +2001,81 @@ def library_slice(dev, report, _build) -> dict:
                                     circular=True)
   sync()
   k6_launches = _build.launch_counts['patch_flow_peaks']
+  k6_dft = _build.launch_counts['patch_flow_peaks_dft']
   with plain_kernels():
     ref6 = flow_field.dense_flow_field(pre_f, post_f, K6_PATCH,
                                        (STRIDE, STRIDE), circular=True)
   k6 = compare_flow(got, ref6, 'K6')
   check(k6_launches > 0, 'K6 was not launched on the strip path')
+  check(k6_dft == 0, f'K6 took the dense-DFT route {k6_dft} times on the '
+        'strip path')
   p1, p2 = K6_PATCH
 
   def cut(img, rows, q1, q2):
     return img[:rows].unfold(0, q1, STRIDE).unfold(1, q2, STRIDE).reshape(
         -1, q1, q2).contiguous()
 
-  # Timed on the strip path's own launches (recorded above), summed.
+  # Timed on the strip path's own launches (recorded above), summed;
+  # torch.fft's surfaces of the same pre-cut pairs (rfft2, the conjugate
+  # product, irfft2, the roll; no means, no peaks) as the yardstick.
   k6_in = k6_calls['flow_peaks']
+  check(all(same_bits(cuda_flow.flow_peaks(*a), cuda_flow.flow_peaks(*a))
+            for a in k6_in), 'K6 does not repeat bit for bit')
+
+  def fft6(a, b):
+    return torch.roll(torch.fft.irfft2(
+        torch.fft.rfft2(a) * torch.conj(torch.fft.rfft2(b)), s=(p1, p2)),
+                      (p1 // 2, p2 // 2), dims=(1, 2))
+
   ms6 = sum(cuda_ms(lambda: cuda_flow.flow_peaks(*a)) for a in k6_in)
   plain6 = sum(wall_ms(lambda: cuda_flow.patch_flow_peaks_plain(*a))
                for a in k6_in)
+  lib6 = sum(cuda_ms(lambda: fft6(a[0], a[1])) for a in k6_in)
   n6 = sum(a[0].shape[0] for a in k6_in)
-  report['K6'] = dict(k6, ms=ms6, plain_ms=plain6, library_ms=None,
-                      pairs=n6, timed_launches=len(k6_in),
+  report['K6'] = dict(k6, ms=ms6, plain_ms=plain6, library_ms=lib6,
+                      library='torch.fft rfft2 * conj(rfft2) -> irfft2 -> '
+                      'roll (no means, no peaks)', pairs=n6,
+                      timed_launches=len(k6_in),
+                      **dict(zip(('threads', 'blocks_per_sm'),
+                                 cuda_flow.patch_fft_config(p1, p2))),
                       **least_time(2 * n6 * p1 * p2 * 4 + 16 * n6,
                                    n6 * xcorr_flops(p1, p2)))
-  print(f'  {k6_launches} launches on the path, {n6} pairs; summed over '
-        f'them: kernel {ms6:.3f} ms, plain {plain6:.1f} ms, bound '
-        f'{report["K6"]["bound_ms"]:.3f} ms ({report["K6"]["bound_by"]})')
+  print(f'  {k6_launches} launches on the path, all on the FFT route '
+        f'({report["K6"]["threads"]} threads a block, '
+        f'{report["K6"]["blocks_per_sm"]} blocks per SM), {n6} pairs; a '
+        'second launch repeats each bit for bit')
+  print(f'  summed over them: kernel {ms6:.3f} ms (before {K6_PRIOR_MS}), '
+        f'plain {plain6:.1f} ms, bound {report["K6"]["bound_ms"]:.3f} ms '
+        f'({report["K6"]["bound_by"]}); torch.fft surfaces alone '
+        f'{lib6:.3f} ms')
   check(len(k6_in) == k6_launches, 'K6 launches differ between the runs')
   del k6_in, k6_calls, got, ref6
+
+  # K6's dense-DFT route, for shapes the FFT route does not serve.
+  n_d, (q1, q2) = K6_DFT_ROUTE
+  a = cut(pre_f, q1 + 2 * STRIDE, q1, q2)[:n_d]
+  b = cut(post_f, q1 + 2 * STRIDE, q1, q2)[:n_d]
+  print(f'K6 dense-DFT route, {n_d} pairs of {q1} x {q2}')
+  before = dict(_build.launch_counts)
+  got = cuda_flow.flow_peaks(a, b)
+  check(_build.launch_counts['patch_flow_peaks_dft']
+        == before['patch_flow_peaks_dft'] + 1
+        and _build.launch_counts['patch_flow_peaks']
+        == before['patch_flow_peaks'],
+        f'K6 at {q1} x {q2} did not take the dense-DFT route')
+  check(same_bits(got, cuda_flow.flow_peaks(a, b)),
+        'K6 (dense-DFT route) does not repeat bit for bit')
+  rd = compare_flow(got.T, cuda_flow.patch_flow_peaks_plain(a, b).T,
+                    'K6 dense-DFT route')
+  report['K6'].update(dft_route_shape=[n_d, q1, q2],
+                      dft_route_ms=cuda_ms(lambda: cuda_flow.flow_peaks(a, b)),
+                      dft_route_plain_ms=wall_ms(
+                          lambda: cuda_flow.patch_flow_peaks_plain(a, b)),
+                      dft_route_err=rd['err'],
+                      dft_route_stat_frac=rd['stat_frac'])
+  print(f'  kernel {report["K6"]["dft_route_ms"]:.3f} ms, plain '
+        f'{report["K6"]["dft_route_plain_ms"]:.3f} ms')
+  del a, b, got
 
   # K7 on the first K7_ROWS grid rows of the p = 160, s = 40 pairs.
   p = E2E_PATCH

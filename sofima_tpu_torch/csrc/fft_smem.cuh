@@ -5,10 +5,11 @@
 // sofima_tpu/ops/pallas_flow.py compute per patch pair (the TPU feeds its
 // matrix unit DFT matrices; an SM has no such unit for f32). Its users:
 // K7 (corr_fft.cu, the reference's `_corr_kernel`), K5's fully valid
-// pairs (masked_flow.cu) and K1 / K2 up to p = 168 (flow_peaks.cu); K6,
-// K5's other pairs and larger K1 / K2 patches still run DFT bodies. Its
-// functions have internal linkage: each translation unit that includes
-// it keeps its own copy.
+// pairs (masked_flow.cu), K1 / K2 up to p = 168 (flow_peaks.cu) and K6
+// where the pair fits in shared memory (patch_corr.cu, e.g. 160 x 80);
+// K5's other pairs and larger K1 / K2 / K6 patches still run DFT bodies.
+// Its functions have internal linkage: each translation unit that
+// includes it keeps its own copy.
 //
 // What bounds it on the H100: at p = 160 a pair's packed complex array is
 // 200 KB, so one block per SM holds it and every transform stage is a

@@ -77,8 +77,8 @@ __device__ __forceinline__ void node_force(const float* __restrict__ x,
   const int y = (i / gx) % gy;
   if constexpr (D == 2) {
     const sofima::Springs2d S = {P.k, P.k_diag, P.stride_x, P.stride_y};
-    sofima::force2d_node<false>(x, n, gy, gx, y, xx, S,
-                                P.prefer_orig_order != 0, f);
+    sofima::force2d_node(x, n, gy, gx, y, xx, S, P.prefer_orig_order != 0,
+                         f);
   } else {
     sofima::force3d_node(x, n, nz, gy, gx, i / (gx * gy), y, xx, P.links,
                          P.prefer_orig_order != 0, f);

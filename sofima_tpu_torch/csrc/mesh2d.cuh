@@ -1,5 +1,7 @@
-// The 8-neighbour in-plane spring force of a 2d mesh node, shared by the
-// force kernel (force2d.cu, K8) and the fused 2d FIRE solver (fire.cu, K3).
+// The 8-neighbour in-plane spring force of a 2d mesh: its definition,
+// and the force on one node under K3's NaN rule (`force2d_node`, used by
+// the fused 2d FIRE solver, fire.cu). K8 (force2d.cu) evaluates the same
+// links once each under the other rule.
 //
 // Node positions are relative, [2, ny, nx] per mesh (channels x, y): node
 // (y, x) sits at its grid position times the stride plus its value. For a
@@ -10,16 +12,15 @@
 // the per-component factor l0 * e_c sign(d_c) / |d| (1 where e_c = 0) in
 // place of l0 / |d|. Neighbours outside the grid carry no spring.
 //
-// NaN convention, the template argument. The two reference forms differ
-// only for a link of zero length (coincident nodes); a link with a NaN or
-// infinite end adds nothing in both.
-//  * kNanToNum = true: mesh.inplane_force (the XLA stencil
-//    mesh._spring_force) maps each link force component through
-//    nan_to_num(posinf=0, neginf=0), so a zero-length link adds 0. K8
-//    computes that function and follows it.
-//  * kNanToNum = false: the Pallas bodies (pallas_mesh._force_tile,
-//    _roll_force_2d) keep a link whose d.d is finite, so a zero-length
-//    link adds NaN. K3 replaces `_roll_force_2d` and keeps its rule.
+// NaN convention. The two reference forms differ only for a link of zero
+// length (coincident nodes); a link with a NaN or infinite end adds
+// nothing in both.
+//  * mesh.inplane_force (the XLA stencil mesh._spring_force) maps each
+//    link force component through nan_to_num(posinf=0, neginf=0), so a
+//    zero-length link adds 0. K8 computes that function and follows it.
+//  * The Pallas bodies (pallas_mesh._force_tile, _roll_force_2d) keep a
+//    link whose d.d is finite, so a zero-length link adds NaN. K3
+//    replaces `_roll_force_2d` and keeps its rule.
 
 #pragma once
 
@@ -27,7 +28,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mesh3d.cuh"  // sign0, finite_or_zero
+#include "mesh3d.cuh"  // sign0
 
 namespace sofima {
 
@@ -37,9 +38,8 @@ struct Springs2d {
   float stride_x, stride_y;
 };
 
-// Force on node (y, x) of one mesh; `x` points at its channel 0 and the
-// y channel is `cs` floats further.
-template <bool kNanToNum>
+// K3's force on node (y, x) of one mesh; `x` points at its channel 0 and
+// the y channel is `cs` floats further.
 __device__ __forceinline__ void force2d_node(const float* __restrict__ x,
                                              int64_t cs, int ny, int nx,
                                              int y, int xx,
@@ -61,7 +61,7 @@ __device__ __forceinline__ void force2d_node(const float* __restrict__ x,
       const float d1 = x[cs + j] - x1 + l0y;
       const float dd = d0 * d0 + d1 * d1;
       // 1/|d| as rsqrt: inf at d = 0 and 0 at |d| = inf.
-      const float inv_l = kNanToNum ? rsqrtf(dd) : rsqrtf(fmaxf(dd, 0.0f));
+      const float inv_l = rsqrtf(fmaxf(dd, 0.0f));
       float g0, g1;
       if (prefer) {
         const float fac0 = ex != 0 ? (float)ex * sign0(d0) : 1.0f;
@@ -73,10 +73,7 @@ __device__ __forceinline__ void force2d_node(const float* __restrict__ x,
         g0 = coef * d0;
         g1 = coef * d1;
       }
-      if constexpr (kNanToNum) {
-        acc0 += finite_or_zero(g0);
-        acc1 += finite_or_zero(g1);
-      } else if (isfinite(dd)) {
+      if (isfinite(dd)) {
         acc0 += g0;
         acc1 += g1;
       }

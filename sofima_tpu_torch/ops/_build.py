@@ -52,7 +52,10 @@ launch_counts: dict[str, int] = {
                                 # above; sizes the FFT route does not serve)
     'masked_flow_peaks': 0,     # K5's dense-DFT route (impure pairs)
     'masked_flow_pure': 0,      # K5's pure route (shared-memory FFT)
-    'patch_flow_peaks': 0,      # K6: peaks of pre-cut patch batches
+    'patch_flow_peaks': 0,      # K6's FFT route: peaks of pre-cut patch
+                                # batches (shared-memory FFT)
+    'patch_flow_peaks_dft': 0,  # K6's dense-DFT route (shapes the FFT
+                                # route does not serve)
     'corr_patches': 0,          # K7: surfaces of pre-cut patch batches
     'fused_fire': 0,            # K3: mesh solve
     'warp_gather': 0,           # K4: render

@@ -22,10 +22,11 @@ K6 (`flow_peaks`, Pallas `flow_peaks_pallas` / `_corr_peaks_kernel`)
 and K7 (`corr_patches`, `corr_patches_pallas` / `_corr_kernel`) take
 pre-cut [n, p1, p2] patch batches, rectangular allowed. K6
 (csrc/patch_corr.cu) writes the [n, 4] peak rows (the 2d strip path's
-and the start-list path's correlation) from a dense DFT; K7
-(csrc/corr_fft.cu) writes the [n, p1, p2] centred surfaces from the
-shared-memory mixed-radix FFT of csrc/fft_smem.cuh, whose plan and
-tables `_fft_axis_np` builds here.
+and the start-list path's correlation): on the shared-memory FFT where
+the pair fits (`patch_fft_kernel`, K7's rectangular plan and tables,
+then the peak chain), else on a dense DFT; K7 (csrc/corr_fft.cu) writes
+the [n, p1, p2] centred surfaces from the shared-memory mixed-radix FFT
+of csrc/fft_smem.cuh, whose plan and tables `_fft_axis_np` builds here.
 
 For every patch pair on the grid (pre at (i*sy, j*sx), post at the same
 position plus its offset, zeros outside the image) the kernel removes
@@ -36,8 +37,8 @@ ratio), NaN rows where no peak passes the threshold.
 
 Precision: the correlation runs in float32 on both the kernel and the
 plain version, including when callers ask for `bf16=True` (the reference
-feeds bf16 operands to the TPU's matrix unit; on the H100 the f32 FMA
-transform is the simple, exact choice for this first port).
+feeds bf16 operands to the TPU's matrix unit; on the H100 the
+transforms, FFT or DFT, run in f32 outside the tensor cores).
 """
 
 from __future__ import annotations
@@ -848,26 +849,63 @@ def patch_flow_peaks_plain(pre_b: torch.Tensor, post_b: torch.Tensor,
       (0, 4), dtype=torch.float32, device=pre.device)
 
 
-def _launch_patch_peaks(pre, post, mean, min_distance, threshold_rel,
-                        peak_radius):
-  _build.require_cuda('patch_flow_peaks', pre, post)
-  lib = _build.library()
-  lib.patch_corr_per_block.argtypes = [ctypes.c_int] * 2
-  lib.patch_corr_per_block.restype = ctypes.c_int64
+def _patch_fft_fits(lib, p1: int, p2: int) -> bool:
+  """Does K6's FFT route (shared-memory FFT) serve p1 x p2 pairs?"""
+  if lib.patch_fft_smem_bytes.argtypes is None:
+    lib.patch_fft_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.patch_fft_smem_bytes.restype = ctypes.c_int64
+  return 0 <= int(lib.patch_fft_smem_bytes(p1, p2)) <= _MAX_SMEM_BYTES
+
+
+def patch_fft_config(p1: int, p2: int) -> tuple[int, int]:
+  """(threads per block, resident blocks per SM) of K6's FFT route on the
+  current card for p1 x p2 pairs."""
+  fn = _build.library().patch_fft_config
+  if fn.argtypes is None:
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+  threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
+  _build.check(fn(p1, p2, ctypes.byref(threads), ctypes.byref(blocks)),
+               'patch_fft_config')
+  return threads.value, blocks.value
+
+
+def _launch_patch_fft(lib, pre, post, mean, min_distance, threshold_rel,
+                      peak_radius, out):
+  fn = lib.patch_fft_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the object
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+  n, p1, p2 = pre.shape
+  radices, tabs, idx = _fft_tables(p1, p2, str(pre.device))
+  rc = fn(pre.data_ptr(), post.data_ptr(), n, p1, p2, radices.ctypes.data,
+          tabs.data_ptr(), idx.data_ptr(), int(mean is None),
+          float(mean or 0.0), int(min_distance), float(threshold_rel),
+          int(peak_radius), out.data_ptr(), _build.stream_of(pre))
+  _build.launch_counts['patch_flow_peaks'] += 1
+  _build.check(rc, 'patch_flow_peaks (FFT route)')
+
+
+def _launch_patch_dft(lib, pre, post, mean, min_distance, threshold_rel,
+                      peak_radius, out):
   fn = lib.patch_corr_launch
-  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                 + [ctypes.c_void_p] * 4
-                 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-  fn.restype = ctypes.c_int
+  if fn.argtypes is None:  # once per library: ctypes keeps the objects
+    lib.patch_corr_per_block.argtypes = [ctypes.c_int] * 2
+    lib.patch_corr_per_block.restype = ctypes.c_int64
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
   n, p1, p2 = pre.shape
   dev = pre.device
   t1c, t1s = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p1))
   t2c, t2s = (torch.as_tensor(t, device=dev) for t in _dft_tables_np(p2))
-  out = torch.empty((4, n), dtype=torch.float32, device=dev)
-  if n == 0:
-    return out.T
   per_block = int(lib.patch_corr_per_block(p1, p2))
   scratch = None
   if per_block * 4 <= _MAX_SMEM_BYTES:
@@ -882,8 +920,23 @@ def _launch_patch_peaks(pre, post, mean, min_distance, threshold_rel,
           int(mean is None), float(mean or 0.0), int(min_distance),
           float(threshold_rel), int(peak_radius), _build.ptr(scratch),
           nblocks, out.data_ptr(), _build.stream_of(pre))
-  _build.launch_counts['patch_flow_peaks'] += 1
-  _build.check(rc, 'patch_flow_peaks')
+  _build.launch_counts['patch_flow_peaks_dft'] += 1
+  _build.check(rc, 'patch_flow_peaks (dense route)')
+
+
+def _launch_patch_peaks(pre, post, mean, min_distance, threshold_rel,
+                        peak_radius):
+  """K6 on the card: the FFT route where it serves (p1, p2), else the
+  dense-DFT route; each route counts its own launches."""
+  _build.require_cuda('patch_flow_peaks', pre, post)
+  lib = _build.library()
+  n, p1, p2 = pre.shape
+  out = torch.empty((4, n), dtype=torch.float32, device=pre.device)
+  if n == 0:
+    return out.T
+  route = (_launch_patch_fft if _patch_fft_fits(lib, p1, p2)
+           else _launch_patch_dft)
+  route(lib, pre, post, mean, min_distance, threshold_rel, peak_radius, out)
   return out.T
 
 
@@ -896,7 +949,12 @@ def flow_peaks(pre_b: torch.Tensor, post_b: torch.Tensor,
   `pre_b` / `post_b`: [n, p1, p2] batches (rectangular allowed). Per
   pair: mean removal (or the constant `mean`), circular correlation with
   the zero shift at (p1//2, p2//2), and the rows (x, y, sharpness,
-  ratio) of flow_field._batched_peaks, NaN rows without a peak.
+  ratio) of flow_field._batched_peaks, NaN rows without a peak. On the
+  card: the FFT route where the packed pair fits in shared memory and
+  the surface in the block's registers (`patch_fft_smem_bytes` <= 226
+  KB, p1 p2 <= 25 600, e.g. 160 x 80 and 160^2), counted under
+  'patch_flow_peaks'; else the dense-DFT route, counted under
+  'patch_flow_peaks_dft'.
   """
   pre, post = _patch_batches(pre_b, post_b)
   if pre.device.type == 'cpu':

@@ -5,7 +5,8 @@ Twin of sofima_tpu/ops/pallas_mesh.py:
     `_fused_fire_kernel` with `_roll_force_2d`), the fused 2d FIRE solve;
   * K8 `force_2d`: `inplane_force_pallas` (`_kernel` with `_force_tile`),
     the 8-neighbour in-plane force with the contract of
-    mesh.inplane_force; csrc/force2d.cu;
+    mesh.inplane_force; csrc/force2d.cu, a row-streaming stencil that
+    evaluates each link once;
   * K9 `force_3d`: `elastic_mesh_3d_pallas` (`_kernel_3d_loop`,
     `_kernel_3d_rolls`) and its slab twin `elastic_mesh_3d_pallas_slab`
     (K10), the 26-neighbour force with the contract of
@@ -96,11 +97,12 @@ def force_2d(x: torch.Tensor, k: float, stride,
     return mesh_lib.inplane_force_plain(x, k, stride, prefer_orig_order)
   x = x.to(torch.float32).contiguous()
   _build.require_cuda('force_2d', x)
-  lib = _build.library()
-  fn = lib.force2d_launch
-  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 2
-                 + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
-  fn.restype = ctypes.c_int
+  fn = _build.library().force2d_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the object
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
   ny, nx = x.shape[-2:]
   nb = int(np.prod(x.shape[1:-2], dtype=np.int64))
   out = torch.empty_like(x)

@@ -90,6 +90,129 @@ def test_coincident_link_adds_nothing(prefer):
   np.testing.assert_allclose(got[fin], pal[fin], atol=FORCE_TOL, rtol=0)
 
 
+# K8 on the card (csrc/force2d.cu) is a row-streaming stencil: each
+# thread owns `nodes` consecutive nodes of a row in an x tile of `threads`
+# threads, walks down a band of rows, takes its x halos from the
+# neighbouring lanes of its warp or, at a warp's edge, from memory, and
+# evaluates each link once: a row's E links serve both of their nodes,
+# and its SE, S and SW links to the next row are kept for that row, which
+# takes them negated. Each node sums its 8 links in force2d_node's (ey,
+# ex) order. A numpy model of that walk, with tiles, warps and bands small
+# enough that every edge shows (a ragged last tile, nx not a multiple of
+# the 4-node vector, ragged bands, a batch axis, NaN holes), and at the
+# kernel's own tile (128 threads of 4 nodes, warps of 32, bands of at
+# least 4 rows), must give JAX's mesh.inplane_force and the plain version
+# within FORCE_TOL.
+
+
+def _link_model(d0, d1, ex, ey, l0, k_eff, prefer):
+  """force2d.cu `link`: one link's force, nan_to_num'd."""
+  with np.errstate(all='ignore'):
+    inv_l = np.float32(1.0) / np.sqrt(d0 * d0 + d1 * d1)
+    if prefer:
+      fac0 = ex * np.sign(d0) if ex else np.float32(1.0)
+      fac1 = ey * np.sign(d1) if ey else np.float32(1.0)
+      g = (k_eff * (1 - l0 * fac0 * inv_l) * d0,
+           k_eff * (1 - l0 * fac1 * inv_l) * d1)
+    else:
+      coef = k_eff * (1 - l0 * inv_l)
+      g = (coef * d0, coef * d1)
+  return np.stack([np.where(np.isfinite(v), v, 0).astype(np.float32)
+                   for v in g])
+
+
+def _k8_model(x, k, stride, prefer, nodes, threads, warp, band):
+  """K8's walk over [2, nb, ny, nx] positions -> forces."""
+  _, nb, ny, nx = x.shape
+  sx, sy = (np.float32(s) for s in stride)
+  k = np.float32(k)
+  kd = np.float32(k / np.sqrt(2.0))
+  l0e, l0s = np.sqrt(sx * sx), np.sqrt(sy * sy)
+  l0d = np.sqrt(sx * sx + sy * sy)
+  lane = np.arange(threads) % warp
+  out = np.full_like(x, np.nan)
+
+  def view(b, y, x0):
+    # Each thread's columns x0 - 1 .. x0 + nodes of row y, NaN off the
+    # mesh; the halos from the neighbouring lanes or, at a warp's edge,
+    # from memory.
+    cols = x0[:, None] + np.arange(-1, nodes + 1)
+    v = np.full((2,) + cols.shape, np.nan, np.float32)
+    own = cols[:, 1:-1] < nx
+    v[:, :, 1:-1][:, own] = x[:, b, y, cols[:, 1:-1][own]]
+    v[:, :, 0] = np.roll(v[:, :, nodes], 1, axis=1)
+    v[:, :, -1] = np.roll(v[:, :, 1], -1, axis=1)
+    for t in np.flatnonzero(lane == 0):
+      c = cols[t, 0]
+      v[:, t, 0] = x[:, b, y, c] if 0 <= c < nx else np.nan
+    for t in np.flatnonzero(lane == warp - 1):
+      c = cols[t, -1]
+      v[:, t, -1] = x[:, b, y, c] if c < nx else np.nan
+    return v
+
+  def step(d, lx, ly):
+    return d[0] + lx, d[1] + ly
+
+  def down(u, v):
+    se = _link_model(*step(v[..., 1:] - u[..., :-1], sx, sy), 1, 1, l0d, kd,
+                     prefer)
+    s = _link_model(*step(v[..., 1:-1] - u[..., 1:-1], 0, sy), 0, 1, l0s, k,
+                    prefer)
+    sw = _link_model(*step(v[..., :-1] - u[..., 1:], -sx, sy), -1, 1, l0d,
+                     kd, prefer)
+    return se, s, sw
+
+  def add(acc, mask, v, sign):
+    return np.where(mask, acc + sign * v, acc)
+
+  for b in range(nb):
+    for t0 in range(0, nx, nodes * threads):
+      x0 = t0 + np.arange(threads) * nodes
+      col = x0[:, None] + np.arange(nodes)
+      has_w, has_e = col > 0, col + 1 < nx
+      for y0 in range(0, ny, band):
+        c, up = view(b, y0, x0), None  # a band starts afresh
+        if y0 > 0:
+          up = down(view(b, y0 - 1, x0), c)
+        for y in range(y0, min(y0 + band, ny)):
+          acc = np.zeros((2, threads, nodes), np.float32)
+          if y > 0:
+            acc = add(acc, has_w, up[0][..., :nodes], -1)
+            acc = add(acc, True, up[1], -1)
+            acc = add(acc, has_e, up[2][..., 1:], -1)
+          e = _link_model(*step(c[..., 1:] - c[..., :-1], sx, 0), 1, 0, l0e,
+                          k, prefer)
+          acc = add(acc, has_w, e[..., :nodes], -1)
+          acc = add(acc, has_e, e[..., 1:], 1)
+          if y + 1 < ny:
+            n = view(b, y + 1, x0)
+            up = down(c, n)
+            acc = add(acc, has_w, up[2][..., :nodes], 1)
+            acc = add(acc, True, up[1], 1)
+            acc = add(acc, has_e, up[0][..., 1:], 1)
+            c = n
+          keep = col < nx
+          out[:, b, y, col[keep]] = acc[:, keep]
+  return out
+
+
+@pytest.mark.parametrize('prefer', [False, True])
+@pytest.mark.parametrize('shape,nodes,threads,warp,band', [
+    ((2, 3, 13, 23), 4, 4, 2, 3),     # ragged tile and bands, nx % 4 = 3
+    ((2, 2, 9, 32), 4, 2, 2, 4),      # four whole tiles, warp edges
+    ((2, 1, 37, 70), 4, 128, 32, 4),  # the kernel's tile, one ragged
+])
+def test_k8_tiling_model(shape, nodes, threads, warp, band, prefer):
+  x = _mesh(shape, seed=6)
+  got = _k8_model(x, 0.1, STRIDE, prefer, nodes, threads, warp, band)
+  assert np.isfinite(got).all()
+  ref = np.asarray(jmesh.inplane_force(jnp.asarray(x), 0.1, STRIDE, prefer))
+  plain = tmesh.inplane_force_plain(torch.from_numpy(x), 0.1, STRIDE,
+                                    prefer).numpy()
+  np.testing.assert_allclose(got, ref, atol=FORCE_TOL, rtol=0)
+  np.testing.assert_allclose(got, plain, atol=FORCE_TOL, rtol=0)
+
+
 @pytest.mark.parametrize('prefer', [False, True])
 def test_velocity_verlet(prefer):
   x = _mesh((2, 1, 16, 18), seed=2)

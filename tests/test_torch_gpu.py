@@ -15,8 +15,9 @@ solver steps equal and nodes within 1e-3 px (2d and 3d), as the staged
 renders (2d and 3d) within 1e-2 gray levels, K4 and K13 from staged
 and from direct tiles; K7's surfaces within 1e-3
 of each surface's largest value and repeating bit for bit, K6's peaks as
-K1's (square and rectangular patches, in shared memory and in global
-scratch), the rectangular dense flow and the padfield calculator
+K1's (square and rectangular patches, on the FFT route and the dense-DFT
+route, repeating bit for bit), the rectangular dense flow and the
+padfield calculator
 (integer peaks exact, 99% of the statistics within 3e-4: sharpness
 divides by correlation values close to 0, as for K5, and summation
 order moves it there, with every clean-gate decision equal),
@@ -343,20 +344,26 @@ def test_align_step_drift_removal(dev):
   assert bool(torch.isfinite(rendered).all())
 
 
-def _force_input(seed=7):
+def _force_input(shape=(2, 3, 37, 70), seed=7):
   rng = np.random.RandomState(seed)
-  x = torch.from_numpy((rng.randn(2, 3, 37, 70) * 5).astype(np.float32))
+  x = torch.from_numpy((rng.randn(*shape) * 5).astype(np.float32))
   x[:, 0, 4, 9] = float('nan')
-  x[:, 2, 30:33, 0] = float('nan')
+  x[:, -1, 30:33, 0] = float('nan')
+  x[:, -1, -1, -2:] = float('nan')
   # A zero-length link: node (10, 11) sits on node (10, 12).
-  x[:, 1, 10, 12] = torch.tensor([2.0, -3.0])
-  x[:, 1, 10, 11] = torch.tensor([42.0, -3.0])
+  x[:, 1 % shape[1], 10, 12] = torch.tensor([2.0, -3.0])
+  x[:, 1 % shape[1], 10, 11] = torch.tensor([42.0, -3.0])
   return x
 
 
+# K8's two load paths: scalar loads where nx is not a multiple of 4 (70,
+# 13), 16-byte loads where it is (516: a second x tile of 4 nodes, several
+# bands of rows); batches of 1-5 meshes.
 @pytest.mark.parametrize('prefer', [False, True])
-def test_force_2d(dev, prefer):
-  x = _force_input()
+@pytest.mark.parametrize('shape', [(2, 3, 37, 70), (2, 1, 300, 516),
+                                   (2, 5, 19, 13)])
+def test_force_2d(dev, shape, prefer):
+  x = _force_input(shape)
   before = _build.launch_counts['force2d']
   got = mesh.inplane_force(x.to(dev), 0.1, (40.0, 30.0), prefer)
   assert _build.launch_counts['force2d'] == before + 1
@@ -367,10 +374,11 @@ def test_force_2d(dev, prefer):
   assert float((got.cpu() - ref).abs().max()) < 1e-4
 
 
-def test_relax_mesh_2d(dev):
+@pytest.mark.parametrize('shape', [(2, 2, 24, 30), (2, 3, 19, 517)])
+def test_relax_mesh_2d(dev, shape):
   # The staged solver with K8 on the card against the CPU plain path.
   rng = np.random.RandomState(8)
-  x = torch.from_numpy((rng.randn(2, 2, 24, 30) * 2).astype(np.float32))
+  x = torch.from_numpy((rng.randn(*shape) * 2).astype(np.float32))
   x[:, 1, 3:5, 6] = float('nan')
   prev = torch.nan_to_num(x) * 0.5
   cfg = mesh.IntegrationConfig(
@@ -593,12 +601,15 @@ def _patch_batch(shape, seed):
 
 
 # K7: shared memory up to 160^2 (a prime, rectangular 31 x 37 included),
-# global scratch at 256^2. K6: shared memory at 32^2 and 24 x 40, global
-# scratch for the rest.
-@pytest.mark.parametrize('shape', [(37, 32, 32), (29, 24, 40),
-                                   (11, 160, 160), (9, 160, 80),
-                                   (5, 31, 37), (3, 256, 256)])
-def test_patch_corr_kernels(dev, shape):
+# global scratch at 256^2. K6: the FFT route up to 160^2 (160 x 80 and 80
+# x 160, the strip path's shape both ways, and 31 x 37), the dense-DFT
+# route at 256^2, each counted under its own counter; a second K6 call
+# repeats the first bit for bit.
+@pytest.mark.parametrize('shape,k6_route', [
+    ((37, 32, 32), 'fft'), ((29, 24, 40), 'fft'), ((11, 160, 160), 'fft'),
+    ((9, 160, 80), 'fft'), ((9, 80, 160), 'fft'), ((5, 31, 37), 'fft'),
+    ((3, 256, 256), 'dft')])
+def test_patch_corr_kernels(dev, shape, k6_route):
   a, b = _patch_batch(shape, seed=7)
   before = dict(_build.launch_counts)
   got = cuda_flow.corr_patches(a.to(dev), b.to(dev))
@@ -607,14 +618,19 @@ def test_patch_corr_kernels(dev, shape):
   scale = ref.abs().amax(dim=(1, 2), keepdim=True)
   assert float(((got.cpu() - ref).abs() / scale).max()) < 1e-3
   assert torch.equal(got, rep)
+  assert _build.launch_counts['corr_patches'] == before['corr_patches'] + 2
+  before = dict(_build.launch_counts)
   peaks = cuda_flow.flow_peaks(a.to(dev), b.to(dev))
+  counted = {k: _build.launch_counts[k] - before[k]
+             for k in ('patch_flow_peaks', 'patch_flow_peaks_dft')}
+  assert counted == {'patch_flow_peaks': int(k6_route == 'fft'),
+                     'patch_flow_peaks_dft': int(k6_route == 'dft')}
+  again = cuda_flow.flow_peaks(a.to(dev), b.to(dev))
+  assert torch.equal(peaks.view(torch.int32), again.view(torch.int32))
   ref_p = cuda_flow.flow_peaks(a, b)
   _masked_equal(peaks.cpu().T, ref_p.T)
   # b[t] = a[t + (-3, 5)]: the flow (x, y) is (5, -3) on most pairs.
   assert ref_p[:, 0].median() == 5 and ref_p[:, 1].median() == -3
-  assert _build.launch_counts['corr_patches'] == before['corr_patches'] + 2
-  assert (_build.launch_counts['patch_flow_peaks']
-          == before['patch_flow_peaks'] + 1)
 
 
 def test_rectangular_dense_flow(dev):

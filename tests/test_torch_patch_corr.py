@@ -17,6 +17,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from scipy import ndimage
 import torch
 
 from sofima_tpu.ops import pallas_flow
@@ -314,3 +315,87 @@ def test_flow_fft_route_model_matches_plain(p, step, n, crop, offset, mean):
   np.testing.assert_array_equal(np.nan_to_num(rows[:2].numpy(), nan=9e9),
                                 np.nan_to_num(peaks[:2].numpy(), nan=9e9))
   assert np.isfinite(peaks[:2].numpy()).any()
+
+
+# K6's FFT route (csrc/patch_corr.cu `patch_fft_kernel`) runs K7's
+# transform on each pre-cut pair, then the peak chain of
+# csrc/flow_peaks.cuh: the pair is read into the digit-reversed order of
+# the wrapper's plan tables for (p1, p2) along both axes as a + i b, each
+# patch's mean (or the constant `mean`) comes off, a pair with a patch
+# that is then 0 everywhere gives its NaN row without the transform, and
+# the centred p1 x p2 surface is gathered through the `src` tables. A
+# numpy model of those steps and of the chain (threshold first, the
+# clipped local-max window, the first peak at the smallest index, the
+# clamped sharpness window) must give patch_flow_peaks_plain's rows and
+# flow_peaks_pallas's (interpret mode): integer peaks and NaN rows exact,
+# sharpness and ratio within rtol 1e-3 (float32 transforms in another
+# order). The shapes take radix 2, 3 and 5 stages, rectangular both ways,
+# and a pair of odd primes (31 x 37, generic stages); each batch has a
+# flat post patch (NaN row) and, with a constant mean, a pair whose
+# surface is negative everywhere, so that no value passes the threshold
+# (NaN row).
+
+
+def _peak_chain_model(corr, min_distance=2, threshold_rel=0.5,
+                      peak_radius=5):
+  """flow_peaks.cuh `peak_chain` on one centred [n1, n2] surface."""
+  n1, n2 = corr.shape
+  nan_row = np.full(4, np.nan, np.float32)
+  if np.isnan(corr).any():
+    return nan_row
+  thr = np.float32(threshold_rel) * corr.max()
+  local = ndimage.maximum_filter(corr, 2 * min_distance + 1,
+                                 mode='constant', cval=-np.inf)
+  flat = corr.ravel()
+  cand = np.flatnonzero(((corr > thr) & (corr == local)).ravel())
+  if cand.size == 0:
+    return nan_row
+  first = cand[np.argmax(flat[cand])]  # the smallest index on ties
+  rest = flat[cand[cand != first]]
+  v1, v2 = flat[first], rest.max() if rest.size else -np.inf
+  py, px = divmod(int(first), n2)
+  w = 2 * peak_radius + 1
+  wy0 = min(max(py - peak_radius, 0), n1 - w)
+  wx0 = min(max(px - peak_radius, 0), n2 - w)
+  wmin = corr[max(wy0, 0):wy0 + w, max(wx0, 0):wx0 + w].min()
+  return np.array([px - n2 // 2, py - n1 // 2, v1 / wmin,
+                   0.0 if v2 == -np.inf else v1 / v2], np.float32)
+
+
+def _k6_fft_model(a, b, mean):
+  """K6's FFT route on one [p1, p2] pair -> its (x, y, sharpness, ratio)."""
+  area = np.float32(a.size)
+  if mean is None:
+    a = a - a.sum(dtype=np.float32) / area
+    b = b - b.sum(dtype=np.float32) / area
+  else:
+    a, b = a - np.float32(mean), b - np.float32(mean)
+  if not (a.any() and b.any()):
+    return np.full(4, np.nan, np.float32)
+  # _k7_model scatters the pair into the digit-reversed order, runs the
+  # transform and gathers the centred surface through the `src` tables.
+  return _peak_chain_model(_k7_model(a, b, centre=False).astype(np.float32))
+
+
+@pytest.mark.parametrize('mean', [None, 50.0])
+@pytest.mark.parametrize('shape', [(24, 12), (40, 20), (12, 30), (31, 37)])
+def test_patch_fft_route_model_matches_plain(shape, mean):
+  a, b = _pair((6, *shape), 8)
+  b[4] = 37.0 if mean is None else mean  # flat post patch
+  if mean is not None:
+    rng = np.random.RandomState(9)
+    a[5] = mean + 10 + rng.rand(*shape) * 40
+    b[5] = mean - 10 - rng.rand(*shape) * 40
+  got = np.stack([_k6_fft_model(x, y, mean) for x, y in zip(a, b)])
+  nan_rows = [4] if mean is None else [4, 5]
+  assert np.isnan(got[nan_rows]).all()
+  assert np.isfinite(np.delete(got, nan_rows, 0)).all()
+  # b = roll(a, (3, -2)) + noise: the flow (x, y) is (2, -3).
+  np.testing.assert_array_equal(got[:4, :2], np.tile([2.0, -3.0], (4, 1)))
+  ref = cuda_flow.flow_peaks(torch.from_numpy(a), torch.from_numpy(b),
+                             mean=mean).numpy()
+  pal = np.asarray(pallas_flow.flow_peaks_pallas(
+      jnp.asarray(a), jnp.asarray(b), mean=mean, group=3, interpret=True))
+  for r in (ref, pal):
+    np.testing.assert_array_equal(got[:, :2], r[:, :2])  # NaN rows too
+    np.testing.assert_allclose(got[:, 2:], r[:, 2:], rtol=1e-3)
