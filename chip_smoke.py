@@ -59,6 +59,10 @@ call that computes the same function):
     patches (beside the torch.fft chain), and at 256^2 (its
     global-scratch route) and 31 x 37.
 
+K3 and K11 (the fused FIRE solvers) are also held without `prev` on a
+mesh whose sides are not a multiple of the tile, with a NaN row along a
+tile edge (steps, NaN pattern, max |dx|, a bit-for-bit repeat), print
+their microseconds per step, and K3 is timed on path (f)'s whole solve.
 K4 is held against its plain version in all four methods at 10k^2 (the
 shared-memory branch: the share of staged tiles is printed) and on a
 field of random positions (every tile on the direct branch); K13 so in
@@ -71,8 +75,9 @@ their FFT route at the stack path's shapes (no launch counted under
 time for the same pairs' surfaces (pre-cut patches) is printed beside
 them as a yardstick for the transform alone, and their dense-DFT route is
 held against the plain version at p = 192 on a 2048^2 pair. The
-redesigned kernels (K1, K2, K4, K5, K6, K7, K8, K13, and K4's launches as
-K12 and K4p) print their times before the redesign beside the new ones; the
+redesigned kernels (K1, K2, K3, K4, K5, K6, K7, K8, K11, K13, and K4's
+launches as K12 and K4p) print their times before the redesign beside the
+new ones; the
 kernels line holds only numbers measured (or, for bound_ms, computed) in
 this run.
 
@@ -164,9 +169,9 @@ K13_RANDOM = (64, 256, 256)   # K13's random-position output (z, y, x)
 K12_REPS = 20           # timed calls per K12 box (kernel and grid_sample)
 # The redesigned kernels' times before the redesign (the dense-DFT K7,
 # K1, K2 and K6, the runtime-tap K4 gather, K5 with every pair on the
-# dense DFT, the runtime-tap, unstaged K13 and the per-node K8, measured
-# by this script on an H100 80GB HBM3 at 700 W), printed beside the new
-# ones and kept out of the kernels line.
+# dense DFT, the runtime-tap, unstaged K13, the per-node K8 and the
+# two-barrier K3 / K11, measured by this script on an H100 80GB HBM3 at
+# 700 W), printed beside the new ones and kept out of the kernels line.
 K1_PRIOR_MS = 56.77
 K2_PRIOR_MS = 70.46
 K7_PRIOR_MS = 115.8
@@ -179,6 +184,11 @@ K13_PRIOR_MS = 1.070
 K13_PRIOR_MS_LANCZOS = 10.82
 K6_PRIOR_MS = 340.5     # the dense DFT, summed over the strip path
 K8_PRIOR_MS = 0.0884    # one thread per node, every link from both ends
+K3_PRIOR_MS = 8.451     # two grid barriers a step, state in device memory
+K11_PRIOR_MS = 29.28    # (1125 steps on 250^2; 1000 on [3, 8, 128, 256])
+# K3 and K11 also without `prev`, on meshes whose sides are not a
+# multiple of the tile, with a NaN row along a tile edge: (z,) y, x nodes.
+FIRE_ODD = {2: (203, 150), 3: (5, 37, 71)}
 # K1's dense-DFT route (sizes the FFT route does not serve): image edge,
 # p and step of the pair it is held on.
 DFT_ROUTE = (2048, 192, 64)
@@ -559,6 +569,71 @@ def k1_k2_phase(report, pre, post, _build, rng) -> None:
   del got
 
 
+def k3_inputs(g: int, rng, dev):
+  """K3's inputs at the stack path's mesh: smooth targets with noise, a
+  NaN frame and a NaN block; x0 = targets with NaN at 0."""
+  yy, xx = np.mgrid[:g, :g].astype(np.float32)
+  prev = np.stack([3.0 * np.sin(xx / 17.0) + rng.randn(g, g) * 0.7,
+                   2.0 * np.cos(yy / 23.0) + rng.randn(g, g) * 0.7])
+  prev = prev.astype(np.float32)[:, None]
+  prev[:, :, :2] = prev[:, :, -2:] = np.nan
+  prev[:, :, :, :2] = prev[:, :, :, -2:] = np.nan
+  prev[:, :, 100:104, 60:70] = np.nan
+  prev_t = torch.from_numpy(prev).to(dev)
+  return torch.nan_to_num(prev_t, nan=0.0), prev_t
+
+
+def fused3d_config():
+  """bench.py's mesh3d_fused configuration (cfg3f)."""
+  from sofima_tpu_torch import mesh
+  return mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0, 40.0, 40.0),
+      num_iters=500, max_iters=1000, stop_v_max=0.0, dt_max=100.0)
+
+
+def fire_odd_phase(dev, dim: int, rng) -> None:
+  """K3 (dim 2) or K11 (dim 3) without `prev` on a FIRE_ODD mesh with a
+  NaN row on the first tile edge in y, against its plain version."""
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch.ops import cuda_mesh
+  shape = FIRE_ODD[dim]
+  nodes = (1,) * (3 - len(shape)) + shape
+  cfg = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0,) * dim,
+      num_iters=100, max_iters=400, stop_v_max=0.0, dt_max=100.0,
+      prefer_orig_order=dim == 2)
+  x = rng.randn(dim, *shape).astype(np.float32) * 3
+  plan = cuda_mesh.fire_plan_of(torch.from_numpy(x).to(dev), cfg)
+  row = min(plan.tile[1], nodes[1] - 1)
+  if dim == 2:
+    x[:, row] = np.nan
+  else:
+    x[:, nodes[0] // 2, row] = np.nan
+  xt = torch.from_numpy(x).to(dev)
+  if dim == 2:
+    run = lambda: cuda_mesh.relax_mesh_fused(xt[:, None], None, cfg)[::2]
+    got, steps = run()
+    got = got[:, 0]
+    ref, _, steps_p = cuda_mesh.relax_mesh_fused_plain(xt, None, cfg)
+  else:
+    run = lambda: cuda_mesh.relax_mesh_fused_3d(xt, None, cfg)[::2]
+    got, steps = run()
+    ref, _, steps_p = cuda_mesh.relax_mesh_fused_3d_plain(xt, None, cfg)
+  name = 'K3' if dim == 2 else 'K11'
+  err = float(torch.nan_to_num((got - ref).abs(), nan=0.0).max())
+  print(f'  no prev, {list(x.shape)} nodes (tile {plan.tile}), a NaN row '
+        f'at y = {row}: steps {int(steps)} (plain {steps_p}), max |dx| '
+        f'{err:.3g} px; a second launch repeats it bit for bit')
+  check(int(steps) == int(steps_p), f'{name} (no prev) steps differ')
+  check(bool(torch.equal(torch.isnan(got), torch.isnan(ref))),
+        f'{name} (no prev) NaN pattern differs')
+  check(bool(torch.isnan(got).any()), f'{name} (no prev): no NaN row')
+  check(err < MESH_TOL, f'{name} (no prev) differs from plain by {err} px')
+  again = run()[0]
+  check(same_bits(got, again[:, 0] if dim == 2 else again),
+        f'{name} (no prev) does not repeat bit for bit')
+
+
 def stack_slice(dev, report, _build) -> dict:
   """K1-K4 at the stack path's shapes, then the stack path itself.
 
@@ -578,15 +653,7 @@ def stack_slice(dev, report, _build) -> dict:
   print('K3 fused_fire, 250^2 nodes')
   g = N // STRIDE
   cfg = headline_config()
-  yy, xx = np.mgrid[:g, :g].astype(np.float32)
-  prev = np.stack([3.0 * np.sin(xx / 17.0) + rng.randn(g, g) * 0.7,
-                   2.0 * np.cos(yy / 23.0) + rng.randn(g, g) * 0.7])
-  prev = prev.astype(np.float32)[:, None]
-  prev[:, :, :2] = prev[:, :, -2:] = np.nan
-  prev[:, :, :, :2] = prev[:, :, :, -2:] = np.nan
-  prev[:, :, 100:104, 60:70] = np.nan
-  prev_t = torch.from_numpy(prev).to(dev)
-  x0 = torch.nan_to_num(prev_t, nan=0.0)
+  x0, prev_t = k3_inputs(g, rng, dev)
   k3 = lambda: cuda_mesh.relax_mesh_fused(x0, prev_t, cfg.mesh)
   got, _, steps = k3()
   ref, _, steps_p = cuda_mesh.relax_mesh_fused_plain(x0[:, 0], prev_t[:, 0],
@@ -606,9 +673,12 @@ def stack_slice(dev, report, _build) -> dict:
                       **least_time(3 * 2 * g * g * 4,
                                    int(steps) * g * g
                                    * FIRE2D_FLOPS_NODE_STEP))
-  print(f'  kernel {report["K3"]["ms"]:.3f} ms, plain '
+  report['K3']['us_per_step'] = report['K3']['ms'] * 1e3 / int(steps)
+  print(f'  kernel {report["K3"]["ms"]:.3f} ms (before the redesign '
+        f'{K3_PRIOR_MS}), {report["K3"]["us_per_step"]:.3f} us a step, plain '
         f'{report["K3"]["plain_ms"]:.3f} ms, bound '
         f'{report["K3"]["bound_ms"]:.3f} ms')
+  fire_odd_phase(dev, 2, np.random.RandomState(SEED + 11))
 
   # K4: a 10k^2 render through a ~100 px displacement, each method against
   # its plain version; the bilinear render also by grid_sample. The kernel
@@ -1162,9 +1232,7 @@ def stitch_slice(dev, report, _build) -> dict:
 
   # K11: bench.py's mesh3d_fused mesh and config (cfg3f).
   print(f'K11 fused_fire_3d, {[3, *FUSED3D]} nodes, cfg3f')
-  cfg3f = mesh.IntegrationConfig(
-      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0, 40.0, 40.0),
-      num_iters=500, max_iters=1000, stop_v_max=0.0, dt_max=100.0)
+  cfg3f = fused3d_config()
   nodes_c = int(np.prod(FUSED3D))
   x3f = torch.from_numpy(rng.randn(3, *FUSED3D).astype(np.float32)).to(dev)
   prev3f = torch.zeros_like(x3f)
@@ -1185,9 +1253,12 @@ def stitch_slice(dev, report, _build) -> dict:
                        library_ms=None, steps=int(steps),
                        **least_time(3 * 3 * nodes_c * 4, int(steps) * nodes_c
                                     * FIRE3D_FLOPS_NODE_STEP))
-  print(f'  kernel {report["K11"]["ms"]:.3f} ms, plain '
-        f'{report["K11"]["plain_ms"]:.3f} ms, bound '
+  report['K11']['us_per_step'] = report['K11']['ms'] * 1e3 / int(steps)
+  print(f'  kernel {report["K11"]["ms"]:.3f} ms (before the redesign '
+        f'{K11_PRIOR_MS}), {report["K11"]["us_per_step"]:.3f} us a step, '
+        f'plain {report["K11"]["plain_ms"]:.3f} ms, bound '
         f'{report["K11"]["bound_ms"]:.3f} ms')
+  fire_odd_phase(dev, 3, np.random.RandomState(SEED + 12))
 
   k13_phase(dev, report)
 
@@ -1851,6 +1922,13 @@ def library_slice(dev, report, _build) -> dict:
   check(bool(torch.equal(torch.isnan(got3[:, 0]), torch.isnan(ref3))),
         'path (f) K3 NaN pattern differs')
   check(k3_err < MESH_TOL, f'path (f) K3 differs from plain by {k3_err} px')
+  # K3's own time on path (f)'s whole solve (its launch on the path).
+  solve = lambda: cuda_mesh.relax_mesh_fused(torch.zeros_like(prev), prev,
+                                             e2e_config())
+  k3f_ms = cuda_ms(solve)
+  report['K3'].update(path_f_ms=k3f_ms, path_f_steps=steps)
+  print(f'  K3 on path (f)\'s whole solve: {steps} steps in {k3f_ms:.3f} ms '
+        f'({k3f_ms * 1e3 / steps:.3f} us a step)')
   del prev, got3, ref3
 
   # The component labelling on the card against the CPU: the path's
@@ -1978,7 +2056,7 @@ def library_slice(dev, report, _build) -> dict:
       valid_reconciled=valid['final'], min_patch_dropped=dropped,
       min_patch_dropped_holed=rec_drop['holed'],
       k3_launches=launches_f['fused_fire'], k3_steps_held=int(st3),
-      k3_max_diff_plain=k3_err,
+      k3_max_diff_plain=k3_err, k3_solve_ms=k3f_ms,
       k4p_launches=launches_f['warp_subvolume'],
       ndimage_warp_s=nd_s, k12_launches=nd_launches,
       ndimage_max_diff_plain=nd_err, plain_render_wall_s=wall_plain,

@@ -38,27 +38,29 @@ struct Springs2d {
   float stride_x, stride_y;
 };
 
-// K3's force on node (y, x) of one mesh; `x` points at its channel 0 and
-// the y channel is `cs` floats further.
-__device__ __forceinline__ void force2d_node(const float* __restrict__ x,
-                                             int64_t cs, int ny, int nx,
+// K3's force on node (y, xx) of an ny x nx mesh. `at(c, ey, ex)` reads
+// channel c of the node at offset (ey, ex) from it, (0, 0) being the node
+// itself; it is called only for nodes inside the mesh. The fused solver
+// reads them from its shared-memory tile (fire.cu). kBounds = false
+// skips the bounds tests, for a node whose 8 neighbours all lie inside:
+// the same links, in the same order.
+template <bool kBounds = true, class At>
+__device__ __forceinline__ void force2d_node(const At& at, int ny, int nx,
                                              int y, int xx,
                                              const Springs2d& S, bool prefer,
                                              float f[2]) {
-  const int64_t i = (int64_t)y * nx + xx;
-  const float x0 = x[i], x1 = x[cs + i];
+  const float x0 = at(0, 0, 0), x1 = at(1, 0, 0);
   float acc0 = 0.0f, acc1 = 0.0f;
   for (int ey = -1; ey <= 1; ++ey) {
     for (int ex = -1; ex <= 1; ++ex) {
       if (ex == 0 && ey == 0) continue;
       const int qy = y + ey, qx = xx + ex;
-      if (qy < 0 || qy >= ny || qx < 0 || qx >= nx) continue;
-      const int64_t j = (int64_t)qy * nx + qx;
+      if (kBounds && (qy < 0 || qy >= ny || qx < 0 || qx >= nx)) continue;
       const float l0x = S.stride_x * ex, l0y = S.stride_y * ey;
       const float l0 = sqrtf(l0x * l0x + l0y * l0y);
       const float k_eff = (ex == 0 || ey == 0) ? S.k : S.k_diag;
-      const float d0 = x[j] - x0 + l0x;
-      const float d1 = x[cs + j] - x1 + l0y;
+      const float d0 = at(0, ey, ex) - x0 + l0x;
+      const float d1 = at(1, ey, ex) - x1 + l0y;
       const float dd = d0 * d0 + d1 * d1;
       // 1/|d| as rsqrt: inf at d = 0 and 0 at |d| = inf.
       const float inv_l = rsqrtf(fmaxf(dd, 0.0f));

@@ -44,15 +44,15 @@ __device__ __forceinline__ float finite_or_zero(float v) {
   return isfinite(v) ? v : 0.0f;
 }
 
-// Force on node (z, y, x) of one mesh; `x` points at its channel 0 and
-// channels are `cs` floats apart.
-__device__ __forceinline__ void force3d_node(const float* __restrict__ x,
-                                             int64_t cs, int nz, int ny,
+// Force on node (z, y, xx) of an nz x ny x nx mesh. `at(c, ez, ey, ex)`
+// reads channel c of the node at offset (ez, ey, ex) from it, (0, 0, 0)
+// being the node itself; it is called only for nodes inside the mesh.
+template <class At>
+__device__ __forceinline__ void force3d_node(const At& at, int nz, int ny,
                                              int nx, int z, int y, int xx,
                                              const Links3d& L, bool prefer,
                                              float f[3]) {
-  const int64_t i = ((int64_t)z * ny + y) * nx + xx;
-  const float c0 = x[i], c1 = x[cs + i], c2 = x[2 * cs + i];
+  const float c0 = at(0, 0, 0, 0), c1 = at(1, 0, 0, 0), c2 = at(2, 0, 0, 0);
   float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
   int li = 0;
   for (int ez = -1; ez <= 1; ++ez) {
@@ -63,10 +63,9 @@ __device__ __forceinline__ void force3d_node(const float* __restrict__ x,
         const int qz = z + ez, qy = y + ey, qx = xx + ex;
         if (qz < 0 || qz >= nz || qy < 0 || qy >= ny || qx < 0 || qx >= nx)
           continue;
-        const int64_t j = ((int64_t)qz * ny + qy) * nx + qx;
-        const float d0 = x[j] - c0 + L.l0v[l][0];
-        const float d1 = x[cs + j] - c1 + L.l0v[l][1];
-        const float d2 = x[2 * cs + j] - c2 + L.l0v[l][2];
+        const float d0 = at(0, ez, ey, ex) - c0 + L.l0v[l][0];
+        const float d1 = at(1, ez, ey, ex) - c1 + L.l0v[l][1];
+        const float d2 = at(2, ez, ey, ex) - c2 + L.l0v[l][2];
         const float dd = d0 * d0 + d1 * d1 + d2 * d2;
         const float l0 = L.l0[l], k = L.k_eff[l];
         // 1/|d| as rsqrt: inf at d = 0 and 0 at |d| = inf, so every
@@ -96,6 +95,21 @@ __device__ __forceinline__ void force3d_node(const float* __restrict__ x,
   f[0] = acc0;
   f[1] = acc1;
   f[2] = acc2;
+}
+
+// The same on a mesh in global memory: `x` points at its channel 0 and
+// channels are `cs` floats apart.
+__device__ __forceinline__ void force3d_node(const float* __restrict__ x,
+                                             int64_t cs, int nz, int ny,
+                                             int nx, int z, int y, int xx,
+                                             const Links3d& L, bool prefer,
+                                             float f[3]) {
+  const int64_t i = ((int64_t)z * ny + y) * nx + xx;
+  const int64_t sy = nx, sz = (int64_t)ny * nx;
+  const auto at = [&](int c, int ez, int ey, int ex) {
+    return x[c * cs + i + ez * sz + ey * sy + ex];
+  };
+  force3d_node(at, nz, ny, nx, z, y, xx, L, prefer, f);
 }
 
 }  // namespace sofima

@@ -70,12 +70,15 @@ def next_fast_len(n: int) -> int:
 
 
 def masked_xcorr(prev, curr, prev_mask=None, curr_mask=None,
+                 use_jax: bool = True, dim: int = 2,
                  per_item: bool = False) -> torch.Tensor:
   """Normalized cross-correlation of two (optionally masked) images.
 
-  Twin of flow_field.masked_xcorr in 2d: the full linear correlation over
-  the last two axes (leading axes are batch), FFTs padded to
-  `next_fast_len` (torch.fft, as the reference leaves them to XLA).
+  Twin of flow_field.masked_xcorr, with its parameters: the full linear
+  correlation over the last `dim` axes (leading axes are batch), FFTs
+  padded to `next_fast_len` (torch.fft, as the reference leaves them to
+  XLA). `use_jax` is accepted for the reference's calls and unused: the
+  result is always a tensor.
   Masks mark INVALID pixels (True = ignore); with masks the result is
   the Padfield masked NCC in [-1, 1], zeroed where the denominator is
   below 1e3 eps x its maximum or the valid overlap below 0.3 x its
@@ -86,9 +89,9 @@ def masked_xcorr(prev, curr, prev_mask=None, curr_mask=None,
   """
   prev = torch.as_tensor(prev).to(torch.float32)
   curr = torch.as_tensor(curr, device=prev.device).to(torch.float32)
-  axes = (-2, -1)
+  axes = tuple(range(-dim, 0))
   full_shape = tuple(int(a + b - 1) for a, b in
-                     zip(prev.shape[-2:], curr.shape[-2:]))
+                     zip(prev.shape[-dim:], curr.shape[-dim:]))
   fft_shape = tuple(next_fast_len(n) for n in full_shape)
   out = (Ellipsis,) + tuple(slice(0, n) for n in full_shape)
 
@@ -487,6 +490,7 @@ def _nanmedian(c: torch.Tensor) -> torch.Tensor:
 def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
                         patch_size=(160, 160), step=(40, 40),
                         coarse_step=None, fine_patch=None,
+                        batch_size: int = 256, bf16: bool = True,
                         max_displacement: int = 96, residual: int = 8,
                         pre_mask=None, post_mask=None, min_distance: int = 2,
                         threshold_rel: float = 0.5, peak_radius: int = 5,
@@ -517,6 +521,10 @@ def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
   (default `coarse_step`) whose node (0, 0) sits at pixel
   `prior_origin` (default: the patch center). On the masked path the
   origin must not exceed the step (ValueError).
+
+  `batch_size` and `bf16` take the reference's places and defaults and
+  are unused: the kernels size their own launches, and the port
+  correlates in float32 (as `StackAlignConfig.bf16`).
   """
   py, px = patch_size
   sy, sx = step

@@ -14,9 +14,13 @@ Twin of sofima_tpu/ops/pallas_mesh.py:
   * K11 `relax_mesh_fused_3d`: `relax_mesh_fused_pallas_3d`, the fused
     3d FIRE solve.
 K3 and K11 are one cooperative kernel in csrc/fire.cu, templated on the
-dimension: one launch runs the whole chunked convergence loop with the
-state in device memory. It takes any grid size (the Pallas kernels'
-VMEM bound, and the pipeline's size fallback, do not apply here).
+dimension: one launch runs the whole chunked convergence loop, each block
+holding one tile of the mesh in shared memory for the whole solve, with
+one grid-wide exchange a step. `fire_plan` (pure Python, tested on the CPU)
+sizes the tiles so that every block is resident at once: up to ~1M nodes
+in 2d and ~0.5M in 3d on an H100 (`fused_fits`); a larger mesh raises
+ValueError, and the stack pipeline then takes the staged solver, as the
+reference does above its VMEM bound.
 
 Contract of the fused solvers, as the reference's: FIRE required;
 returns (x, e_kin history [min(max_chunks, 128)], steps). Nodes outside
@@ -36,6 +40,8 @@ CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -184,49 +190,195 @@ def relax_mesh_fused_plain(x: torch.Tensor, prev: torch.Tensor | None,
   return state[0][:, 1:-1, 1:-1], e_hist, steps
 
 
-def _launch(x, prev, config, counter):
-  """One cooperative launch of csrc/fire.cu on [dim, (z,) y, x] state."""
+FIRE_THREADS = 256            # threads per block (csrc/fire.cu kThreads)
+FIRE_NPT = (1, 2, 4, 8, 16)   # nodes per thread the plan may take
+FIRE_MAX_BLOCKS = 512         # barrier slots one thread polls: two each
+FIRE_MAX_HALO = 32 * FIRE_THREADS  # halo entries a block polls: 32 each
+# Dynamic shared memory a block may take: the H100's 227 KB less the
+# kernel's static share.
+FIRE_SMEM_MAX = 232448 - 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class FirePlan:
+  """K3 / K11's launch plan: one block of FIRE_THREADS threads per tile of
+  tz x ty x tx = FIRE_THREADS * npt nodes (ty, tx powers of two), all
+  blocks co-resident for the whole solve."""
+  npt: int
+  tile: tuple[int, int, int]    # (tz, ty, tx) nodes
+  tiles: tuple[int, int, int]   # tiles per axis (z, y, x)
+  smem_bytes: int               # dynamic shared memory per block
+
+  @property
+  def nblocks(self) -> int:
+    return int(np.prod(self.tiles))
+
+
+def fire_smem_bytes(dim: int, tile) -> int:
+  """Shared memory of one block: positions of the tile and its halo box
+  (one node each side; none in z in 2d), the tile's v and a, and the list
+  of halo entries (box index, face word, polled x, v and a)."""
+  tz, ty, tx = tile
+  box = (tz + (2 if dim == 3 else 0)) * (ty + 2) * (tx + 2)
+  tn = tz * ty * tx
+  return 4 * (dim * box + 2 * dim * tn + (2 + 3 * dim) * (box - tn))
+
+
+def fire_pub_words(dim: int, plan: FirePlan) -> int:
+  """64-bit words of the published tile faces: two sets (by step parity)
+  of each tile's face slots (its x faces, y faces and, in 3d, z faces),
+  3 * dim words a slot (x, v, a)."""
+  tz, ty, tx = plan.tile
+  nf = 2 * (tz * ty + tz * tx) + (2 * ty * tx if dim == 3 else 0)
+  return 2 * plan.nblocks * 3 * dim * nf
+
+
+def _fire_tiles(dim: int, npt: int):
+  nodes = FIRE_THREADS * npt
+  for sx in range(3, 9):  # tx 8 .. 256
+    for sy in range(0, 9):
+      tz = nodes >> (sx + sy)
+      if tz >= 1 and tz << (sx + sy) == nodes and (dim == 3 or tz == 1):
+        yield (tz, 1 << sy, 1 << sx)
+
+
+def fire_halo_nodes(dim: int, shape, tile) -> int:
+  """Halo entries that lie on the mesh, summed over all tiles: each
+  block recomputes these positions every step."""
+  total = 1
+  for axis, (n, t) in enumerate(zip(shape, tile)):
+    h = 0 if (axis == 0 and dim == 2) else 1
+    total *= sum(min(o + t + h, n) - max(o - h, 0) for o in range(0, n, t))
+  return total - int(np.prod(shape))
+
+
+def fire_plan(dim: int, shape, max_blocks, npt: int | None = None
+              ) -> FirePlan:
+  """The tiling of a [dim, nz, gy, gx] mesh (shape = (nz, gy, gx), nz = 1
+  in 2d). `max_blocks(smem_bytes)`: blocks the card holds at once.
+
+  Takes the smallest nodes-per-thread count whose tiling fits the card
+  (or `npt`), and for it the tile that minimises the thread slots plus
+  the halo entries recomputed per step. Raises ValueError if none fits.
+  """
+  for p in FIRE_NPT if npt is None else (npt,):
+    best = None
+    for tile in _fire_tiles(dim, p):
+      smem = fire_smem_bytes(dim, tile)
+      box = (tile[0] + (2 if dim == 3 else 0)) * (tile[1] + 2) * (tile[2] + 2)
+      if smem > FIRE_SMEM_MAX or box - np.prod(tile) > FIRE_MAX_HALO:
+        continue
+      tiles = tuple(-(-n // t) for n, t in zip(shape, tile))
+      cost = (int(np.prod(tiles)) * FIRE_THREADS * p
+              + fire_halo_nodes(dim, shape, tile))
+      if best is None or (cost, tile) < best[0]:
+        best = ((cost, tile), FirePlan(p, tile, tiles, smem))
+    if best is not None and best[1].nblocks <= min(
+        max_blocks(best[1].smem_bytes), FIRE_MAX_BLOCKS):
+      return best[1]
+  raise ValueError(
+      f'a [{dim}, {", ".join(map(str, shape))}] mesh does not fit the fused '
+      'solver: its tiles at the largest nodes-per-thread count exceed the '
+      'blocks the card holds at once')
+
+
+def _fire_library(lib):
+  """The fused solver's C functions, their argtypes set once per library."""
+  fn = lib.fused_fire_launch
+  if fn.argtypes is None:  # ctypes keeps the object
+    lib.fused_fire_max_blocks.argtypes = [ctypes.c_int] * 4
+    lib.fused_fire_max_blocks.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 10 + [ctypes.c_float] * 7
+                   + [ctypes.c_int] * 2 + [ctypes.c_float] * 5
+                   + [ctypes.c_int] + [ctypes.c_float] * 4
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+  return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fire_plan_on(lib, device: int, dim: int, prefer: bool, shape, npt):
+  """fire_plan with the card's occupancy, per library, device, kernel
+  (dimension, prefer_orig_order) and shape."""
+  blocks = {}
+
+  def max_blocks(smem):
+    if smem not in blocks:
+      blocks[smem] = lib.fused_fire_max_blocks(device, dim, int(prefer), smem)
+      if blocks[smem] <= 0:
+        raise RuntimeError('cooperative launch unavailable on this device')
+    return blocks[smem]
+
+  return fire_plan(dim, shape, max_blocks, npt)
+
+
+def fire_plan_of(x: torch.Tensor, config: mesh_lib.IntegrationConfig,
+                 lib=None, npt: int | None = None) -> FirePlan:
+  """The plan a launch on [dim, (1 or z,) y, x] state `x` (on a card)
+  takes under `config`; `lib` and `npt` as in `_launch`."""
+  shape = (1,) * (4 - x.ndim) + tuple(x.shape[1:])
+  return _fire_plan_on(_fire_library(lib or _build.library()),
+                       _device_index(x), x.shape[0],
+                       bool(config.prefer_orig_order), shape, npt)
+
+
+def fused_fits(x: torch.Tensor, config: mesh_lib.IntegrationConfig) -> bool:
+  """Whether the fused solvers take [dim, (1 or z,) y, x] state `x` under
+  `config`: always on the CPU; on a card, when fire_plan finds a tiling
+  the card holds at once."""
+  if x.device.type == 'cpu':
+    return True
+  try:
+    fire_plan_of(x, config)
+  except ValueError:
+    return False
+  return True
+
+
+def _device_index(x: torch.Tensor) -> int:
+  return x.device.index if x.device.index is not None else (
+      torch.cuda.current_device())
+
+
+def _launch(x, prev, config, counter, lib=None, npt=None):
+  """One cooperative launch of csrc/fire.cu on [dim, (z,) y, x] state.
+  `lib` and `npt` select another build and another plan, for
+  measurements."""
   dim = x.shape[0]
   _build.require_cuda(counter, *([x] if prev is None else [x, prev]))
-  lib = _build.library()
-  lib.fused_fire_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-  lib.fused_fire_max_blocks.restype = ctypes.c_int
-  lib.fused_fire_threads.restype = ctypes.c_int
-  fn = lib.fused_fire_launch
-  fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                 + [ctypes.c_float] * 7 + [ctypes.c_int] * 2
-                 + [ctypes.c_float] * 5 + [ctypes.c_int]
-                 + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p] * 2)
-  fn.restype = ctypes.c_int
+  lib = _fire_library(lib or _build.library())
   nz, gy, gx = (1,) * (4 - x.ndim) + tuple(x.shape[1:])
-  n = nz * gy * gx
   dev = x.device
-  max_blocks = lib.fused_fire_max_blocks(dev.index or 0, dim)
-  if max_blocks <= 0:
-    raise RuntimeError('cooperative launch unavailable on this device')
-  nblocks = max(1, min(max_blocks, -(-n // lib.fused_fire_threads())))
+  plan = fire_plan_of(x, config, lib, npt)
   c = config
   table = _links_table(c.k, c.stride) if dim == 3 else None
-  xw = x.clone()
-  v = torch.empty_like(xw)
-  a = torch.empty_like(xw)
-  part = torch.empty(3 * nblocks, dtype=torch.float32, device=dev)
+  out = torch.empty_like(x)
+  # One zeroed buffer of 64-bit words: the tile faces' (x, v, a), two
+  # sets; the exchange's (two sets of one per block and value, and three
+  # totals); the step count.
+  n_pub = fire_pub_words(dim, plan)
+  words = torch.zeros(n_pub + 2 * (3 * plan.nblocks + 3) + 1,
+                      dtype=torch.int64, device=dev)
+  base = words.data_ptr()
   max_chunks = _max_chunks(config)
   ehist = torch.full((max_chunks,), float('nan'), dtype=torch.float32,
                      device=dev)
-  steps = torch.zeros(1, dtype=torch.int32, device=dev)
-  rc = fn(dim, xw.data_ptr(), _build.ptr(prev), v.data_ptr(), a.data_ptr(),
-          part.data_ptr(), ehist.data_ptr(), steps.data_ptr(), nz, gy, gx,
-          nblocks, c.dt, c.gamma, c.k0, c.k, float(c.k / np.sqrt(2.0)),
-          float(c.stride[0]), float(c.stride[1]), c.num_iters, max_chunks,
-          c.stop_v_max, c.f_alpha, c.f_inc, c.f_dec, c.alpha, c.n_min,
-          float(np.float32(c.dt_max * c.dt)), c.start_cap, c.final_cap,
-          c.cap_scale, c.cap_upscale_every, int(c.prefer_orig_order),
-          None if table is None else table.ctypes.data, _build.stream_of(x))
+  tz, ty, tx = plan.tile
+  rc = lib.fused_fire_launch(
+      dim, x.data_ptr(), out.data_ptr(), _build.ptr(prev), base,
+      base + 8 * n_pub, ehist.data_ptr(), base + 8 * (words.numel() - 1),
+      nz, gy, gx, tz, ty.bit_length() - 1, tx.bit_length() - 1, *plan.tiles,
+      plan.smem_bytes, c.dt, c.gamma, c.k0,
+      c.k, float(c.k / np.sqrt(2.0)), float(c.stride[0]),
+      float(c.stride[1]), c.num_iters, max_chunks, c.stop_v_max, c.f_alpha,
+      c.f_inc, c.f_dec, c.alpha, c.n_min, float(np.float32(c.dt_max * c.dt)),
+      c.start_cap, c.final_cap, c.cap_scale, c.cap_upscale_every,
+      int(c.prefer_orig_order),
+      None if table is None else table.ctypes.data, _build.stream_of(x))
   _build.launch_counts[counter] += 1
   _build.check(rc, counter)
-  return xw, ehist, steps[0]
+  return out, ehist, words[-1]
 
 
 def _check_fused(config):

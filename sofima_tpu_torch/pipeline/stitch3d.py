@@ -268,7 +268,8 @@ class _TileView:
 
 def stitch_and_render_3d(tiles: dict, offset_x: np.ndarray,
                          offset_y: np.ndarray, coarse: np.ndarray,
-                         cfg: Stitch3dConfig | None = None, device=None,
+                         cfg: Stitch3dConfig | None = None,
+                         device_tiles: dict | None = None, device=None,
                          timings: dict | None = None):
   """End-to-end 3d stitch: fine flow -> joint solve -> blended render.
 
@@ -280,6 +281,9 @@ def stitch_and_render_3d(tiles: dict, offset_x: np.ndarray,
       y-adjacent tiles (NaN for absent pairs; stitch_rigid conventions)
     coarse: [3, 1, ny, nx] per-tile coarse positions
     cfg: chain configuration
+    device_tiles: optional (x, y) -> [tz, ty, tx] device copies of the
+      tiles (as in the reference), used in place of an upload; `tiles`
+      then gives only the keys
     device: where host tiles go
     timings: if a dict, it receives the wall seconds of the phases
       'flow', 'solve' and 'render' (synchronizing at each phase end)
@@ -288,8 +292,9 @@ def stitch_and_render_3d(tiles: dict, offset_x: np.ndarray,
   meshes ([3, n, gz, gy, gx]), key_to_idx, solve step count.
   """
   cfg = cfg or Stitch3dConfig()
+  src = tiles if device_tiles is None else {k: device_tiles[k] for k in tiles}
   tiles = {k: placement.place(t, device, torch.float32)
-           for k, t in tiles.items()}
+           for k, t in src.items()}
   any_tile = next(iter(tiles.values()))
   tz, ty, tx = (int(s) for s in any_tile.shape)
   dev = any_tile.device

@@ -111,3 +111,267 @@ class TestPlainSolver:
     _, _, jc, tc = _setup()
     assert tc.to_json() == jc.to_json()
     assert tmesh.IntegrationConfig.from_json(jc.to_json()) == tc
+
+
+# K3 / K11's launch plan (ops.cuda_mesh.fire_plan) and a model of the
+# kernel's tiling (csrc/fire.cu), on the card's shapes and awkward ones.
+# The card's co-residency is modelled as the H100's 132 SMs, at most two
+# blocks each (the kernel's launch bounds) and 228 KB of shared memory.
+PLAN_SHAPES = [
+    (2, (1, 250, 250)),   # K3: the stack path's and path (f)'s mesh
+    (2, (1, 3, 5)),
+    (2, (1, 37, 71)),
+    (2, (1, 1, 40)),      # one node wide
+    (2, (1, 40, 1)),
+    (3, (8, 128, 256)),   # K11: bench.py's mesh3d_fused mesh
+    (3, (1, 3, 5)),
+    (3, (5, 37, 71)),
+    (3, (1, 1, 9)),       # one node wide
+    (3, (6, 20, 24)),
+]
+
+
+def _h100_blocks(smem):
+  return 132 * min(2, (228 * 1024) // (smem + 1024))
+
+
+def _tile_model(dim, shape, plan):
+  """The kernel's index arithmetic, tile by tile: yields (own mesh index,
+  own box index, {face word: mesh index} that the tile publishes, halo
+  mesh index, halo box index, halo face word, box shape) as `own`,
+  `publish` and `halo` of fused_fire_kernel compute them. A face word is
+  the block's slot base plus the slot: block * 3 * dim * nf + slot."""
+  nz, gy, gx = shape
+  tz, ty, tx = plan.tile
+  sy, sx = ty.bit_length() - 1, tx.bit_length() - 1
+  h = 1 if dim == 3 else 0
+  bz, by, bx = tz + 2 * h, ty + 2, tx + 2
+  ntz, nty, ntx = plan.tiles
+  fx, fy, fz = tz * ty, tz * tx, ty * tx
+  nf = 2 * (fx + fy) + (2 * fz if dim == 3 else 0)
+  l = np.arange(tz * ty * tx)
+  lx, ly, lz = l & (tx - 1), (l >> sx) & (ty - 1), l >> (sx + sy)
+  hb = np.arange(bz * by * bx)
+  hx, hy, hz = hb % bx, hb // bx % by, hb // (bx * by)
+  inner = ((hx >= 1) & (hx <= tx) & (hy >= 1) & (hy <= ty) & (hz >= h)
+           & (hz < tz + h))
+  for b in range(plan.nblocks):
+    oz, oy, ox = b // (nty * ntx) * tz, b // ntx % nty * ty, b % ntx * tx
+    z, y, x = oz + lz, oy + ly, ox + lx
+    ok = (z < nz) & (y < gy) & (x < gx)
+    node = (z * gy + y) * gx + x
+    bi = ((lz + h) * by + ly + 1) * bx + lx + 1
+    faces = [((lx == 0) & (x > 0), lz * ty + ly),
+             ((lx == tx - 1) & (x < gx - 1), fx + lz * ty + ly),
+             ((ly == 0) & (y > 0), 2 * fx + lz * tx + lx),
+             ((ly == ty - 1) & (y < gy - 1), 2 * fx + fy + lz * tx + lx)]
+    if dim == 3:
+      faces += [((lz == 0) & (z > 0), 2 * (fx + fy) + ly * tx + lx),
+                ((lz == tz - 1) & (z < nz - 1),
+                 2 * (fx + fy) + fz + ly * tx + lx)]
+    published = {}
+    for on, slot in faces:
+      on = on & ok
+      published.update(zip(b * 3 * dim * nf + slot[on], node[on]))
+    qz, qy, qx = oz + hz - h, oy + hy - 1, ox + hx - 1
+    on = (~inner & (qz >= 0) & (qz < nz) & (qy >= 0) & (qy < gy)
+          & (qx >= 0) & (qx < gx))
+    qz, qy, qx, hbo = qz[on], qy[on], qx[on], hb[on]
+    owner = ((qz // tz) * nty + (qy >> sy)) * ntx + (qx >> sx)
+    mz, my, mx = qz - qz // tz * tz, qy & (ty - 1), qx & (tx - 1)
+    slot = np.select(
+        [qx < ox, qx >= ox + tx, qy < oy, qy >= oy + ty, qz < oz],
+        [fx + mz * ty + my, mz * ty + my, 2 * fx + fy + mz * tx + mx,
+         2 * fx + mz * tx + mx, 2 * (fx + fy) + fz + my * tx + mx],
+        2 * (fx + fy) + my * tx + mx)
+    yield (node[ok], bi[ok], published, (qz * gy + qy) * gx + qx, hbo,
+           owner * 3 * dim * nf + slot, (bz, by, bx))
+
+
+def _offsets(dim):
+  return [(ez, ey, ex) for ez in ((-1, 0, 1) if dim == 3 else (0,))
+          for ey in (-1, 0, 1) for ex in (-1, 0, 1) if (ez, ey, ex) != (0,) * 3]
+
+
+@pytest.mark.parametrize('dim, shape', PLAN_SHAPES)
+def test_fire_plan_tiling_model(dim, shape):
+  """Every node is owned once; every neighbour a node's force reads is in
+  its block's box, as the owner's own entry or as a halo entry the owner
+  publishes; shared memory fits; all blocks are resident at once."""
+  plan = cuda_mesh.fire_plan(dim, shape, _h100_blocks)
+  tz, ty, tx = plan.tile
+  assert tz * ty * tx == cuda_mesh.FIRE_THREADS * plan.npt
+  assert ty & (ty - 1) == 0 and tx & (tx - 1) == 0 and (dim == 3 or tz == 1)
+  assert plan.smem_bytes == cuda_mesh.fire_smem_bytes(dim, plan.tile)
+  assert plan.smem_bytes <= 227 * 1024
+  assert plan.nblocks <= _h100_blocks(plan.smem_bytes)
+  nz, gy, gx = shape
+  n = nz * gy * gx
+  owned = np.zeros(n, np.int64)
+  published = {}
+  halo_read, halo_total = [], 0
+  for own, bi, faces, hidx, hbox, hword, (bz, by, bx) in _tile_model(
+      dim, shape, plan):
+    owned[own] += 1
+    assert not set(faces) & set(published)  # each face slot, one writer
+    published.update(faces)
+    halo_read.append((hword, hidx))
+    halo_total += hidx.size
+    box = np.full(bz * by * bx, -1)
+    box[bi] = own
+    box[hbox] = hidx
+    z, y, x = own // (gy * gx), own // gx % gy, own % gx
+    for ez, ey, ex in _offsets(dim):
+      qz, qy, qx = z + ez, y + ey, x + ex
+      on = ((qz >= 0) & (qz < nz) & (qy >= 0) & (qy < gy) & (qx >= 0)
+            & (qx < gx))
+      read = box[(bi + (ez * by + ey) * bx + ex)[on]]
+      np.testing.assert_array_equal(read, ((qz * gy + qy) * gx + qx)[on])
+  np.testing.assert_array_equal(owned, 1)
+  # Every halo entry reads a face slot that its owner writes, with the
+  # same node, inside the buffer the wrapper allocates.
+  per_set = cuda_mesh.fire_pub_words(dim, plan) // 2
+  nf = per_set // plan.nblocks // (3 * dim)
+  for hword, hidx in halo_read:
+    assert [published.get(w) for w in hword] == list(hidx)
+    assert (hword + (3 * dim - 1) * nf < per_set).all()
+  assert halo_total == cuda_mesh.fire_halo_nodes(dim, shape, plan.tile)
+
+
+def test_fire_plan_sizes():
+  # The card's shapes take one node per thread (K3) and four (K11); a mesh
+  # beyond what the card holds at once raises.
+  k3 = cuda_mesh.fire_plan(2, (1, 250, 250), _h100_blocks)
+  assert (k3.npt, k3.tile, k3.nblocks) == (1, (1, 16, 16), 256)
+  k11 = cuda_mesh.fire_plan(3, (8, 128, 256), _h100_blocks)
+  assert (k11.npt, k11.nblocks) == (4, 256)
+  with pytest.raises(ValueError, match='does not fit'):
+    cuda_mesh.fire_plan(2, (1, 2048, 2048), _h100_blocks)
+  assert cuda_mesh.fused_fits(torch.zeros(2, 1, 4096, 4096),  # CPU: plain
+                              _setup()[3])
+
+
+def _tiled_step(dim, x, v, a, prev, cfg, plan, force, dt, alpha, cap):
+  """One FIRE step as the kernel's blocks take it: each tile advances its
+  own nodes and its halo (the halo's x, v, a read from what tile-face
+  nodes publish; every other node publishes nothing), computes the force
+  of its own nodes on that window and their Verlet velocity and mixing,
+  and a power partial; the partials are summed in float64."""
+  shape = x.shape[1:]
+  nz, gy, gx = (1,) * (4 - x.ndim) + tuple(shape)
+  flat = lambda t: t.reshape(dim, -1)
+  pub = torch.full((3, dim, nz * gy * gx), 1e30)
+  x_n, v_n, a_n = (torch.full_like(flat(x), float('nan')) for _ in range(3))
+  tiles = list(_tile_model(dim, (nz, gy, gx), plan))
+  for own, _, faces, _, _, _, _ in tiles:
+    face_nodes = np.asarray(list(faces.values()), np.int64)
+    for k, t in enumerate((x, v, a)):
+      pub[k][:, face_nodes] = flat(t)[:, face_nodes]
+  half_dt2 = 0.5 * dt * dt
+  d_in = 1.0 / (1.0 + 0.5 * dt * cfg.gamma)
+  d_out = 1.0 - 0.5 * dt * cfg.gamma
+  power = 0.0
+  tz, ty, tx = plan.tile
+  for b, (own, _, _, hidx, _, _, _) in enumerate(tiles):
+    if own.size == 0:
+      continue
+    # The window: the tile's box clipped to the mesh.
+    ntz, nty, ntx = plan.tiles
+    oz, oy, ox = b // (nty * ntx) * tz, b // ntx % nty * ty, b % ntx * tx
+    hz = 1 if dim == 3 else 0
+    z0, z1 = max(oz - hz, 0), min(oz + tz + hz, nz)
+    y0, y1 = max(oy - 1, 0), min(oy + ty + 1, gy)
+    x0, x1 = max(ox - 1, 0), min(ox + tx + 1, gx)
+    zz, yy, xx = np.meshgrid(np.arange(z0, z1), np.arange(y0, y1),
+                             np.arange(x0, x1), indexing='ij')
+    win = ((zz * gy + yy) * gx + xx).ravel()
+    is_own = np.isin(win, own)
+    is_halo = np.isin(win, hidx)
+    assert (is_own | is_halo).all()
+    wx, wv, wa = (torch.empty(dim, win.size) for _ in range(3))
+    for k, (w, t) in enumerate(((wx, x), (wv, v), (wa, a))):
+      w[:, is_own] = flat(t)[:, win[is_own]]
+      w[:, is_halo] = pub[k][:, win[is_halo]]
+    wshape = (dim,) + ((z1 - z0,) if dim == 3 else ()) + (y1 - y0, x1 - x0)
+    wx, wv, wa = (t.reshape(wshape) for t in (wx, wv, wa))
+    wp = None if prev is None else flat(prev)[:, win].reshape(wshape)
+    xw = wx + dt * wv + half_dt2 * wa  # own nodes and the halo
+    f = force(xw, wp, cap)
+    vn = d_in * (wv * d_out + 0.5 * dt * (wa + f))
+    a_norm = torch.linalg.vector_norm(f, dim=0, keepdim=True) + 1e-6
+    v_norm = torch.linalg.vector_norm(vn, dim=0, keepdim=True)
+    vm = vn + alpha * (f / a_norm * v_norm - vn)
+    sel = torch.from_numpy(is_own)
+    power += float(torch.sum((f * vn).reshape(dim, -1)[:, sel],
+                             dtype=torch.float64))
+    for dst, t in ((x_n, xw), (v_n, vm), (a_n, f)):
+      dst[:, win[is_own]] = t.reshape(dim, -1)[:, sel]
+  return (x_n.reshape(x.shape), v_n.reshape(x.shape), a_n.reshape(x.shape),
+          power)
+
+
+def _model_state(dim, shape, seed):
+  rng = np.random.RandomState(seed)
+  x = rng.randn(dim, *shape).astype(np.float32) * 3
+  holes = rng.rand(*shape) < 0.05
+  holes.reshape(-1)[7] = True  # a hole on a tile edge
+  x[:, holes] = np.nan
+  v = rng.randn(dim, *shape).astype(np.float32) * 0.2
+  a = rng.randn(dim, *shape).astype(np.float32) * 0.5
+  v[:, holes] = a[:, holes] = 0.0
+  prev = x + rng.randn(dim, *shape).astype(np.float32)
+  prev[:, rng.rand(*shape) < 0.05] = np.nan
+  return (torch.from_numpy(t) for t in (x, v, a, prev))
+
+
+@pytest.mark.parametrize('dim, shape', [(2, (37, 71)), (3, (5, 13, 21))])
+def test_fire_tiled_step_model(dim, shape):
+  """One step through the tiled model equals one plain solver step bit for
+  bit (positions, velocities, accelerations; the power to float64
+  rounding), on a seeded mesh with NaN holes, one node per thread."""
+  cfg = tmesh.IntegrationConfig(
+      dt=0.01, gamma=0.1, k0=0.1, k=0.1, stride=(40.0,) * dim,
+      num_iters=10, max_iters=100, stop_v_max=0.005, dt_max=100.0,
+      start_cap=0.5, final_cap=10.0, cap_scale=1.1, prefer_orig_order=True)
+  x, v, a, prev = _model_state(dim, shape, seed=dim)
+  if dim == 2:
+    nodes = (1,) + shape
+    pad = (1, 1, 1, 1)
+    force_fn = lambda xx, k, s, po: cuda_mesh.roll_force_2d(xx, k, s, po)
+    # The plain 2d solver's NaN guard ring, on every window.
+    def force(xw, pw, cap):
+      fw = plain_force(torch.nn.functional.pad(xw, pad, value=float('nan')),
+                       None if pw is None else torch.nn.functional.pad(
+                           pw, pad, value=float('nan')), cap)
+      return fw[:, 1:-1, 1:-1]
+  else:
+    nodes = shape
+    force_fn = tmesh.elastic_mesh_3d_plain
+    force = lambda xw, pw, cap: plain_force(xw, pw, cap)
+  plain_force, vv_step, fire_step = tmesh._make_step_fns(cfg, force_fn)
+  plan = cuda_mesh.fire_plan(dim, nodes, _h100_blocks, npt=1)
+  assert plan.nblocks > 4
+  dt, alpha, cap = (torch.tensor(c, dtype=torch.float32)
+                    for c in (0.02, 0.1, 0.5))
+  got_x, got_v, got_a, got_p = _tiled_step(dim, x, v, a, prev, cfg, plan,
+                                           force, dt, alpha, cap)
+  # The plain solver's step (on the 2d solver's padded state).
+  state = (x, v, a, dt, alpha, torch.tensor(0, dtype=torch.int32), cap)
+  if dim == 2:  # the ring: NaN positions, zero velocity and force
+    state = tuple(torch.nn.functional.pad(
+        t, pad, value=float('nan') if i == 0 else 0.0) if i < 3 else t
+                  for i, t in enumerate(state))
+    p_prev = torch.nn.functional.pad(prev, pad, value=float('nan'))
+  else:
+    p_prev = prev
+  ref = fire_step(state, p_prev)
+  xv = vv_step(state[:3], dt, cap, p_prev)
+  power = float(torch.sum(xv[2] * xv[1]))
+  ref_x, ref_v, ref_a = ref[:3]
+  if dim == 2:
+    ref_x, ref_v, ref_a = (t[:, 1:-1, 1:-1] for t in (ref_x, ref_v, ref_a))
+  same = lambda p, q: torch.equal(p.view(torch.int32), q.view(torch.int32))
+  assert same(got_x, ref_x) and same(got_a, ref_a)
+  assert same(got_v * (power >= 0), ref_v)
+  assert np.isnan(got_x.numpy()).any()
+  np.testing.assert_allclose(got_p, power, rtol=1e-5)

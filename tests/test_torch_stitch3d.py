@@ -257,6 +257,18 @@ class TestStitchAndRender:
     assert d.mean() < 0.05 and d.max() < 2.0, (d.mean(), d.max())
     np.testing.assert_allclose(weights, reference['weights'], atol=0.05)
 
+  def test_device_tiles_replace_the_upload(self, reference):
+    """`device_tiles` in the reference's 6th place: the tiles' values come
+    from it (the host dict gives only the keys), and no upload is made."""
+    _, t0, t1, cx, cy, coarse = _two_tiles()
+    cfg = convert.config_from_jax(reference['cfg3'])
+    host = {(0, 0): np.zeros_like(t0), (1, 0): np.zeros_like(t1)}
+    dev = {(0, 0): torch.from_numpy(t0), (1, 0): torch.from_numpy(t1)}
+    out = ts3.stitch_and_render_3d(host, cx, cy, coarse, cfg, dev)
+    assert out['canvas'].device.type == 'cpu'
+    assert out['solve_steps'] == reference['steps']
+    assert np.abs(out['solved'].numpy() - reference['solved']).max() < 0.08
+
   def test_host_tiles_need_a_device(self):
     if torch.cuda.is_available():
       pytest.skip('the CPU-only behaviour')
