@@ -188,7 +188,9 @@ K3_PRIOR_MS = 8.451     # two grid barriers a step, state in device memory
 K11_PRIOR_MS = 29.28    # (1125 steps on 250^2; 1000 on [3, 8, 128, 256])
 # K3 and K11 also without `prev`, on meshes whose sides are not a
 # multiple of the tile, with a NaN row along a tile edge: (z,) y, x nodes.
+# K3 also on FIRE_MULTI, a mesh its plan gives more than one node a thread.
 FIRE_ODD = {2: (203, 150), 3: (5, 37, 71)}
+FIRE_MULTI = (301, 283)
 # K1's dense-DFT route (sizes the FFT route does not serve): image edge,
 # p and step of the pair it is held on.
 DFT_ROUTE = (2048, 192, 64)
@@ -591,12 +593,12 @@ def fused3d_config():
       num_iters=500, max_iters=1000, stop_v_max=0.0, dt_max=100.0)
 
 
-def fire_odd_phase(dev, dim: int, rng) -> None:
-  """K3 (dim 2) or K11 (dim 3) without `prev` on a FIRE_ODD mesh with a
-  NaN row on the first tile edge in y, against its plain version."""
+def fire_odd_phase(dev, dim: int, rng, shape):
+  """K3 (dim 2) or K11 (dim 3) without `prev` on a mesh of `shape` with
+  a NaN row on the first tile edge in y, against its plain version.
+  Returns the launch plan."""
   from sofima_tpu_torch import mesh
   from sofima_tpu_torch.ops import cuda_mesh
-  shape = FIRE_ODD[dim]
   nodes = (1,) * (3 - len(shape)) + shape
   cfg = mesh.IntegrationConfig(
       dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0,) * dim,
@@ -621,9 +623,10 @@ def fire_odd_phase(dev, dim: int, rng) -> None:
     ref, _, steps_p = cuda_mesh.relax_mesh_fused_3d_plain(xt, None, cfg)
   name = 'K3' if dim == 2 else 'K11'
   err = float(torch.nan_to_num((got - ref).abs(), nan=0.0).max())
-  print(f'  no prev, {list(x.shape)} nodes (tile {plan.tile}), a NaN row '
-        f'at y = {row}: steps {int(steps)} (plain {steps_p}), max |dx| '
-        f'{err:.3g} px; a second launch repeats it bit for bit')
+  print(f'  no prev, {list(x.shape)} nodes (tile {plan.tile}, {plan.npt} '
+        f'a thread), a NaN row at y = {row}: steps {int(steps)} (plain '
+        f'{steps_p}), max |dx| {err:.3g} px; a second launch repeats it bit '
+        'for bit')
   check(int(steps) == int(steps_p), f'{name} (no prev) steps differ')
   check(bool(torch.equal(torch.isnan(got), torch.isnan(ref))),
         f'{name} (no prev) NaN pattern differs')
@@ -632,6 +635,7 @@ def fire_odd_phase(dev, dim: int, rng) -> None:
   again = run()[0]
   check(same_bits(got, again[:, 0] if dim == 2 else again),
         f'{name} (no prev) does not repeat bit for bit')
+  return plan
 
 
 def stack_slice(dev, report, _build) -> dict:
@@ -678,7 +682,10 @@ def stack_slice(dev, report, _build) -> dict:
         f'{K3_PRIOR_MS}), {report["K3"]["us_per_step"]:.3f} us a step, plain '
         f'{report["K3"]["plain_ms"]:.3f} ms, bound '
         f'{report["K3"]["bound_ms"]:.3f} ms')
-  fire_odd_phase(dev, 2, np.random.RandomState(SEED + 11))
+  fire_odd_phase(dev, 2, np.random.RandomState(SEED + 11), FIRE_ODD[2])
+  plan = fire_odd_phase(dev, 2, np.random.RandomState(SEED + 13),
+                        FIRE_MULTI)
+  check(plan.npt > 1, f'K3 takes one node a thread on {FIRE_MULTI}')
 
   # K4: a 10k^2 render through a ~100 px displacement, each method against
   # its plain version; the bilinear render also by grid_sample. The kernel
@@ -1258,7 +1265,7 @@ def stitch_slice(dev, report, _build) -> dict:
         f'{K11_PRIOR_MS}), {report["K11"]["us_per_step"]:.3f} us a step, '
         f'plain {report["K11"]["plain_ms"]:.3f} ms, bound '
         f'{report["K11"]["bound_ms"]:.3f} ms')
-  fire_odd_phase(dev, 3, np.random.RandomState(SEED + 12))
+  fire_odd_phase(dev, 3, np.random.RandomState(SEED + 12), FIRE_ODD[3])
 
   k13_phase(dev, report)
 

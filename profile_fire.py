@@ -3,23 +3,21 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 profile_fire.py               # K3 and K11 at chip_smoke's inputs
-    python3 profile_fire.py --variants    # and each plan, the barrier floor
+    python3 profile_fire.py --variants    # and each nodes-per-thread plan
     python3 profile_fire.py --path-f      # and K3 on path (f)'s inputs
 
 K3 runs on chip_smoke.py's 250^2 stack mesh with the headline solver
 configuration, K11 on bench.py's mesh3d_fused mesh [3, 8, 128, 256] with
 its configuration. For each: the steps, ms per launch (CUDA events, mean
 of REPS launches after a warm-up), us per step, and max |dx| against the
-plain solver with the step counts and NaN patterns equal.
+plain solver (below MESH_TOL) with the step counts and NaN patterns
+equal.
 
---variants also times each nodes-per-thread count that fits the card
-(`cuda_mesh.fire_plan`'s `npt`; the port takes the smallest), and the
-barrier floor: csrc/fire.cu built alone with -DSOFIMA_FIRE_FLOOR, the
-same loop with the position update, the force, the FIRE update and the
-halo taken out (one grid-wide exchange of the power a step), under the
-port's plan; and the kernel built for three blocks per SM
-(-DSOFIMA_FIRE_MIN_BLOCKS=3, fewer registers) under the plan that
-build's occupancy gives.
+--variants also runs both meshes under each nodes-per-thread count that
+fits the card (the port takes the smallest): `cuda_mesh.FIRE_NPT`, the
+counts `fire_plan` may take, is narrowed to one count at a time. Each
+run is held against the plain solver as above (max |dx| < MESH_TOL) and
+timed.
 --path-f builds path (f)'s solve inputs as chip_smoke.py does (the
 library API's flow on e2e_alignment's 10k^2 pair), holds K3's first
 K3_STEPS steps on them against the plain solver (max |dx| beside the
@@ -30,7 +28,7 @@ numbers.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -43,16 +41,17 @@ HERE = pathlib.Path(__file__).resolve().parent
 REPS = 5
 
 
-def fire_library(name: str, *defines: str):
-  """fire.cu alone, built with extra -D flags into build/fire_<name>."""
-  from sofima_tpu_torch.ops import _build
-  out = HERE / 'build' / f'fire_{name}'  # git-ignored
-  out.mkdir(parents=True, exist_ok=True)
-  so = out / f'libfire_{name}.so'
-  _build._compile([_build.CSRC / 'fire.cu'], out, so, out / 'build.log',
-                  flags=_build.NVCC_FLAGS + tuple(f'-D{d}' for d in defines))
-  print_fire_report((out / 'build.log').read_text())
-  return ctypes.CDLL(str(so))
+@contextlib.contextmanager
+def only_npt(cuda_mesh, npt: int):
+  """fire_plan restricted to `npt` nodes per thread."""
+  saved = cuda_mesh.FIRE_NPT
+  cuda_mesh.FIRE_NPT = (npt,)
+  cuda_mesh._fire_plan_on.cache_clear()
+  try:
+    yield
+  finally:
+    cuda_mesh.FIRE_NPT = saved
+    cuda_mesh._fire_plan_on.cache_clear()
 
 
 def print_fire_report(log: str) -> None:
@@ -71,6 +70,7 @@ def held(cs, got, steps, ref, steps_p, name):
            f'{steps_p}')
   cs.check(bool(torch.equal(torch.isnan(got), torch.isnan(ref))),
            f'{name} NaN pattern differs')
+  cs.check(err < cs.MESH_TOL, f'{name} differs from plain by {err} px')
   return err
 
 
@@ -123,45 +123,34 @@ def main() -> int:
           f'us a step, max |dx| vs plain {r["err"]:.3g} px')
 
   if args.variants:
-    floor = fire_library('floor', 'SOFIMA_FIRE_FLOOR')
-    three = fire_library('min3', 'SOFIMA_FIRE_MIN_BLOCKS=3')
-    cases = (('K3', 2, x0[:, 0].contiguous(), prev[:, 0].contiguous(), cfg),
-             ('K11', 3, x3, p3, cfg3))
-    for key, dim, xx, pp, cc in cases:
+    cases = (('K3', cuda_mesh.relax_mesh_fused,
+              cuda_mesh.relax_mesh_fused_plain, x0, prev, cfg),
+             ('K11', cuda_mesh.relax_mesh_fused_3d,
+              cuda_mesh.relax_mesh_fused_3d_plain, x3, p3, cfg3))
+    for key, fused, plain, xx, pp, cc in cases:
       plan = cuda_mesh.fire_plan_of(xx, cc)
       out[key]['plan'] = dict(npt=plan.npt, tile=plan.tile,
                               blocks=plan.nblocks, smem=plan.smem_bytes)
+      ref, _, steps_p = (plain(xx[:, 0], pp[:, 0], cc) if key == 'K3'
+                         else plain(xx, pp, cc))
       variants = {}
       for npt in cuda_mesh.FIRE_NPT:
-        try:
-          run = lambda: cuda_mesh._launch(xx, pp, cc, 'fused_fire', npt=npt)
-          _, _, st = run()
-        except ValueError:
-          continue
-        p_n = cuda_mesh.fire_plan_of(xx, cc, npt=npt)
-        ms_n = cs.cuda_ms(run, REPS)
-        variants[npt] = dict(tile=p_n.tile, blocks=p_n.nblocks,
+        with only_npt(cuda_mesh, npt):
+          try:
+            p_n = cuda_mesh.fire_plan_of(xx, cc)
+          except ValueError:
+            continue
+          run = lambda: fused(xx, pp, cc)
+          got, _, st = run()
+          got = got[:, 0] if key == 'K3' else got
+          err_n = held(cs, got, st, ref, steps_p, f'{key} npt {npt}')
+          ms_n = cs.cuda_ms(run, REPS)
+        variants[npt] = dict(tile=p_n.tile, blocks=p_n.nblocks, err=err_n,
                              us_step=ms_n * 1e3 / int(st))
         print(f'{key} npt {npt}: tile {p_n.tile}, {p_n.nblocks} blocks, '
-              f'{variants[npt]["us_step"]:.3f} us a step')
+              f'{variants[npt]["us_step"]:.3f} us a step, max |dx| vs '
+              f'plain {err_n:.3g} px')
       out[key]['variants'] = variants
-      run_3 = lambda: cuda_mesh._launch(xx, pp, cc, 'fused_fire', lib=three)
-      got3, _, st = run_3()
-      ref3 = cuda_mesh._launch(xx, pp, cc, 'fused_fire')[0]
-      ms_3 = cs.cuda_ms(run_3, REPS)
-      p_3 = cuda_mesh.fire_plan_of(xx, cc, lib=three)
-      out[key]['min3'] = dict(npt=p_3.npt, blocks=p_3.nblocks,
-                              us_step=ms_3 * 1e3 / int(st),
-                              same_bits=cs.same_bits(got3, ref3))
-      print(f'{key} with three blocks per SM: npt {p_3.npt}, '
-            f'{p_3.nblocks} blocks, {out[key]["min3"]["us_step"]:.3f} us '
-            f'a step; the same bits as two: {out[key]["min3"]["same_bits"]}')
-      run_f = lambda: cuda_mesh._launch(xx, pp, cc, 'fused_fire', lib=floor)
-      _, _, st = run_f()
-      ms_f = cs.cuda_ms(run_f, REPS)
-      out[key]['floor_us_step'] = ms_f * 1e3 / int(st)
-      print(f'{key} barrier floor ({int(st)} steps): '
-            f'{out[key]["floor_us_step"]:.3f} us a step')
 
   if args.path_f:
     pre, post = cs.e2e_pair(dev)

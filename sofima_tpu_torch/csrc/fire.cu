@@ -45,9 +45,7 @@
 //    step of a chunk, in the same exchange.
 // K3 keeps force2d_node's body and the FIRE expressions of the kernel
 // it replaces; only where x is read from (shared memory) and the order
-// of the grid sums changed. The FIRE scalars are plain variables: kept in
-// a struct copied across the loop, the dt of an H100 build stopped
-// growing after one step. Meshes larger than the card holds at the
+// of the grid sums changed. Meshes larger than the card holds at the
 // largest `npt` raise in the wrapper (the stack pipeline then takes the
 // staged solver, as the reference does above its VMEM bound).
 
@@ -63,11 +61,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Blocks per SM the register budget must allow (launch bounds).
-#ifndef SOFIMA_FIRE_MIN_BLOCKS
-#define SOFIMA_FIRE_MIN_BLOCKS 2
-#endif
-constexpr int kMinBlocks = SOFIMA_FIRE_MIN_BLOCKS;
+constexpr int kMinBlocks = 2;  // blocks per SM the registers must allow
 constexpr unsigned kFull = 0xffffffffu;
 
 struct FireParams {
@@ -190,7 +184,7 @@ __device__ __forceinline__ void fire_next(bool uphill, const FireParams& P,
 // (cuda_mesh.fire_smem_bytes): positions of the tile and its halo box,
 // the tile's velocities and accelerations, the list of halo entries that
 // lie on the mesh and their polled (x, v, a).
-template <int D, bool kPrefer, bool kFloor>
+template <int D, bool kPrefer>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_fire_kernel(const float* __restrict__ x_in, float* __restrict__ x_out,
                   const float* __restrict__ prev,
@@ -446,7 +440,6 @@ fused_fire_kernel(const float* __restrict__ x_in, float* __restrict__ x_out,
     }
     __syncthreads();
   }
-  if constexpr (kFloor) nh = 0;  // the floor moves no halo
   unsigned tag = 1;
   for (int l = threadIdx.x; l < tn; l += kThreads) {
     int z, y, xx, bi;
@@ -458,7 +451,7 @@ fused_fire_kernel(const float* __restrict__ x_in, float* __restrict__ x_out,
       as[c * tn + l] = f[c];
       vs[c * tn + l] = 0.0f;
     }
-    if constexpr (!kFloor) publish(tag, l, bi, z, y, xx);
+    publish(tag, l, bi, z, y, xx);
   }
   start_halo(tag);
 
@@ -487,59 +480,57 @@ fused_fire_kernel(const float* __restrict__ x_in, float* __restrict__ x_out,
     }
     ++tag;
     double pw = 0.0, e = 0.0, m = 0.0;
-    if constexpr (!kFloor) {
-      // Velocity-Verlet position update: own nodes and the halo.
-      const float half_dt2 = 0.5f * dt * dt;
-      for (int l = threadIdx.x; l < tn; l += kThreads) {
-        int z, y, xx, bi;
-        if (!own(l, z, y, xx, bi)) continue;
-        for (int c = 0; c < D; ++c) {
-          const float v = reset ? 0.0f : vs[c * tn + l];
-          xs[c * box + bi] =
-              advance(xs[c * box + bi], v, as[c * tn + l], dt, half_dt2);
-        }
+    // Velocity-Verlet position update: own nodes and the halo.
+    const float half_dt2 = 0.5f * dt * dt;
+    for (int l = threadIdx.x; l < tn; l += kThreads) {
+      int z, y, xx, bi;
+      if (!own(l, z, y, xx, bi)) continue;
+      for (int c = 0; c < D; ++c) {
+        const float v = reset ? 0.0f : vs[c * tn + l];
+        xs[c * box + bi] =
+            advance(xs[c * box + bi], v, as[c * tn + l], dt, half_dt2);
       }
-      for (int k = threadIdx.x; k < nh; k += kThreads) {
-        for (int c = 0; c < D; ++c) {
-          const float v = reset ? 0.0f : hs[(D + c) * hn + k];
-          xs[c * box + hl[k]] = advance(hs[c * hn + k], v,
-                                        hs[(2 * D + c) * hn + k], dt,
-                                        half_dt2);
-        }
+    }
+    for (int k = threadIdx.x; k < nh; k += kThreads) {
+      for (int c = 0; c < D; ++c) {
+        const float v = reset ? 0.0f : hs[(D + c) * hn + k];
+        xs[c * box + hl[k]] = advance(hs[c * hn + k], v,
+                                      hs[(2 * D + c) * hn + k], dt,
+                                      half_dt2);
       }
-      __syncthreads();
+    }
+    __syncthreads();
 
-      // New force, Verlet velocity, FIRE power partial and mixing.
-      const float d_in = 1.0f / (1.0f + 0.5f * dt * P.gamma);
-      const float d_out = 1.0f - 0.5f * dt * P.gamma;
-      for (int l = threadIdx.x; l < tn; l += kThreads) {
-        int z, y, xx, bi;
-        if (!own(l, z, y, xx, bi)) continue;
-        const int i = (z * gy + y) * gx + xx;
-        float f[D], vn[D];
-        force(bi, z, y, xx, i, cap, f);
-        float fv = 0.0f, ff = 0.0f, vv = 0.0f;
-        for (int c = 0; c < D; ++c) {
-          const float v = reset ? 0.0f : vs[c * tn + l];
-          vn[c] = d_in * (v * d_out + 0.5f * dt * (as[c * tn + l] + f[c]));
-          fv += f[c] * vn[c];
-          ff += f[c] * f[c];
-          vv += vn[c] * vn[c];
-        }
-        pw += fv;
-        const float a_norm = sqrtf(ff) + 1e-6f;
-        const float v_norm = sqrtf(vv);
-        float vsq = 0.0f;
-        for (int c = 0; c < D; ++c) {
-          const float v = vn[c] + alpha * (f[c] / a_norm * v_norm - vn[c]);
-          as[c * tn + l] = f[c];
-          vs[c * tn + l] = v;
-          vsq += v * v;
-        }
-        e += vsq;
-        m = fmax(m, (double)vsq);
-        publish(tag, l, bi, z, y, xx);
+    // New force, Verlet velocity, FIRE power partial and mixing.
+    const float d_in = 1.0f / (1.0f + 0.5f * dt * P.gamma);
+    const float d_out = 1.0f - 0.5f * dt * P.gamma;
+    for (int l = threadIdx.x; l < tn; l += kThreads) {
+      int z, y, xx, bi;
+      if (!own(l, z, y, xx, bi)) continue;
+      const int i = (z * gy + y) * gx + xx;
+      float f[D], vn[D];
+      force(bi, z, y, xx, i, cap, f);
+      float fv = 0.0f, ff = 0.0f, vv = 0.0f;
+      for (int c = 0; c < D; ++c) {
+        const float v = reset ? 0.0f : vs[c * tn + l];
+        vn[c] = d_in * (v * d_out + 0.5f * dt * (as[c * tn + l] + f[c]));
+        fv += f[c] * vn[c];
+        ff += f[c] * f[c];
+        vv += vn[c] * vn[c];
       }
+      pw += fv;
+      const float a_norm = sqrtf(ff) + 1e-6f;
+      const float v_norm = sqrtf(vv);
+      float vsq = 0.0f;
+      for (int c = 0; c < D; ++c) {
+        const float v = vn[c] + alpha * (f[c] / a_norm * v_norm - vn[c]);
+        as[c * tn + l] = f[c];
+        vs[c * tn + l] = v;
+        vsq += v * v;
+      }
+      e += vsq;
+      m = fmax(m, (double)vsq);
+      publish(tag, l, bi, z, y, xx);
     }
     reduce(tag, pw, e, m, ++t == P.num_iters ? 3 : 1);
     start_halo(tag);
@@ -554,26 +545,15 @@ fused_fire_kernel(const float* __restrict__ x_in, float* __restrict__ x_out,
   if (blockIdx.x == 0 && threadIdx.x == 0) steps[0] = chunk * P.num_iters;
 }
 
-template <bool kFloor>
 const void* kernel_of(int dim, int prefer) {
   if (dim == 3)
-    return prefer ? (const void*)fused_fire_kernel<3, true, kFloor>
-                  : (const void*)fused_fire_kernel<3, false, kFloor>;
-  return prefer ? (const void*)fused_fire_kernel<2, true, kFloor>
-                : (const void*)fused_fire_kernel<2, false, kFloor>;
+    return prefer ? (const void*)fused_fire_kernel<3, true>
+                  : (const void*)fused_fire_kernel<3, false>;
+  return prefer ? (const void*)fused_fire_kernel<2, true>
+                : (const void*)fused_fire_kernel<2, false>;
 }
 
 }  // namespace
-
-// The barrier floor: the same loop with the position update, the force
-// and the FIRE update taken out (barriers and reductions only). Built
-// only with -DSOFIMA_FIRE_FLOOR, by the measurement script
-// profile_fire.py; the port never runs it.
-#ifdef SOFIMA_FIRE_FLOOR
-constexpr bool kFloorBuild = true;
-#else
-constexpr bool kFloorBuild = false;
-#endif
 
 extern "C" {
 
@@ -589,7 +569,7 @@ int fused_fire_max_blocks(int device, int dim, int prefer, int smem) {
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
       cudaSuccess)
     return 0;
-  const void* fn = kernel_of<kFloorBuild>(dim, prefer);
+  const void* fn = kernel_of(dim, prefer);
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess)
     return 0;
@@ -648,7 +628,7 @@ int fused_fire_launch(int dim, const float* x, float* out, const float* prev,
   Tiling T = {tz, 1 << sy, 1 << sx, sy, sx, ntz, nty, ntx};
   void* args[] = {&x,  &out, &prev, &pub, &slots, &ehist, &steps,
                   &nz, &gy,  &gx,   &T,   &P};
-  const void* fn = kernel_of<kFloorBuild>(dim, prefer_orig_order);
+  const void* fn = kernel_of(dim, prefer_orig_order);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

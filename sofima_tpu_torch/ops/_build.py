@@ -117,14 +117,14 @@ def library() -> ctypes.CDLL:
 
 
 def _compile(sources, out_dir: pathlib.Path, so_path: pathlib.Path,
-             log_path: pathlib.Path, flags=NVCC_FLAGS) -> None:
+             log_path: pathlib.Path) -> None:
   """One nvcc per source, all started together, then one link."""
   nvcc = _nvcc()
   tag = f'.tmp{os.getpid()}'
   jobs = []
   for src in sources:
     obj = out_dir / f'{src.stem}{tag}.o'
-    cmd = [nvcc, *flags, '-c', '-o', str(obj), str(src)]
+    cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
     jobs.append((cmd, obj, subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
   log, failed = [], []

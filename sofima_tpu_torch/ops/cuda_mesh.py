@@ -17,10 +17,13 @@ K3 and K11 are one cooperative kernel in csrc/fire.cu, templated on the
 dimension: one launch runs the whole chunked convergence loop, each block
 holding one tile of the mesh in shared memory for the whole solve, with
 one grid-wide exchange a step. `fire_plan` (pure Python, tested on the CPU)
-sizes the tiles so that every block is resident at once: up to ~1M nodes
-in 2d and ~0.5M in 3d on an H100 (`fused_fits`); a larger mesh raises
-ValueError, and the stack pipeline then takes the staged solver, as the
-reference does above its VMEM bound.
+sizes the tiles so that every block is resident at once (`fused_fits`).
+On an H100 that holds a 2d mesh of up to ~1M nodes when near square
+(1024^2), fewer when elongated (100 x 4700 at most), and a 3d mesh of up
+to 262 144 nodes ([8, 128, 256]); the reference's VMEM bound is 786 432
+and 524 288 nodes. A larger mesh raises ValueError, and the stack
+pipeline then takes the staged solver, as the reference does above its
+VMEM bound.
 
 Contract of the fused solvers, as the reference's: FIRE required;
 returns (x, e_kin history [min(max_chunks, 128)], steps). Nodes outside
@@ -252,16 +255,15 @@ def fire_halo_nodes(dim: int, shape, tile) -> int:
   return total - int(np.prod(shape))
 
 
-def fire_plan(dim: int, shape, max_blocks, npt: int | None = None
-              ) -> FirePlan:
+def fire_plan(dim: int, shape, max_blocks) -> FirePlan:
   """The tiling of a [dim, nz, gy, gx] mesh (shape = (nz, gy, gx), nz = 1
   in 2d). `max_blocks(smem_bytes)`: blocks the card holds at once.
 
-  Takes the smallest nodes-per-thread count whose tiling fits the card
-  (or `npt`), and for it the tile that minimises the thread slots plus
-  the halo entries recomputed per step. Raises ValueError if none fits.
+  Takes the smallest nodes-per-thread count of FIRE_NPT whose tiling fits
+  the card, and for it the tile that minimises the thread slots plus the
+  halo entries recomputed per step. Raises ValueError if none fits.
   """
-  for p in FIRE_NPT if npt is None else (npt,):
+  for p in FIRE_NPT:
     best = None
     for tile in _fire_tiles(dim, p):
       smem = fire_smem_bytes(dim, tile)
@@ -298,7 +300,7 @@ def _fire_library(lib):
 
 
 @functools.lru_cache(maxsize=None)
-def _fire_plan_on(lib, device: int, dim: int, prefer: bool, shape, npt):
+def _fire_plan_on(lib, device: int, dim: int, prefer: bool, shape):
   """fire_plan with the card's occupancy, per library, device, kernel
   (dimension, prefer_orig_order) and shape."""
   blocks = {}
@@ -310,17 +312,16 @@ def _fire_plan_on(lib, device: int, dim: int, prefer: bool, shape, npt):
         raise RuntimeError('cooperative launch unavailable on this device')
     return blocks[smem]
 
-  return fire_plan(dim, shape, max_blocks, npt)
+  return fire_plan(dim, shape, max_blocks)
 
 
-def fire_plan_of(x: torch.Tensor, config: mesh_lib.IntegrationConfig,
-                 lib=None, npt: int | None = None) -> FirePlan:
+def fire_plan_of(x: torch.Tensor,
+                 config: mesh_lib.IntegrationConfig) -> FirePlan:
   """The plan a launch on [dim, (1 or z,) y, x] state `x` (on a card)
-  takes under `config`; `lib` and `npt` as in `_launch`."""
+  takes under `config`."""
   shape = (1,) * (4 - x.ndim) + tuple(x.shape[1:])
-  return _fire_plan_on(_fire_library(lib or _build.library()),
-                       _device_index(x), x.shape[0],
-                       bool(config.prefer_orig_order), shape, npt)
+  return _fire_plan_on(_fire_library(_build.library()), _device_index(x),
+                       x.shape[0], bool(config.prefer_orig_order), shape)
 
 
 def fused_fits(x: torch.Tensor, config: mesh_lib.IntegrationConfig) -> bool:
@@ -341,16 +342,14 @@ def _device_index(x: torch.Tensor) -> int:
       torch.cuda.current_device())
 
 
-def _launch(x, prev, config, counter, lib=None, npt=None):
-  """One cooperative launch of csrc/fire.cu on [dim, (z,) y, x] state.
-  `lib` and `npt` select another build and another plan, for
-  measurements."""
+def _launch(x, prev, config, counter):
+  """One cooperative launch of csrc/fire.cu on [dim, (z,) y, x] state."""
   dim = x.shape[0]
   _build.require_cuda(counter, *([x] if prev is None else [x, prev]))
-  lib = _fire_library(lib or _build.library())
+  lib = _fire_library(_build.library())
   nz, gy, gx = (1,) * (4 - x.ndim) + tuple(x.shape[1:])
   dev = x.device
-  plan = fire_plan_of(x, config, lib, npt)
+  plan = fire_plan_of(x, config)
   c = config
   table = _links_table(c.k, c.stride) if dim == 3 else None
   out = torch.empty_like(x)

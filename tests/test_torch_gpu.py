@@ -323,6 +323,41 @@ def test_fused_fire(dev):
         mesh.IntegrationConfig(**{**cfg.__dict__, 'remove_drift': True}))
 
 
+# Meshes K3 and K11's plans give 2-16 nodes a thread (two blocks an SM
+# on an H100), with a NaN row on a tile edge and no `prev`.
+@pytest.mark.parametrize('shape, npt', [
+    ((301, 283), 2), ((97, 1500), 4), ((700, 650), 8), ((1000, 999), 16),
+    ((6, 99, 151), 2), ((8, 128, 256), 4)])
+def test_fused_fire_plans(dev, shape, npt):
+  dim = len(shape) if len(shape) == 3 else 2
+  rng = np.random.RandomState(npt)
+  cfg = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0,) * dim,
+      num_iters=100, max_iters=300, stop_v_max=0.0, dt_max=100.0,
+      prefer_orig_order=dim == 2)
+  x = rng.randn(dim, *shape).astype(np.float32) * 3
+  plan = cuda_mesh.fire_plan_of(torch.from_numpy(x).to(dev), cfg)
+  assert plan.npt == npt
+  if dim == 2:
+    x[:, plan.tile[1]] = np.nan
+    fused = lambda t: cuda_mesh.relax_mesh_fused(t[:, None], None, cfg)
+    plain = cuda_mesh.relax_mesh_fused_plain
+  else:
+    x[:, shape[0] // 2, plan.tile[1]] = np.nan
+    fused = lambda t: cuda_mesh.relax_mesh_fused_3d(t, None, cfg)
+    plain = cuda_mesh.relax_mesh_fused_3d_plain
+  xt = torch.from_numpy(x).to(dev)
+  got, _, steps = fused(xt)
+  again = fused(xt)[0]
+  assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+  got = got[:, 0] if dim == 2 else got
+  ref, _, steps_ref = plain(xt, None, cfg)
+  assert int(steps) == int(steps_ref)
+  assert torch.equal(torch.isnan(got), torch.isnan(ref))
+  assert bool(torch.isnan(got).any())
+  assert float(torch.nan_to_num((got - ref).abs()).max()) < 1e-3
+
+
 def test_align_step_drift_removal(dev):
   # Drift removal takes the staged solver: K8 at every force evaluation,
   # no K3; the mesh lands on the CPU plain path's.

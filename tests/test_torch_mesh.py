@@ -8,6 +8,8 @@ Tolerance (as tests/test_pallas_mesh.py holds the Pallas kernel): step
 counts equal, NaN pattern equal, max |dx| < 1e-3 px.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,6 +121,9 @@ class TestPlainSolver:
 # blocks each (the kernel's launch bounds) and 228 KB of shared memory.
 PLAN_SHAPES = [
     (2, (1, 250, 250)),   # K3: the stack path's and path (f)'s mesh
+    (2, (1, 301, 283)),   # two nodes a thread
+    (2, (1, 97, 1500)),   # four, elongated
+    (2, (1, 1000, 999)),  # sixteen
     (2, (1, 3, 5)),
     (2, (1, 37, 71)),
     (2, (1, 1, 40)),      # one node wide
@@ -239,14 +244,21 @@ def test_fire_plan_tiling_model(dim, shape):
 
 
 def test_fire_plan_sizes():
-  # The card's shapes take one node per thread (K3) and four (K11); a mesh
-  # beyond what the card holds at once raises.
+  # The card's shapes take one node per thread (K3) and four (K11);
+  # larger 2d meshes take more; a mesh beyond what the card holds at once
+  # raises (the reference's VMEM bound: 786 432 nodes in 2d, 524 288 in
+  # 3d).
   k3 = cuda_mesh.fire_plan(2, (1, 250, 250), _h100_blocks)
   assert (k3.npt, k3.tile, k3.nblocks) == (1, (1, 16, 16), 256)
   k11 = cuda_mesh.fire_plan(3, (8, 128, 256), _h100_blocks)
   assert (k11.npt, k11.nblocks) == (4, 256)
-  with pytest.raises(ValueError, match='does not fit'):
-    cuda_mesh.fire_plan(2, (1, 2048, 2048), _h100_blocks)
+  npts = [cuda_mesh.fire_plan(2, s, _h100_blocks).npt for s in
+          ((1, 301, 283), (1, 97, 1500), (1, 700, 650), (1, 1000, 999))]
+  assert npts == [2, 4, 8, 16]
+  for dim, shape in ((2, (1, 2048, 2048)), (2, (1, 100, 4800)),
+                     (3, (8, 128, 272))):
+    with pytest.raises(ValueError, match='does not fit'):
+      cuda_mesh.fire_plan(dim, shape, _h100_blocks)
   assert cuda_mesh.fused_fits(torch.zeros(2, 1, 4096, 4096),  # CPU: plain
                               _setup()[3])
 
@@ -349,8 +361,8 @@ def test_fire_tiled_step_model(dim, shape):
     force_fn = tmesh.elastic_mesh_3d_plain
     force = lambda xw, pw, cap: plain_force(xw, pw, cap)
   plain_force, vv_step, fire_step = tmesh._make_step_fns(cfg, force_fn)
-  plan = cuda_mesh.fire_plan(dim, nodes, _h100_blocks, npt=1)
-  assert plan.nblocks > 4
+  plan = cuda_mesh.fire_plan(dim, nodes, _h100_blocks)
+  assert plan.npt == 1 and plan.nblocks > 4
   dt, alpha, cap = (torch.tensor(c, dtype=torch.float32)
                     for c in (0.02, 0.1, 0.5))
   got_x, got_v, got_a, got_p = _tiled_step(dim, x, v, a, prev, cfg, plan,
@@ -375,3 +387,37 @@ def test_fire_tiled_step_model(dim, shape):
   assert same(got_v * (power >= 0), ref_v)
   assert np.isnan(got_x.numpy()).any()
   np.testing.assert_allclose(got_p, power, rtol=1e-5)
+
+
+def test_solve_phase_takes_staged_solver_when_fused_does_not_fit(
+    monkeypatch):
+  """A mesh the fused solver cannot hold on the card (fused_fits False)
+  goes to the staged solver, as the reference's stack pipeline does above
+  its VMEM bound; the fused solver is not called."""
+  from sofima_tpu_torch.pipeline import stack_align as tsa
+  cfg = tsa.StackAlignConfig()
+  cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+      cfg.mesh, num_iters=20, max_iters=60))
+  rng = np.random.RandomState(5)
+  flow = torch.from_numpy(rng.randn(2, 1, 12, 12).astype(np.float32))
+  flow[:, :, 3, 4] = float('nan')
+  solved_prev = torch.from_numpy(
+      rng.randn(2, 1, 12, 12).astype(np.float32) * 0.5)
+  fused_ref = tsa._solve_phase(flow, solved_prev, cfg)  # fits on the CPU
+  asked, staged = [], []
+  real_staged = tmesh.relax_mesh_fused
+
+  def spy(x, prev, config):
+    staged.append(real_staged(x, prev, config))
+    return staged[-1]
+
+  monkeypatch.setattr(cuda_mesh, 'fused_fits',
+                      lambda x, c: asked.append(tuple(x.shape)) or False)
+  monkeypatch.setattr(tmesh, 'relax_mesh_fused', spy)
+  monkeypatch.setattr(cuda_mesh, 'relax_mesh_fused',
+                      lambda *a: pytest.fail('the fused solver ran'))
+  got = tsa._solve_phase(flow, solved_prev, cfg)
+  assert asked == [(2, 1, 12, 12)] and len(staged) == 1
+  assert got is staged[0][0]
+  assert torch.equal(torch.isnan(got), torch.isnan(fused_ref))
+  assert float(torch.nan_to_num((got - fused_ref).abs()).max()) < 0.4
