@@ -22,8 +22,14 @@ call that computes the same function):
     K5 and K4 swapped for their plain versions), the warm-start stack
     path on the same stack, and a forced
     stale-prior refresh at 640^2;
-  * 3d tile stitching: K9 (3d force; also held and timed on path (a)'s tile meshes),
-    K11 (fused 3d FIRE) and K13 (3d render); then (a) `stitch_and_render_3d` on bench.py's LICONN
+  * 3d tile stitching: K9 (3d force, both force forms; also held and
+    timed on path (a)'s tile meshes, and held on a batch of odd meshes
+    with NaN holes on its tile edges), K11 (fused 3d FIRE) and K13 (3d
+    render); the fused solvers' grid-stride route (K3 and K11 on meshes
+    whose tiles the card cannot hold at once, up to the reference's VMEM
+    bound: [2, 1, 100, 7000] and [3, 8, 256, 256], against their plain
+    versions; one node over the bound raises as the reference does);
+    then (a) `stitch_and_render_3d` on bench.py's LICONN
     geometry (2 x 2 tiles of 64 x 576 x 576, seeded band-limited
     texture) with bench.py's quality gates, (b) `mesh.relax_mesh` with
     the 3d force on bench.py's mesh3d mesh and (c) the fused 3d solver
@@ -75,9 +81,12 @@ their FFT route at the stack path's shapes (no launch counted under
 time for the same pairs' surfaces (pre-cut patches) is printed beside
 them as a yardstick for the transform alone, and their dense-DFT route is
 held against the plain version at p = 192 on a 2048^2 pair. The
-redesigned kernels (K1, K2, K3, K4, K5, K6, K7, K8, K11, K13, and K4's
-launches as K12 and K4p) print their times before the redesign beside the
-new ones; the
+redesigned kernels (K1, K2, K3, K4, K5, K6, K7, K8, K9, K11, K13, and
+K4's launches as K12 and K4p) print their times before the redesign
+beside the new ones; K9's and the grid-stride route's compiler reports
+(registers, spills) are printed after the build; the stack path and path
+(c) must take the tiled fused route (no launch counted under
+'fused_fire_grid'); the
 kernels line holds only numbers measured (or, for bound_ms, computed) in
 this run.
 
@@ -95,6 +104,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -186,6 +196,16 @@ K6_PRIOR_MS = 340.5     # the dense DFT, summed over the strip path
 K8_PRIOR_MS = 0.0884    # one thread per node, every link from both ends
 K3_PRIOR_MS = 8.451     # two grid barriers a step, state in device memory
 K11_PRIOR_MS = 29.28    # (1125 steps on 250^2; 1000 on [3, 8, 128, 256])
+K9_PRIOR_MS = 0.2636    # one thread per node, every link from both ends
+K9_PRIOR_MS_TILE = 0.1130  # (path (b)'s mesh; a call on path (a)'s)
+# K9 also on a batch of meshes no side of which is a multiple of its 8 x
+# 128 or 16 x 128 tiles, with NaN holes on the tile edges.
+K9_ODD = (3, 2, 5, 37, 71)
+# The fused solvers' grid-stride route: meshes over what the card holds
+# as tiles and within the reference's VMEM bound (the 3d one exactly at
+# it), (dim, nodes); FIRE steps held against plain.
+FIRE_GRID = ((3, (8, 256, 256)), (2, (1, 100, 7000)))
+FIRE_GRID_ITERS = 200
 # K3 and K11 also without `prev`, on meshes whose sides are not a
 # multiple of the tile, with a NaN row along a tile edge: (z,) y, x nodes.
 # K3 also on FIRE_MULTI, a mesh its plan gives more than one node a thread.
@@ -279,6 +299,22 @@ def least_time(nbytes: float, flops: float) -> dict:
   t_b, t_o = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
   return dict(bound_ms=max(t_b, t_o),
               bound_by='bytes' if t_b >= t_o else 'operations')
+
+
+def compiler_report(log: str, kernel: str) -> list[str]:
+  """ptxas's registers and spills of each instantiation of `kernel`."""
+  rows = []
+  for block in log.split('Compiling entry function')[1:]:
+    name = block.split("'")[1] if "'" in block else ''
+    if kernel not in name:
+      continue
+    regs = re.search(r'Used (\d+) registers', block)
+    spill = re.search(r'(\d+) bytes spill stores', block)
+    tmpl = re.search(kernel + r'I(\w+?)E(?:E|v)', name)
+    rows.append(f'{kernel}<{tmpl.group(1) if tmpl else "?"}>: '
+                f'{regs.group(1) if regs else "?"} registers, '
+                f'{spill.group(1) if spill else "?"} B of spills')
+  return rows
 
 
 def xcorr_flops(p: int, p2: int | None = None) -> float:
@@ -638,6 +674,71 @@ def fire_odd_phase(dev, dim: int, rng, shape):
   return plan
 
 
+def fire_grid_phase(dev, report, _build) -> None:
+  """K3 and K11's grid-stride route on FIRE_GRID's meshes, with a NaN row,
+  against their plain versions; then a mesh one node row over the
+  reference's VMEM bound, which both packages refuse."""
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch.ops import cuda_mesh
+  rng = np.random.RandomState(SEED + 14)
+  for dim, nodes in FIRE_GRID:
+    key = 'K3' if dim == 2 else 'K11'
+    cfg = mesh.IntegrationConfig(
+        dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0,) * dim,
+        num_iters=100, max_iters=FIRE_GRID_ITERS, stop_v_max=0.0,
+        dt_max=100.0, prefer_orig_order=dim == 2)
+    x = rng.randn(dim, *nodes).astype(np.float32) * 3
+    x[:, nodes[0] // 2, 37] = np.nan
+    xt = torch.from_numpy(x).to(dev)
+    prev = torch.zeros_like(xt)
+    if dim == 2:
+      run = lambda: cuda_mesh.relax_mesh_fused(xt, prev, cfg)
+      plain = lambda: cuda_mesh.relax_mesh_fused_plain(xt[:, 0], prev[:, 0],
+                                                       cfg)
+    else:
+      run = lambda: cuda_mesh.relax_mesh_fused_3d(xt, prev, cfg)
+      plain = lambda: cuda_mesh.relax_mesh_fused_3d_plain(xt, prev, cfg)
+    _build.reset_launch_counts()
+    got, _, steps = run()
+    sync()
+    grid_launches = _build.launch_counts['fused_fire_grid']
+    got = got[:, 0] if dim == 2 else got
+    ref, _, steps_p = plain()
+    err = float(torch.nan_to_num((got - ref).abs(), nan=0.0).max())
+    n = int(np.prod(nodes))
+    print(f'{key} grid-stride route, {[dim, *nodes]} ({n} nodes, a NaN '
+          f'row): steps {int(steps)} (plain {steps_p}), max |dx| {err:.3g} '
+          f'px, grid-route launches {grid_launches}')
+    check(grid_launches == 1, f'{key} did not take the grid-stride route')
+    check(int(steps) == int(steps_p), f'{key} grid route: steps differ')
+    check(bool(torch.equal(torch.isnan(got), torch.isnan(ref))),
+          f'{key} grid route: NaN pattern differs')
+    check(bool(torch.isnan(got).any()), f'{key} grid route: no NaN row')
+    check(err < MESH_TOL, f'{key} grid route differs from plain by {err}')
+    ms = cuda_ms(run)
+    print(f'  kernel {ms:.3f} ms, {ms * 1e3 / int(steps):.2f} us a step')
+    report[key].update(grid_route_nodes=[dim, *nodes],
+                       grid_route_err=err, grid_route_ms=ms,
+                       grid_route_us_per_step=ms * 1e3 / int(steps))
+    over = list(nodes)
+    over[-1] = cuda_mesh.VMEM_BOUND_BYTES // (16 * dim * int(
+        np.prod(nodes[:-1]))) + 1
+    try:
+      if dim == 2:
+        cuda_mesh.relax_mesh_fused(torch.zeros(dim, *over, device=dev),
+                                   None, cfg)
+      else:
+        cuda_mesh.relax_mesh_fused_3d(torch.zeros(dim, *over, device=dev),
+                                      None, cfg)
+      raised = ''
+    except ValueError as e:
+      raised = str(e)
+    print(f'  {[dim, *over]}: raises "{raised}"')
+    check(raised == cuda_mesh.VMEM_MESSAGE,
+          f'{key} took {over}, over the reference\'s VMEM bound')
+    del xt, prev, got, ref
+
+
 def stack_slice(dev, report, _build) -> dict:
   """K1-K4 at the stack path's shapes, then the stack path itself.
 
@@ -803,6 +904,8 @@ def stack_slice(dev, report, _build) -> dict:
     check(launches[k] > 0, f'kernel {k} was not launched on the stack path')
   check(launches['flow_peaks_dft'] == 0,
         'K1/K2 took the dense-DFT route on the stack path')
+  check(launches['fused_fire_grid'] == 0,
+        'K3 took the grid-stride route on the stack path')
   # Launches by route: the dense-DFT route's counter (K1's and K2's
   # together) is 0 here, so every launch of each took the FFT route.
   for key, name in (('K1', 'dense_flow_peaks'), ('K2', 'targeted_flow_peaks')):
@@ -1227,15 +1330,39 @@ def stitch_slice(dev, report, _build) -> dict:
   print(f'  max |df| {errs[0]:.3g} (prefer_orig_order {errs[1]:.3g})')
   check(err < FORCE_TOL, f'K9 differs from the plain force by {err}')
   k9 = lambda: cuda_mesh.force_3d(xk, 0.1, stride_b)
+  check(same_bits(k9(), k9()), 'K9 does not repeat bit for bit')
   report['K9'] = dict(err=err, ms=cuda_ms(k9, reps=20), plain_ms=wall_ms(
       lambda: mesh.elastic_mesh_3d_plain(xk, 0.1, stride_b)),
                       library_ms=None,
                       **least_time(24 * nodes_b,
                                    FORCE3D_FLOPS_NODE * nodes_b))
-  print(f'  kernel {report["K9"]["ms"]:.4f} ms, plain '
-        f'{report["K9"]["plain_ms"]:.3f} ms, bound '
-        f'{report["K9"]["bound_ms"]:.4f} ms')
+  print(f'  kernel {report["K9"]["ms"]:.4f} ms (before the redesign '
+        f'{K9_PRIOR_MS}), plain {report["K9"]["plain_ms"]:.3f} ms, bound '
+        f'{report["K9"]["bound_ms"]:.4f} ms; a second launch repeats it bit '
+        'for bit')
   del xk, holes, got, ref
+
+  # K9 on odd meshes: NaN holes on the tile edges (rows 7 / 8 and 15 /
+  # 16), across lanes (columns 63 / 64) and inside.
+  xo = torch.from_numpy((rng.randn(*K9_ODD) * 5).astype(np.float32))
+  xo[:, 0, 1, 15, 5] = xo[:, 1, 3, 16, 64] = xo[:, 0, 4, 36, 70] = np.nan
+  xo[:, 1, 0, 7, 63] = np.nan
+  xo = xo.to(dev)
+  errs_o = []
+  for prefer in (False, True):
+    got = cuda_mesh.force_3d(xo, 0.1, (40.0, 30.0, 20.0), prefer)
+    ref = mesh.elastic_mesh_3d_plain(xo, 0.1, (40.0, 30.0, 20.0), prefer)
+    check(bool(torch.equal(torch.isnan(got), torch.isnan(ref))),
+          'K9 NaN pattern differs (odd meshes)')
+    errs_o.append(float((got - ref).abs().max()))
+  print(f'K9 on odd meshes {list(K9_ODD)}, anisotropic stride, NaN holes on '
+        f'tile edges: max |df| {errs_o[0]:.3g} (prefer_orig_order '
+        f'{errs_o[1]:.3g})')
+  check(max(errs_o) < FORCE_TOL, f'K9 differs from plain by {max(errs_o)} '
+        'on the odd meshes')
+  report['K9']['max_abs_err_odd'] = max(errs_o)
+  report['K9']['err'] = max(report['K9']['err'], max(errs_o))
+  del xo, got, ref
 
   # K11: bench.py's mesh3d_fused mesh and config (cfg3f).
   print(f'K11 fused_fire_3d, {[3, *FUSED3D]} nodes, cfg3f')
@@ -1266,6 +1393,7 @@ def stitch_slice(dev, report, _build) -> dict:
         f'plain {report["K11"]["plain_ms"]:.3f} ms, bound '
         f'{report["K11"]["bound_ms"]:.3f} ms')
   fire_odd_phase(dev, 3, np.random.RandomState(SEED + 12), FIRE_ODD[3])
+  fire_grid_phase(dev, report, _build)
 
   k13_phase(dev, report)
 
@@ -1342,7 +1470,8 @@ def stitch_slice(dev, report, _build) -> dict:
   bound_a = least_time(24 * nodes_a, FORCE3D_FLOPS_NODE * nodes_a)['bound_ms']
   print(f'K9 at path (a)\'s shape {list(xa.shape)}: max |df| '
         f'{errs_a[0]:.3g} (prefer_orig_order {errs_a[1]:.3g}); kernel '
-        f'{ms_a:.4f} ms, bound {bound_a:.5f} ms')
+        f'{ms_a:.4f} ms a call (before the redesign {K9_PRIOR_MS_TILE}), '
+        f'bound {bound_a:.5f} ms')
   check(err_a < FORCE_TOL, f'K9 differs from the plain force by {err_a} '
         'on the tile meshes')
   report['K9']['max_abs_err_tile_meshes'] = err_a
@@ -1381,6 +1510,8 @@ def stitch_slice(dev, report, _build) -> dict:
   glups_c = cfg3f.max_iters * nodes_c / t_c / 1e9
   print(f'  {t_c:.4f} s, {glups_c:.2f} GLUPS, launches {launches_c}')
   check(launches_c['fused_fire_3d'] > 0, 'K11 was not launched on path (c)')
+  check(launches_c['fused_fire_grid'] == 0,
+        'K11 took the grid-stride route on path (c)')
   launches['fused_fire_3d'] = launches_c['fused_fire_3d']
   report['path_c'] = dict(seconds=t_c, glups=glups_c)
 
@@ -2259,6 +2390,9 @@ def main() -> int:
   _build.library()
   print(f'kernel build + load: {_build.build_seconds:.2f} s')
   print(_build.build_log.strip())
+  for kernel in ('force3d_kernel', 'grid_fire_kernel'):
+    for row in compiler_report(_build.build_log, kernel):
+      print(f'compiler report: {row}')
   report = {}
   launches, stack = stack_slice(dev, report, _build)
   torch.cuda.empty_cache()

@@ -46,12 +46,12 @@ def only_npt(cuda_mesh, npt: int):
   """fire_plan restricted to `npt` nodes per thread."""
   saved = cuda_mesh.FIRE_NPT
   cuda_mesh.FIRE_NPT = (npt,)
-  cuda_mesh._fire_plan_on.cache_clear()
+  cuda_mesh._fire_route_on.cache_clear()
   try:
     yield
   finally:
     cuda_mesh.FIRE_NPT = saved
-    cuda_mesh._fire_plan_on.cache_clear()
+    cuda_mesh._fire_route_on.cache_clear()
 
 
 def print_fire_report(log: str) -> None:

@@ -45,10 +45,20 @@
 //    step of a chunk, in the same exchange.
 // K3 keeps force2d_node's body and the FIRE expressions of the kernel
 // it replaces; only where x is read from (shared memory) and the order
-// of the grid sums changed. Meshes larger than the card holds at the
-// largest `npt` raise in the wrapper (the stack pipeline then takes the
-// staged solver, as the reference does above its VMEM bound).
+// of the grid sums changed.
+//
+// A mesh whose tiles the card cannot hold at once (ops/cuda_mesh.fire_plan
+// finds no plan: above ~1M nodes near square, 100 x 4700 elongated, or
+// 262 144 nodes in 3d) takes the second route, `grid_fire_kernel`: the
+// state (x, v, a) in device memory, a cooperative grid sized by the
+// occupancy API, each thread looping over nodes, two grid barriers a step
+// (after the position update, after the power partials), block partials
+// in FP64 summed by every block in one fixed order. It has no size limit
+// of its own; the wrapper holds both routes to the reference's VMEM bound
+// (786 432 nodes in 2d, 524 288 in 3d), so both packages take the same
+// meshes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -56,6 +66,8 @@
 
 #include "mesh2d.cuh"
 #include "mesh3d.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -545,12 +557,187 @@ fused_fire_kernel(const float* __restrict__ x_in, float* __restrict__ x_out,
   if (blockIdx.x == 0 && threadIdx.x == 0) steps[0] = chunk * P.num_iters;
 }
 
+// The second route: x: [D, nz, gy, gx] relaxed in place (nz = 1 in 2d);
+// prev: the same shape or NULL; v, a: the same shape, scratch; part:
+// [3 * gridDim.x] doubles (power, kinetic energy, max |v|^2 per block);
+// ehist: [max_chunks]; steps: [1]. The same step as fused_fire_kernel's:
+// force2d_node / force3d_node on x in device memory, the same FIRE
+// expressions, and the same `advance`.
+template <int D, bool kPrefer>
+__global__ void __launch_bounds__(kThreads)
+grid_fire_kernel(float* x, const float* __restrict__ prev, float* v,
+                 float* a, double* part, float* __restrict__ ehist,
+                 int* __restrict__ steps, int nz, int gy, int gx,
+                 FireParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double red[kWarps];
+  const int n = nz * gy * gx;
+  const int nb = gridDim.x;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = nb * kThreads;
+
+  // Node i's spring force and capped k0 spring. x is written by other
+  // blocks between barriers, so it is read through plain loads (never the
+  // read-only path).
+  const auto force = [&](int i, float cap, float f[D]) {
+    const int xx = i % gx, y = i / gx % gy;
+    if constexpr (D == 2) {
+      const sofima::Springs2d S = {P.k, P.k_diag, P.stride_x, P.stride_y};
+      const auto at = [&](int c, int ey, int ex) {
+        return x[c * n + i + ey * gx + ex];
+      };
+      sofima::force2d_node(at, gy, gx, y, xx, S, kPrefer, f);
+    } else {
+      const auto at = [&](int c, int ez, int ey, int ex) {
+        return x[c * n + i + (ez * gy + ey) * gx + ex];
+      };
+      sofima::force3d_node(at, nz, gy, gx, i / (gx * gy), y, xx, P.links,
+                           kPrefer, f);
+    }
+    if (P.has_prev) {
+      for (int c = 0; c < D; ++c) {
+        const float s = -P.k0 * nan_to_num(x[c * n + i] -
+                                           __ldg(prev + c * n + i));
+        f[c] += fminf(fmaxf(s, -cap), cap);
+      }
+    }
+  };
+  // The grid total of part row c, the same in every block: each block
+  // sums all partials in one fixed order.
+  const auto total = [&](int c) {
+    double t = 0.0;
+    for (int b = threadIdx.x; b < nb; b += kThreads) {
+      const double p = __ldcg(part + c * nb + b);
+      t = c == 2 ? fmax(t, p) : t + p;
+    }
+    return block_total(t, c, red);
+  };
+
+  float dt = P.dt, alpha = P.alpha, cap = P.start_cap;
+  int n_pos = 0;
+  bool reset = false;
+  for (int i = first; i < n; i += stride) {
+    float f[D];
+    force(i, cap, f);
+    for (int c = 0; c < D; ++c) {
+      a[c * n + i] = f[c];
+      v[c * n + i] = 0.0f;
+    }
+  }
+  grid.sync();  // a0 reads neighbours' x, which the first update moves
+
+  int chunk = 0, streak = 0;
+  for (;;) {
+    float e_kin = 0.0f, v_max = 0.0f;
+    for (int t = 0; t < P.num_iters; ++t) {
+      // Velocity-Verlet position update.
+      const float half_dt2 = 0.5f * dt * dt;
+      for (int i = first; i < n; i += stride) {
+        for (int c = 0; c < D; ++c) {
+          const float vi = reset ? 0.0f : v[c * n + i];
+          x[c * n + i] = advance(x[c * n + i], vi, a[c * n + i], dt,
+                                 half_dt2);
+        }
+      }
+      grid.sync();
+
+      // New force, Verlet velocity, FIRE power partial and mixing.
+      const float d_in = 1.0f / (1.0f + 0.5f * dt * P.gamma);
+      const float d_out = 1.0f - 0.5f * dt * P.gamma;
+      const bool last = t + 1 == P.num_iters;
+      double pw = 0.0, e = 0.0, m = 0.0;
+      for (int i = first; i < n; i += stride) {
+        float f[D], vn[D];
+        force(i, cap, f);
+        float fv = 0.0f, ff = 0.0f, vv = 0.0f;
+        for (int c = 0; c < D; ++c) {
+          const float vi = reset ? 0.0f : v[c * n + i];
+          vn[c] = d_in * (vi * d_out + 0.5f * dt * (a[c * n + i] + f[c]));
+          fv += f[c] * vn[c];
+          ff += f[c] * f[c];
+          vv += vn[c] * vn[c];
+        }
+        pw += fv;
+        const float a_norm = sqrtf(ff) + 1e-6f;
+        const float v_norm = sqrtf(vv);
+        float vsq = 0.0f;
+        for (int c = 0; c < D; ++c) {
+          const float vm = vn[c] + alpha * (f[c] / a_norm * v_norm - vn[c]);
+          a[c * n + i] = f[c];
+          v[c * n + i] = vm;
+          vsq += vm * vm;
+        }
+        e += vsq;
+        m = fmax(m, (double)vsq);
+      }
+      for (int c = 0; c < (last ? 3 : 1); ++c) {
+        const double bt = block_total(c == 0 ? pw : c == 1 ? e : m, c, red);
+        if (threadIdx.x == 0) part[c * nb + blockIdx.x] = bt;
+      }
+      grid.sync();
+      const float power = (float)total(0);
+      fire_next(power < 0.0f, P, dt, alpha, cap, n_pos, reset);
+      if (last && !reset) {
+        e_kin = (float)total(1);
+        v_max = sqrtf((float)total(2));
+      }
+    }
+    // Chunk boundary: kinetic energy, v_max, two-streak stop, cap ramp.
+    if (blockIdx.x == 0 && threadIdx.x == 0) ehist[chunk] = e_kin;
+    const bool conv = v_max < P.stop_v_max && cap >= P.final_cap;
+    streak = conv ? streak + 1 : 0;
+    if (v_max < P.stop_v_max && cap < P.final_cap)
+      cap = fminf(cap * P.cap_scale, P.final_cap);
+    ++chunk;
+    if (streak >= 2 || chunk >= P.max_chunks) break;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) steps[0] = chunk * P.num_iters;
+}
+
+const void* grid_kernel_of(int dim, int prefer) {
+  if (dim == 3)
+    return prefer ? (const void*)grid_fire_kernel<3, true>
+                  : (const void*)grid_fire_kernel<3, false>;
+  return prefer ? (const void*)grid_fire_kernel<2, true>
+                : (const void*)grid_fire_kernel<2, false>;
+}
+
 const void* kernel_of(int dim, int prefer) {
   if (dim == 3)
     return prefer ? (const void*)fused_fire_kernel<3, true>
                   : (const void*)fused_fire_kernel<3, false>;
   return prefer ? (const void*)fused_fire_kernel<2, true>
                 : (const void*)fused_fire_kernel<2, false>;
+}
+
+FireParams make_params(int dim, float dt, float gamma, float k0, float k,
+                       float k_diag, float stride_x, float stride_y,
+                       int num_iters, int max_chunks, float stop_v_max,
+                       float f_alpha, float f_inc, float f_dec, float alpha,
+                       int n_min, float dt_cap, float start_cap,
+                       float final_cap, float cap_scale,
+                       int cap_upscale_every, int prefer_orig_order,
+                       bool has_prev, const float* table) {
+  FireParams P = {};
+  P.dt = dt; P.gamma = gamma; P.k0 = k0; P.k = k; P.k_diag = k_diag;
+  P.stride_x = stride_x; P.stride_y = stride_y;
+  P.f_alpha = f_alpha; P.f_inc = f_inc; P.f_dec = f_dec; P.alpha = alpha;
+  P.dt_cap = dt_cap; P.start_cap = start_cap; P.final_cap = final_cap;
+  P.cap_scale = cap_scale; P.stop_v_max = stop_v_max;
+  P.num_iters = num_iters; P.max_chunks = max_chunks; P.n_min = n_min;
+  P.cap_upscale_every = cap_upscale_every;
+  P.prefer_orig_order = prefer_orig_order;
+  P.has_prev = has_prev;
+  if (dim == 3) {
+    for (int l = 0; l < sofima::kLinks3d; ++l) {
+      P.links.l0v[l][0] = table[5 * l];
+      P.links.l0v[l][1] = table[5 * l + 1];
+      P.links.l0v[l][2] = table[5 * l + 2];
+      P.links.l0[l] = table[5 * l + 3];
+      P.links.k_eff[l] = table[5 * l + 4];
+    }
+  }
+  return P;
 }
 
 }  // namespace
@@ -606,28 +793,14 @@ int fused_fire_launch(int dim, const float* x, float* out, const float* prev,
   if (dim == 3 && table == nullptr) return (int)cudaErrorInvalidValue;
   if ((tz << (sy + sx)) % kThreads != 0 || ntz * nty * ntx > kMaxBlocks)
     return (int)cudaErrorInvalidValue;
-  FireParams P = {};
-  P.dt = dt; P.gamma = gamma; P.k0 = k0; P.k = k; P.k_diag = k_diag;
-  P.stride_x = stride_x; P.stride_y = stride_y;
-  P.f_alpha = f_alpha; P.f_inc = f_inc; P.f_dec = f_dec; P.alpha = alpha;
-  P.dt_cap = dt_cap; P.start_cap = start_cap; P.final_cap = final_cap;
-  P.cap_scale = cap_scale; P.stop_v_max = stop_v_max;
-  P.num_iters = num_iters; P.max_chunks = max_chunks; P.n_min = n_min;
-  P.cap_upscale_every = cap_upscale_every;
-  P.prefer_orig_order = prefer_orig_order;
-  P.has_prev = prev != nullptr;
-  if (dim == 3) {
-    for (int l = 0; l < sofima::kLinks3d; ++l) {
-      P.links.l0v[l][0] = table[5 * l];
-      P.links.l0v[l][1] = table[5 * l + 1];
-      P.links.l0v[l][2] = table[5 * l + 2];
-      P.links.l0[l] = table[5 * l + 3];
-      P.links.k_eff[l] = table[5 * l + 4];
-    }
-  }
+  const FireParams P = make_params(
+      dim, dt, gamma, k0, k, k_diag, stride_x, stride_y, num_iters,
+      max_chunks, stop_v_max, f_alpha, f_inc, f_dec, alpha, n_min, dt_cap,
+      start_cap, final_cap, cap_scale, cap_upscale_every, prefer_orig_order,
+      prev != nullptr, table);
   Tiling T = {tz, 1 << sy, 1 << sx, sy, sx, ntz, nty, ntx};
   void* args[] = {&x,  &out, &prev, &pub, &slots, &ehist, &steps,
-                  &nz, &gy,  &gx,   &T,   &P};
+                  &nz, &gy,  &gx,   &T,   (void*)&P};
   const void* fn = kernel_of(dim, prefer_orig_order);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -635,6 +808,55 @@ int fused_fire_launch(int dim, const float* x, float* out, const float* prev,
   err = cudaLaunchCooperativeKernel(fn, dim3(ntz * nty * ntx),
                                     dim3(kThreads), args, (size_t)smem,
                                     (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The second route's co-resident blocks on the whole card (0 on error or
+// without cooperative launch).
+int grid_fire_max_blocks(int device, int dim, int prefer) {
+  int per_sm = 0, sms = 0, coop = 0;
+  if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device) !=
+          cudaSuccess ||
+      !coop)
+    return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, grid_kernel_of(dim, prefer), kThreads, 0) != cudaSuccess)
+    return 0;
+  return per_sm * sms;
+}
+
+// The second route. x: [dim, nz, gy, gx] relaxed in place; prev: the same
+// shape or NULL; v, a: the same shape, scratch; part: [3 * nblocks]
+// doubles; ehist: [max_chunks] (pre-filled with NaN by the caller);
+// steps: [1]; nblocks <= grid_fire_max_blocks. The scalars and `table`
+// as fused_fire_launch's. Returns the launch's cudaError_t.
+int grid_fire_launch(int dim, float* x, const float* prev, float* v, float* a,
+                     double* part, float* ehist, int* steps, int nz, int gy,
+                     int gx, int nblocks, float dt, float gamma, float k0,
+                     float k, float k_diag, float stride_x, float stride_y,
+                     int num_iters, int max_chunks, float stop_v_max,
+                     float f_alpha, float f_inc, float f_dec, float alpha,
+                     int n_min, float dt_cap, float start_cap,
+                     float final_cap, float cap_scale, int cap_upscale_every,
+                     int prefer_orig_order, const float* table,
+                     void* stream) {
+  if (dim != 2 && dim != 3) return (int)cudaErrorInvalidValue;
+  if (dim == 3 && table == nullptr) return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaErrorInvalidValue;
+  const FireParams P = make_params(
+      dim, dt, gamma, k0, k, k_diag, stride_x, stride_y, num_iters,
+      max_chunks, stop_v_max, f_alpha, f_inc, f_dec, alpha, n_min, dt_cap,
+      start_cap, final_cap, cap_scale, cap_upscale_every, prefer_orig_order,
+      prev != nullptr, table);
+  void* args[] = {&x,     &prev,  &v,  &a,  &part, &ehist,
+                  &steps, &nz,    &gy, &gx, (void*)&P};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      grid_kernel_of(dim, prefer_orig_order), dim3(nblocks), dim3(kThreads),
+      args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -42,9 +42,6 @@ MESH_LINK_DIRECTIONS: tuple[tuple[int, int, int], ...] = tuple(
 INPLANE_LINK_DIRECTIONS: tuple[tuple[int, int], ...] = (
     (1, 0), (0, 1), (1, 1), (-1, 1))
 
-_TODO_LINKS = ('elastic_mesh_3d takes only the default links '
-               '(ROADMAP.md Queue 1: the `links` argument)')
-
 @dataclasses.dataclass(frozen=True)
 class IntegrationConfig:
   """Parameters for the numerical integration of the mesh state.
@@ -176,12 +173,13 @@ def inplane_force(x: torch.Tensor, k: float, stride: Sequence[float],
   return cuda_mesh.force_2d(x, k, stride, prefer_orig_order)
 
 
-def link_constants_3d(k: float, stride) -> list[float]:
+def link_constants_3d(k: float, stride,
+                      links=MESH_LINK_DIRECTIONS) -> list[float]:
   """Per-link k_eff = k * stride_x / l0 (constant elasticity across the
-  13 link families), in MESH_LINK_DIRECTIONS order."""
+  link families), in the order of `links`."""
   stride = _stride3(stride)
   return [k * stride[0] / float(np.linalg.norm(
-      [stride[c] * d[c] for c in range(3)])) for d in MESH_LINK_DIRECTIONS]
+      [stride[c] * d[c] for c in range(3)])) for d in links]
 
 
 def _stride3(stride) -> tuple[float, float, float]:
@@ -191,11 +189,13 @@ def _stride3(stride) -> tuple[float, float, float]:
 
 
 def elastic_mesh_3d_plain(x: torch.Tensor, k: float, stride,
-                          prefer_orig_order: bool = False) -> torch.Tensor:
-  """Plain PyTorch 26-neighbour force of [3, ..., z, y, x] positions."""
+                          prefer_orig_order: bool = False,
+                          links=MESH_LINK_DIRECTIONS) -> torch.Tensor:
+  """Plain PyTorch force of the springs `links` (default: all 26
+  neighbours) on [3, ..., z, y, x] positions."""
   assert x.shape[0] == 3
   stride = _stride3(stride)
-  return _spring_force(x, MESH_LINK_DIRECTIONS, link_constants_3d(k, stride),
+  return _spring_force(x, links, link_constants_3d(k, stride, links),
                        stride, prefer_orig_order, spatial=3)
 
 
@@ -204,15 +204,15 @@ def elastic_mesh_3d(x: torch.Tensor, k: float, stride,
                     links=MESH_LINK_DIRECTIONS) -> torch.Tensor:
   """Internal forces of a 3d spring mesh ([3, ..., z, y, x] positions).
 
+  `links`: the spring directions (xyz, components in {-1, 0, 1}; a link
+  and its negation are one spring), k_eff = k * stride_x / l0 each.
   Batch axes may sit between the channels and the grid. A CPU tensor
   takes the plain version; a CUDA tensor launches kernel K9.
   """
-  if tuple(map(tuple, links)) != MESH_LINK_DIRECTIONS:
-    raise NotImplementedError(_TODO_LINKS)
   if x.device.type == 'cpu':
-    return elastic_mesh_3d_plain(x, k, stride, prefer_orig_order)
+    return elastic_mesh_3d_plain(x, k, stride, prefer_orig_order, links)
   from sofima_tpu_torch.ops import cuda_mesh  # imports this module
-  return cuda_mesh.force_3d(x, k, stride, prefer_orig_order)
+  return cuda_mesh.force_3d(x, k, stride, prefer_orig_order, links)
 
 
 def _nanmean(v: torch.Tensor, dims) -> torch.Tensor:

@@ -64,6 +64,9 @@ launch_counts: dict[str, int] = {
     'force2d': 0,               # K8: 2d mesh force
     'force3d': 0,               # K9: 3d mesh force
     'fused_fire_3d': 0,         # K11: 3d mesh solve
+    'fused_fire_grid': 0,       # K3 / K11's grid-stride route (also
+                                # counted above; meshes whose tiles the
+                                # card cannot hold at once)
     'warp_gather_3d': 0,        # K13: 3d render
 }
 
@@ -164,9 +167,9 @@ def stream_of(t: torch.Tensor) -> int:
 def require_cuda(name: str, *tensors: torch.Tensor,
                  dtype=torch.float32) -> None:
   """Kernel preconditions: one CUDA device, dtype, contiguity."""
-  dev = tensors[0].device
+  dev = tensors[0].get_device()
   for t in tensors:
-    if t.device != dev or t.device.type != 'cuda':
+    if not t.is_cuda or t.get_device() != dev:
       raise ValueError(f'{name}: all tensors must be on one CUDA device')
     if t.dtype != dtype:
       raise TypeError(f'{name}: expected {dtype}, got {t.dtype}')

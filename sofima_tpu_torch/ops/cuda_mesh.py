@@ -9,21 +9,25 @@ Twin of sofima_tpu/ops/pallas_mesh.py:
     evaluates each link once;
   * K9 `force_3d`: `elastic_mesh_3d_pallas` (`_kernel_3d_loop`,
     `_kernel_3d_rolls`) and its slab twin `elastic_mesh_3d_pallas_slab`
-    (K10), the 26-neighbour force with the contract of
-    mesh.elastic_mesh_3d; csrc/force3d.cu;
+    (K10), the force of the 26-neighbour springs (or of a given subset,
+    `links`) with the contract of mesh.elastic_mesh_3d; csrc/force3d.cu,
+    a z-streaming stencil that evaluates each link once;
   * K11 `relax_mesh_fused_3d`: `relax_mesh_fused_pallas_3d`, the fused
     3d FIRE solve.
 K3 and K11 are one cooperative kernel in csrc/fire.cu, templated on the
 dimension: one launch runs the whole chunked convergence loop, each block
 holding one tile of the mesh in shared memory for the whole solve, with
 one grid-wide exchange a step. `fire_plan` (pure Python, tested on the CPU)
-sizes the tiles so that every block is resident at once (`fused_fits`).
-On an H100 that holds a 2d mesh of up to ~1M nodes when near square
-(1024^2), fewer when elongated (100 x 4700 at most), and a 3d mesh of up
-to 262 144 nodes ([8, 128, 256]); the reference's VMEM bound is 786 432
-and 524 288 nodes. A larger mesh raises ValueError, and the stack
-pipeline then takes the staged solver, as the reference does above its
-VMEM bound.
+sizes the tiles so that every block is resident at once. On an H100 that
+holds a 2d mesh of up to ~1M nodes when near square, fewer when
+elongated (100 x 4700 at most), and a 3d mesh of up to 262 144 nodes
+([8, 128, 256]). A larger mesh takes the second route of the same
+library, `grid_fire_kernel` (the state in device memory, a grid-stride
+loop over nodes, two grid barriers a step; `fire_route` picks it). Both
+routes take every mesh up to the reference's VMEM bound, 786 432 nodes
+in 2d and 524 288 in 3d, and the entries raise the reference's
+ValueError above it (`within_vmem_bound`); the stack pipeline then takes
+the staged solver, by the reference's own rule (`fused_fits`).
 
 Contract of the fused solvers, as the reference's: FIRE required;
 returns (x, e_kin history [min(max_chunks, 128)], steps). Nodes outside
@@ -123,9 +127,18 @@ def force_2d(x: torch.Tensor, k: float, stride,
   return out
 
 
-def _links_table(k: float, stride) -> np.ndarray:
-  """Per-link (l0x, l0y, l0z, l0, k_eff) float32 [26, 5] in the kernels'
-  (ez, ey, ex) loop order, k_eff = k * stride_x / l0."""
+# K9's tiling (csrc/force3d.cu): tiles of kTY rows (one warp each) by 32
+# lanes of FORCE3D_NODES_A_LANE columns (kV); kTY is the first of
+# FORCE3D_ROWS where that grid gives every SM a block, else the second.
+FORCE3D_ROWS = (16, 8)
+FORCE3D_NODES_A_LANE = 4
+
+
+@functools.lru_cache(maxsize=256)
+def _fire_link_table(k: float, stride: tuple) -> np.ndarray:
+  """K11's per-link (l0x, l0y, l0z, l0, k_eff) float32 [26, 5] in the
+  kernel's (ez, ey, ex) loop order, k_eff = k * stride_x / l0; cached
+  per (k, stride), read-only."""
   sx, sy, sz = (float(s) for s in stride)
   rows = []
   for ez in (-1, 0, 1):
@@ -136,32 +149,80 @@ def _links_table(k: float, stride) -> np.ndarray:
         l0v = np.asarray([sx * ex, sy * ey, sz * ez], np.float32)
         l0 = float(np.linalg.norm(l0v))
         rows.append([*l0v, l0, k * sx / l0])
-  return np.ascontiguousarray(np.asarray(rows, np.float32))
+  table = np.ascontiguousarray(np.asarray(rows, np.float32))
+  table.flags.writeable = False
+  return table
+
+
+def _forward(d) -> tuple[int, int, int]:
+  """The direction of a link from the end at which it points forward,
+  (ez, ey, ex) > 0: a link and its negation are one spring."""
+  return d if (d[2], d[1], d[0]) > (0, 0, 0) else tuple(-c for c in d)
+
+
+@functools.lru_cache(maxsize=256)
+def _link_table(k: float, stride, links) -> np.ndarray:
+  """K9's table: the springs of `links` (xyz directions in
+  {-1, 0, 1}^3, either sign) in forward form, one row each, float32 [n,
+  8] (ex, ey, ez, l0x, l0y, l0z, l0, k_eff) with k_eff = k * stride_x /
+  l0 as the reference's elastic_mesh_3d; a spring given twice takes the
+  sum. Cached per (k, stride, links) as given (hashable), read-only."""
+  stride = mesh_lib._stride3(stride)
+  k_of = {}
+  for d in links:
+    if any(c not in (-1, 0, 1) for c in d):
+      raise ValueError('Link components must be in {-1, 0, 1}.')
+    l0 = float(np.linalg.norm([stride[c] * d[c] for c in range(3)]))
+    f = _forward(d)
+    k_of[f] = k_of.get(f, 0.0) + k * stride[0] / l0
+  rows = []
+  for f in sorted(k_of, key=lambda e: (e[2], e[1], e[0])):
+    l0v = np.asarray([stride[c] * f[c] for c in range(3)], np.float32)
+    rows.append([*f, *l0v, float(np.linalg.norm(l0v)), k_of[f]])
+  table = np.ascontiguousarray(np.asarray(rows, np.float32).reshape(-1, 8))
+  table.flags.writeable = False
+  return table
+
+
+@functools.lru_cache(maxsize=256)
+def _link_args(k: float, stride, links) -> tuple[np.ndarray, int, int]:
+  """K9's table with its launch arguments (address, rows), cached as
+  _link_table: the table is held here, so its address stays valid."""
+  table = _link_table(k, stride, links)
+  return table, table.ctypes.data, len(table)
 
 
 def force_3d(x: torch.Tensor, k: float, stride,
-             prefer_orig_order: bool = False) -> torch.Tensor:
-  """K9: 26-neighbour force of [3, ..., z, y, x] positions (the contract
-  of mesh.elastic_mesh_3d). CPU tensors take the plain version."""
-  if x.ndim < 4 or x.shape[0] != 3:
+             prefer_orig_order: bool = False,
+             links=mesh_lib.MESH_LINK_DIRECTIONS) -> torch.Tensor:
+  """K9: force of the springs `links` (default all 26 neighbours) on [3,
+  ..., z, y, x] positions (the contract of mesh.elastic_mesh_3d). CPU
+  tensors take the plain version."""
+  shape = x.shape
+  if len(shape) < 4 or shape[0] != 3:
     raise ValueError(f'[3, ..., z, y, x] positions expected, got '
-                     f'{tuple(x.shape)}')
-  if x.device.type == 'cpu':
-    return mesh_lib.elastic_mesh_3d_plain(x, k, stride, prefer_orig_order)
-  stride = mesh_lib._stride3(stride)
-  x = x.to(torch.float32).contiguous()
+                     f'{tuple(shape)}')
+  if x.is_cpu:
+    return mesh_lib.elastic_mesh_3d_plain(x, k, stride, prefer_orig_order,
+                                          links)
+  try:
+    _, table, n_links = _link_args(k, stride, links)
+  except TypeError:  # lists: the cache key must be hashable
+    _, table, n_links = _link_args(k, mesh_lib._stride3(stride),
+                                   tuple(map(tuple, links)))
+  if x.dtype != torch.float32 or not x.is_contiguous():
+    x = x.to(torch.float32).contiguous()
   _build.require_cuda('force_3d', x)
-  table = _links_table(k, stride)
-  lib = _build.library()
-  fn = lib.force3d_launch
-  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3
-                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-  fn.restype = ctypes.c_int
-  nz, ny, nx = x.shape[-3:]
-  nb = int(np.prod(x.shape[1:-3], dtype=np.int64))
+  fn = _build.library().force3d_launch
+  if fn.argtypes is None:  # once per library: ctypes keeps the object
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
   out = torch.empty_like(x)
-  rc = fn(x.data_ptr(), out.data_ptr(), nb, nz, ny, nx, table.ctypes.data,
-          int(prefer_orig_order), _build.stream_of(x))
+  rc = fn(x.data_ptr(), out.data_ptr(), math.prod(shape[1:-3]), shape[-3],
+          shape[-2], shape[-1], table, n_links, int(prefer_orig_order),
+          _build.stream_of(x))
   _build.launch_counts['force3d'] += 1
   _build.check(rc, 'force3d')
   return out
@@ -284,6 +345,32 @@ def fire_plan(dim: int, shape, max_blocks) -> FirePlan:
       'blocks the card holds at once')
 
 
+# The reference's bound on the fused solvers (the state of a node in
+# VMEM: 16 bytes a channel; sofima_tpu/ops/pallas_mesh.py:937-938 and
+# :1178-1179, and its stack pipeline's `fits_vmem`): 786 432 nodes in 2d,
+# 524 288 in 3d. Both routes take every mesh up to it and none above.
+VMEM_BOUND_BYTES = 24 * 1024 * 1024
+VMEM_MESSAGE = 'grid too large for the VMEM-resident solver'
+
+
+def within_vmem_bound(dim: int, shape) -> bool:
+  """Whether a [dim, *shape] mesh is within the reference's VMEM bound."""
+  return int(np.prod(shape)) * 16 * dim <= VMEM_BOUND_BYTES
+
+
+def fire_route(dim: int, shape, max_blocks) -> FirePlan | None:
+  """The fused solvers' route for a [dim, nz, gy, gx] mesh (shape = (nz,
+  gy, gx)): the tiled plan of fire_plan where one fits the card, else
+  None (the grid-stride route). Raises ValueError with the reference's
+  message above its VMEM bound."""
+  if not within_vmem_bound(dim, shape):
+    raise ValueError(VMEM_MESSAGE)
+  try:
+    return fire_plan(dim, shape, max_blocks)
+  except ValueError:
+    return None
+
+
 def _fire_library(lib):
   """The fused solver's C functions, their argtypes set once per library."""
   fn = lib.fused_fire_launch
@@ -296,13 +383,18 @@ def _fire_library(lib):
                    + [ctypes.c_int] + [ctypes.c_float] * 4
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
+    lib.grid_fire_max_blocks.argtypes = [ctypes.c_int] * 3
+    lib.grid_fire_max_blocks.restype = ctypes.c_int
+    lib.grid_fire_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        + list(fn.argtypes[18:]))
+    lib.grid_fire_launch.restype = ctypes.c_int
   return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _fire_plan_on(lib, device: int, dim: int, prefer: bool, shape):
-  """fire_plan with the card's occupancy, per library, device, kernel
-  (dimension, prefer_orig_order) and shape."""
+def _max_blocks_on(lib, device: int, dim: int, prefer: bool):
+  """The card's co-resident blocks of the tiled kernel, by shared
+  memory."""
   blocks = {}
 
   def max_blocks(smem):
@@ -312,29 +404,44 @@ def _fire_plan_on(lib, device: int, dim: int, prefer: bool, shape):
         raise RuntimeError('cooperative launch unavailable on this device')
     return blocks[smem]
 
-  return fire_plan(dim, shape, max_blocks)
+  return max_blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _fire_route_on(lib, device: int, dim: int, prefer: bool, shape):
+  """fire_route with the card's occupancy, per library, device, kernel
+  (dimension, prefer_orig_order) and shape."""
+  return fire_route(dim, shape, _max_blocks_on(lib, device, dim, prefer))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_blocks_on(lib, device: int, dim: int, prefer: bool) -> int:
+  """The grid-stride route's grid: every block the card holds at once."""
+  nblocks = lib.grid_fire_max_blocks(device, dim, int(prefer))
+  if nblocks <= 0:
+    raise RuntimeError('cooperative launch unavailable on this device')
+  return nblocks
 
 
 def fire_plan_of(x: torch.Tensor,
                  config: mesh_lib.IntegrationConfig) -> FirePlan:
-  """The plan a launch on [dim, (1 or z,) y, x] state `x` (on a card)
-  takes under `config`."""
+  """The tiled plan a launch on [dim, (1 or z,) y, x] state `x` (on a
+  card) takes under `config`; ValueError where it takes the grid-stride
+  route."""
   shape = (1,) * (4 - x.ndim) + tuple(x.shape[1:])
-  return _fire_plan_on(_fire_library(_build.library()), _device_index(x),
-                       x.shape[0], bool(config.prefer_orig_order), shape)
+  plan = _fire_route_on(_fire_library(_build.library()), _device_index(x),
+                        x.shape[0], bool(config.prefer_orig_order), shape)
+  if plan is None:
+    raise ValueError(f'a {list(x.shape)} mesh takes the grid-stride route')
+  return plan
 
 
 def fused_fits(x: torch.Tensor, config: mesh_lib.IntegrationConfig) -> bool:
   """Whether the fused solvers take [dim, (1 or z,) y, x] state `x` under
-  `config`: always on the CPU; on a card, when fire_plan finds a tiling
-  the card holds at once."""
-  if x.device.type == 'cpu':
-    return True
-  try:
-    fire_plan_of(x, config)
-  except ValueError:
-    return False
-  return True
+  `config`, by the reference's rule (its stack pipeline's `fits_vmem`
+  and no drift removal), on every device."""
+  return (within_vmem_bound(x.shape[0], x.shape[1:])
+          and not config.remove_drift)
 
 
 def _device_index(x: torch.Tensor) -> int:
@@ -342,16 +449,48 @@ def _device_index(x: torch.Tensor) -> int:
       torch.cuda.current_device())
 
 
+def _fire_scalars(config) -> tuple:
+  """The solver scalars both launchers take, in their order."""
+  c = config
+  return (c.dt, c.gamma, c.k0, c.k, float(c.k / np.sqrt(2.0)),
+          float(c.stride[0]), float(c.stride[1]), c.num_iters,
+          _max_chunks(config), c.stop_v_max, c.f_alpha, c.f_inc, c.f_dec,
+          c.alpha, c.n_min, float(np.float32(c.dt_max * c.dt)), c.start_cap,
+          c.final_cap, c.cap_scale, c.cap_upscale_every,
+          int(c.prefer_orig_order))
+
+
 def _launch(x, prev, config, counter):
-  """One cooperative launch of csrc/fire.cu on [dim, (z,) y, x] state."""
+  """One cooperative launch of csrc/fire.cu on [dim, (z,) y, x] state: the
+  tiled kernel where its tiles fit the card, else the grid-stride one."""
   dim = x.shape[0]
   _build.require_cuda(counter, *([x] if prev is None else [x, prev]))
   lib = _fire_library(_build.library())
   nz, gy, gx = (1,) * (4 - x.ndim) + tuple(x.shape[1:])
   dev = x.device
-  plan = fire_plan_of(x, config)
-  c = config
-  table = _links_table(c.k, c.stride) if dim == 3 else None
+  prefer = bool(config.prefer_orig_order)
+  plan = _fire_route_on(lib, _device_index(x), dim, prefer, (nz, gy, gx))
+  table = (_fire_link_table(float(config.k),
+                            mesh_lib._stride3(config.stride))
+           if dim == 3 else None)
+  table_ptr = None if table is None else table.ctypes.data
+  max_chunks = _max_chunks(config)
+  ehist = torch.full((max_chunks,), float('nan'), dtype=torch.float32,
+                     device=dev)
+  if plan is None:
+    nblocks = _grid_blocks_on(lib, _device_index(x), dim, prefer)
+    out = x.clone()  # relaxed in place
+    v, a = torch.empty_like(x), torch.empty_like(x)
+    part = torch.empty(3 * nblocks, dtype=torch.float64, device=dev)
+    steps = torch.zeros(1, dtype=torch.int32, device=dev)
+    rc = lib.grid_fire_launch(
+        dim, out.data_ptr(), _build.ptr(prev), v.data_ptr(), a.data_ptr(),
+        part.data_ptr(), ehist.data_ptr(), steps.data_ptr(), nz, gy, gx,
+        nblocks, *_fire_scalars(config), table_ptr, _build.stream_of(x))
+    _build.launch_counts[counter] += 1
+    _build.launch_counts['fused_fire_grid'] += 1
+    _build.check(rc, counter)
+    return out, ehist, steps[0]
   out = torch.empty_like(x)
   # One zeroed buffer of 64-bit words: the tile faces' (x, v, a), two
   # sets; the exchange's (two sets of one per block and value, and three
@@ -360,21 +499,13 @@ def _launch(x, prev, config, counter):
   words = torch.zeros(n_pub + 2 * (3 * plan.nblocks + 3) + 1,
                       dtype=torch.int64, device=dev)
   base = words.data_ptr()
-  max_chunks = _max_chunks(config)
-  ehist = torch.full((max_chunks,), float('nan'), dtype=torch.float32,
-                     device=dev)
   tz, ty, tx = plan.tile
   rc = lib.fused_fire_launch(
       dim, x.data_ptr(), out.data_ptr(), _build.ptr(prev), base,
       base + 8 * n_pub, ehist.data_ptr(), base + 8 * (words.numel() - 1),
       nz, gy, gx, tz, ty.bit_length() - 1, tx.bit_length() - 1, *plan.tiles,
-      plan.smem_bytes, c.dt, c.gamma, c.k0,
-      c.k, float(c.k / np.sqrt(2.0)), float(c.stride[0]),
-      float(c.stride[1]), c.num_iters, max_chunks, c.stop_v_max, c.f_alpha,
-      c.f_inc, c.f_dec, c.alpha, c.n_min, float(np.float32(c.dt_max * c.dt)),
-      c.start_cap, c.final_cap, c.cap_scale, c.cap_upscale_every,
-      int(c.prefer_orig_order),
-      None if table is None else table.ctypes.data, _build.stream_of(x))
+      plan.smem_bytes, *_fire_scalars(config), table_ptr,
+      _build.stream_of(x))
   _build.launch_counts[counter] += 1
   _build.check(rc, counter)
   return out, ehist, words[-1]
@@ -396,6 +527,8 @@ def relax_mesh_fused(x: torch.Tensor, prev: torch.Tensor | None,
   _check_fused(config)
   if x.ndim != 4 or x.shape[:2] != (2, 1):
     raise ValueError('[2, 1, gy, gx] state expected')
+  if not within_vmem_bound(2, x.shape[2:]):
+    raise ValueError(VMEM_MESSAGE)
   x = x[:, 0].to(torch.float32).contiguous()
   prev = None if prev is None else prev[:, 0].to(torch.float32).contiguous()
   if x.device.type == 'cpu':
@@ -435,6 +568,8 @@ def relax_mesh_fused_3d(x: torch.Tensor, prev: torch.Tensor | None,
     raise ValueError('[3, z, y, x] state expected')
   if len(config.stride) != 3:
     raise ValueError('the 3d solver needs an xyz stride')
+  if not within_vmem_bound(3, x.shape[1:]):
+    raise ValueError(VMEM_MESSAGE)
   x = x.to(torch.float32).contiguous()
   prev = None if prev is None else prev.to(torch.float32).contiguous()
   if x.device.type == 'cpu':

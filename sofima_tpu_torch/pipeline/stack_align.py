@@ -157,14 +157,14 @@ def _solve_phase(flow_full: torch.Tensor, solved_prev: torch.Tensor,
   relaxation warm-started from the targets themselves. The fused kernel
   has no drift removal (as the reference's Pallas solver), so
   `remove_drift` takes the staged solver, as the reference does; so does
-  a mesh larger than the fused kernel holds on the card, as the
-  reference's above its VMEM bound."""
+  a mesh above the reference's VMEM bound (cuda_mesh.fused_fits, the
+  reference's rule)."""
   s = float(cfg.stride)
   zero3 = np.zeros(3, np.float32)
   prev = map_utils.compose_maps_fast(flow_full, zero3, s, solved_prev,
                                      zero3, s)
   x0 = torch.where(torch.isnan(prev), solved_prev, prev)
-  if cfg.mesh.remove_drift or not cuda_mesh.fused_fits(x0, cfg.mesh):
+  if not cuda_mesh.fused_fits(x0, cfg.mesh):
     solved, _, _ = mesh.relax_mesh_fused(x0, prev, cfg.mesh)
   else:
     solved, _, _ = cuda_mesh.relax_mesh_fused(x0, prev, cfg.mesh)

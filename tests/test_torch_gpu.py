@@ -326,7 +326,7 @@ def test_fused_fire(dev):
 # Meshes K3 and K11's plans give 2-16 nodes a thread (two blocks an SM
 # on an H100), with a NaN row on a tile edge and no `prev`.
 @pytest.mark.parametrize('shape, npt', [
-    ((301, 283), 2), ((97, 1500), 4), ((700, 650), 8), ((1000, 999), 16),
+    ((301, 283), 2), ((97, 1500), 4), ((700, 650), 8), ((768, 1024), 16),
     ((6, 99, 151), 2), ((8, 128, 256), 4)])
 def test_fused_fire_plans(dev, shape, npt):
   dim = len(shape) if len(shape) == 3 else 2
@@ -513,6 +513,83 @@ def test_force_3d(dev, prefer):
   assert _build.launch_counts['force3d'] == before + 1
   ref = mesh.elastic_mesh_3d(x, 0.1, (40.0, 30.0, 20.0), prefer)
   assert float((got.cpu() - ref).abs().max()) < 1e-4
+
+
+# K9 on path (a)'s tile meshes, an odd mesh (no side a multiple of a
+# tile), a batch of meshes with an anisotropic stride, and an odd mesh
+# large enough for 16-row tiles; NaN holes on tile edges (rows 7 / 8,
+# columns 127 / 128) and inside.
+@pytest.mark.parametrize('shape, stride', [
+    ((3, 4, 4, 36, 36), (16.0, 16.0, 16.0)),
+    ((3, 2, 5, 37, 71), (40.0, 40.0, 40.0)),
+    ((3, 3, 6, 20, 136), (40.0, 30.0, 20.0)),
+    ((3, 1, 3, 300, 1100), (40.0, 40.0, 40.0))])
+@pytest.mark.parametrize('prefer', [False, True])
+def test_force_3d_shapes(dev, shape, stride, prefer):
+  rng = np.random.RandomState(sum(shape))
+  x = torch.from_numpy((rng.randn(*shape) * 5).astype(np.float32))
+  ny, nx = shape[-2:]
+  x[:, 0, 1, min(7, ny - 1), 3] = float('nan')
+  x[:, -1, -1, min(8, ny - 1), min(127, nx - 1)] = float('nan')
+  x[:, 0, 0, 0, min(128, nx - 1)] = float('nan')
+  x = x.to(dev)
+  before = _build.launch_counts['force3d']
+  got = mesh.elastic_mesh_3d(x, 0.1, stride, prefer)
+  assert _build.launch_counts['force3d'] == before + 1
+  ref = mesh.elastic_mesh_3d_plain(x, 0.1, stride, prefer)
+  assert torch.equal(torch.isnan(got), torch.isnan(ref))
+  assert bool(torch.isfinite(got).all())
+  assert float((got - ref).abs().max()) < 1e-4
+  again = mesh.elastic_mesh_3d(x, 0.1, stride, prefer)
+  assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+# A subset of the springs, some links given in their negative form.
+@pytest.mark.parametrize('links', [
+    ((1, 0, 0), (0, 1, 0), (1, 1, 1), (0, 1, -1)),
+    ((-1, 0, 0), (0, -1, 1), (1, 1, 1), (0, 0, -1), (1, -1, 1))])
+def test_force_3d_links(dev, links):
+  rng = np.random.RandomState(len(links))
+  x = torch.from_numpy((rng.randn(3, 2, 5, 20, 150) * 5).astype(np.float32))
+  x[:, 1, 2, 7, 127] = float('nan')
+  x = x.to(dev)
+  for prefer in (False, True):
+    got = mesh.elastic_mesh_3d(x, 0.1, (40.0, 30.0, 20.0), prefer,
+                               links=links)
+    ref = mesh.elastic_mesh_3d_plain(x, 0.1, (40.0, 30.0, 20.0), prefer,
+                                     links)
+    assert float((got - ref).abs().max()) < 1e-4
+
+
+# K3 / K11's grid-stride route, forced on small meshes (as if no tiling
+# fit the card), against the plain solvers.
+@pytest.mark.parametrize('shape', [(37, 71), (5, 37, 71)])
+def test_fused_fire_grid_route(dev, shape, monkeypatch):
+  monkeypatch.setattr(cuda_mesh, '_fire_route_on', lambda *a: None)
+  dim = len(shape) if len(shape) == 3 else 2
+  rng = np.random.RandomState(dim)
+  cfg = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.1, k=0.1, stride=(40.0,) * dim,
+      num_iters=100, max_iters=1000, stop_v_max=0.005, dt_max=100.0,
+      start_cap=0.01, final_cap=10.0, cap_scale=1.1,
+      prefer_orig_order=dim == 2)
+  x = torch.zeros(dim, *shape)
+  prev = torch.from_numpy(rng.randn(dim, *shape).astype(np.float32) * 3)
+  prev[:, ..., 7, :] = float('nan')
+  x, prev = x.to(dev), prev.to(dev)
+  before = _build.launch_counts['fused_fire_grid']
+  if dim == 2:
+    got, _, steps = cuda_mesh.relax_mesh_fused(x[:, None], prev[:, None],
+                                               cfg)
+    got = got[:, 0]
+    ref, _, steps_ref = cuda_mesh.relax_mesh_fused_plain(x, prev, cfg)
+  else:
+    got, _, steps = cuda_mesh.relax_mesh_fused_3d(x, prev, cfg)
+    ref, _, steps_ref = cuda_mesh.relax_mesh_fused_3d_plain(x, prev, cfg)
+  assert _build.launch_counts['fused_fire_grid'] == before + 1
+  assert int(steps) == int(steps_ref)
+  assert torch.equal(torch.isnan(got), torch.isnan(ref))
+  assert float(torch.nan_to_num((got - ref).abs()).max()) < 1e-3
 
 
 @pytest.mark.parametrize('prefer', [False, True])

@@ -259,8 +259,11 @@ def test_fire_plan_sizes():
                      (3, (8, 128, 272))):
     with pytest.raises(ValueError, match='does not fit'):
       cuda_mesh.fire_plan(dim, shape, _h100_blocks)
-  assert cuda_mesh.fused_fits(torch.zeros(2, 1, 4096, 4096),  # CPU: plain
-                              _setup()[3])
+  # The fused solvers take what the reference's do (its `fits_vmem`), on
+  # every device: 250^2 yes, 4096^2 no.
+  assert cuda_mesh.fused_fits(torch.zeros(2, 1, 250, 250), _setup()[3])
+  assert not cuda_mesh.fused_fits(torch.zeros(2, 1, 4096, 4096),
+                                  _setup()[3])
 
 
 def _tiled_step(dim, x, v, a, prev, cfg, plan, force, dt, alpha, cap):
@@ -421,3 +424,97 @@ def test_solve_phase_takes_staged_solver_when_fused_does_not_fit(
   assert got is staged[0][0]
   assert torch.equal(torch.isnan(got), torch.isnan(fused_ref))
   assert float(torch.nan_to_num((got - fused_ref).abs()).max()) < 0.4
+
+
+# The fused solvers' routes at the edges of the H100's resident bound and
+# of the reference's VMEM bound (786 432 nodes in 2d, 524 288 in 3d):
+# (dim, nodes, route) with route 'tiled', 'grid' (the grid-stride kernel)
+# or 'raise'.
+ROUTE_EDGES = [
+    (2, (1, 250, 250), 'tiled'),    # the stack path's and path (f)'s mesh
+    (2, (1, 886, 886), 'tiled'),    # the largest square under the bound
+    (2, (1, 768, 1024), 'tiled'),   # exactly the bound
+    (2, (1, 100, 4700), 'tiled'),
+    (2, (1, 100, 4800), 'grid'),    # elongated: no tiling fits the card
+    (2, (1, 100, 7000), 'grid'),
+    (2, (1, 100, 7865), 'raise'),   # one row of nodes over the bound
+    (2, (1, 887, 887), 'raise'),
+    (3, (8, 128, 256), 'tiled'),    # bench.py's mesh3d_fused mesh
+    (3, (8, 128, 272), 'grid'),
+    (3, (8, 256, 256), 'grid'),     # exactly the bound
+    (3, (8, 256, 257), 'raise'),
+]
+
+
+def _reference_takes(dim, nodes):
+  """Whether the reference's fused solver takes the mesh: its own size
+  check, traced (jax.eval_shape) and not run."""
+  kw = dict(dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0,) * dim,
+            num_iters=100, max_iters=200, stop_v_max=0.0, dt_max=100.0)
+  cfg = jmesh.IntegrationConfig(**kw)
+  solve = (pallas_mesh.relax_mesh_fused_pallas if dim == 2
+           else pallas_mesh.relax_mesh_fused_pallas_3d)
+  shape = (dim,) + nodes
+  try:
+    jax.eval_shape(lambda x: solve(x, None, cfg, interpret=True),
+                   jax.ShapeDtypeStruct(shape, jnp.float32))
+  except ValueError as e:
+    assert str(e) == cuda_mesh.VMEM_MESSAGE
+    return False
+  return True
+
+
+@pytest.mark.parametrize('dim, nodes, route', ROUTE_EDGES)
+def test_fused_route(dim, nodes, route):
+  """relax_mesh_fused{,_3d} take the tiled kernel where its tiles fit the
+  card, the grid-stride kernel up to the reference's VMEM bound, and
+  raise the reference's ValueError above it, as the reference does."""
+  shape = nodes
+  assert _reference_takes(dim, nodes) == (route != 'raise')
+  if route == 'raise':
+    with pytest.raises(ValueError, match=cuda_mesh.VMEM_MESSAGE):
+      cuda_mesh.fire_route(dim, shape, _h100_blocks)
+    cfg = tmesh.IntegrationConfig(
+        dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0,) * dim,
+        num_iters=10, max_iters=10, stop_v_max=0.0)
+    x = torch.zeros((dim,) + shape)  # the entries check before any work
+    solve = (cuda_mesh.relax_mesh_fused if dim == 2
+             else cuda_mesh.relax_mesh_fused_3d)
+    with pytest.raises(ValueError, match=cuda_mesh.VMEM_MESSAGE):
+      solve(x, None, cfg)
+    assert not cuda_mesh.fused_fits(x, cfg)
+    return
+  plan = cuda_mesh.fire_route(dim, shape, _h100_blocks)
+  assert (plan is None) == (route == 'grid')
+  cfg = tmesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0,) * dim,
+      num_iters=10, max_iters=10, stop_v_max=0.0)
+  assert cuda_mesh.fused_fits(torch.zeros((dim,) + shape), cfg)
+  assert not cuda_mesh.fused_fits(torch.zeros((dim,) + shape),
+                                  dataclasses.replace(cfg, remove_drift=True))
+  if plan is not None:
+    assert plan == cuda_mesh.fire_plan(dim, shape, _h100_blocks)
+  else:
+    with pytest.raises(ValueError, match='does not fit'):
+      cuda_mesh.fire_plan(dim, shape, _h100_blocks)
+
+
+@pytest.mark.parametrize('grid_n', [886, 887])
+def test_solve_phase_route_is_fits_vmem(monkeypatch, grid_n):
+  """The stack pipeline's solve takes the fused solver exactly where the
+  reference's `fits_vmem` (grid_n^2 * 32 <= 24 MiB) holds, and the staged
+  one above it, on the CPU too."""
+  from sofima_tpu_torch import map_utils
+  from sofima_tpu_torch.pipeline import stack_align as tsa
+  fits_vmem = grid_n * grid_n * 32 <= 24 * 1024 * 1024
+  took = []
+  monkeypatch.setattr(map_utils, 'compose_maps_fast',
+                      lambda f, *a: torch.zeros_like(f))
+  monkeypatch.setattr(tmesh, 'relax_mesh_fused',
+                      lambda x, p, c: took.append('staged') or (x, None, 0))
+  monkeypatch.setattr(cuda_mesh, 'relax_mesh_fused',
+                      lambda x, p, c: took.append('fused') or (x, None, 0))
+  flow = torch.zeros(2, 1, grid_n, grid_n)
+  tsa._solve_phase(flow, flow, tsa.StackAlignConfig())
+  assert took == ['fused' if fits_vmem else 'staged']
+  assert fits_vmem == (grid_n == 886)
