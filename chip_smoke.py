@@ -4,7 +4,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from sofima_tpu_torch/csrc and drives the two
+It builds the CUDA kernels from sofima_tpu_torch/csrc and drives the
 slices of the port, each kernel checked against its plain PyTorch
 version at its path's shapes (timed beside it, with the least time the
 card could take for the same work and, where one exists, one PyTorch
@@ -63,7 +63,20 @@ call that computes the same function):
     torch.fft's surfaces of the same pairs; its dense-DFT route held at
     256 x 128) and K7 on the first 30 grid rows of that pair's p = 160
     patches (beside the torch.fft chain), and at 256^2 (its
-    global-scratch route) and 31 x 37.
+    global-scratch route) and 31 x 37;
+  * the tile-stitching library API: (g) examples/e2e_stitching.py's
+    chain at bench.py's montage2d geometry, cut with a per-tile integer
+    jitter and one tile's content displaced by a non-integer bump: the
+    sequential `compute_coarse_offsets` (equal to the cut's jitter and
+    to `compute_coarse_offsets_batched`), `interpolate_missing_offsets`,
+    `optimize_coarse_mesh`, `compute_flow_map` in its padfield mode at
+    the reference's defaults, `aggregate_arrays`, `mesh.relax_mesh`
+    with the targets as `prev_fn` (K8) and `warp.render_tiles` (K4,
+    counted under 'warp_subvolume'), with bench's montage gates, its
+    phase times and the largest node move, and the whole chain against
+    the same run with K4 and K8 swapped for their plain versions; then
+    `compute_flow_map3d(flow_mode='padfield', mask_map=...)` on path
+    (a)'s x pair cut to 128 rows, on the card and on the CPU.
 
 K3 and K11 (the fused FIRE solvers) are also held without `prev` on a
 mesh whose sides are not a multiple of the tile, with a NaN row along a
@@ -160,6 +173,21 @@ SMALL_CANVAS_TOL_2D = (0.01, 0.05)  # gray levels: mean, max, both masks
 # the sampling positions, so a last-bit mesh difference may move a pixel
 # across the margin; at most this share of the canvas.
 MONTAGE_MASK_SHARE = 1e-4
+# Path (g), examples/e2e_stitching.py's chain through the library API at
+# bench.py's montage2d geometry (MONTAGE): the coarse search grid and
+# bound of path (e), the largest per-tile integer jitter of the cut (px),
+# and the Gaussian bump that moves tile (1, 1)'s content by a non-integer
+# amount inside its left overlap: (x, y) amplitude in px and sigma as a
+# share of the tile edge. Some node must move at least STITCH_API_MOVE px
+# away from its coarse placement in the joint solve.
+STITCH_API_OVERLAPS = (360, 440)
+STITCH_API_MIN_OVERLAP = 200
+STITCH_API_JITTER = 5
+STITCH_API_BUMP = (2.6, -1.7, 1 / 12)
+STITCH_API_MOVE = 0.5
+# The 3d padfield phase: one overlap pair of path (a)'s LICONN tiles, cut
+# to this many rows, through compute_flow_map3d(flow_mode='padfield').
+PADFIELD3D_ROWS = 128
 E2E_AMP = 12.0          # px, examples/e2e_alignment.py's deformation
 E2E_PATCH = 160         # e2e_alignment's calculator patch and batch
 E2E_BATCH = 256
@@ -392,9 +420,10 @@ def headline_config():
                                                            num_iters=125))
 
 
-def compare_flow(got, ref, name, fraction=STAT_FRACTION):
-  xy_bad = int((torch.nan_to_num(got[:2], nan=9e9)
-                != torch.nan_to_num(ref[:2], nan=9e9)).any(0).sum())
+def compare_flow(got, ref, name, fraction=STAT_FRACTION, dim=2):
+  """Holds a flow ([dim + 2, ...]: offsets, sharpness, ratio) to `ref`."""
+  xy_bad = int((torch.nan_to_num(got[:dim], nan=9e9)
+                != torch.nan_to_num(ref[:dim], nan=9e9)).any(0).sum())
   print(f'  {name}: patches whose x/y peak or NaN differs: {xy_bad}')
   check(xy_bad == 0, f'{name}: integer peaks differ from the plain version')
   # Sharpness divides by the correlation minimum around the peak, which
@@ -402,15 +431,15 @@ def compare_flow(got, ref, name, fraction=STAT_FRACTION):
   # bar: a STAT_FRACTION share of the statistics within rtol = atol =
   # 3e-4, and the quality gates they feed (|sharpness| >= 1.6, ratio >=
   # 1.6 or 0) decide alike.
-  fin = torch.isfinite(ref[2:]) & torch.isfinite(got[2:])
-  d = (got[2:] - ref[2:]).abs()[fin]
-  bound = FLOW_STAT_TOL + FLOW_STAT_TOL * ref[2:].abs()[fin]
+  fin = torch.isfinite(ref[dim:]) & torch.isfinite(got[dim:])
+  d = (got[dim:] - ref[dim:]).abs()[fin]
+  bound = FLOW_STAT_TOL + FLOW_STAT_TOL * ref[dim:].abs()[fin]
   frac = float((d <= bound).float().mean())
-  rel = float((d / ref[2:].abs()[fin].clamp(min=1e-6)).max())
+  rel = float((d / ref[dim:].abs()[fin].clamp(min=1e-6)).max())
 
   def gates(f):
-    ratio = f[3].abs()
-    return (f[2].abs() >= 1.6) & ((ratio == 0) | (ratio >= 1.6))
+    ratio = f[dim + 1].abs()
+    return (f[dim].abs() >= 1.6) & ((ratio == 0) | (ratio >= 1.6))
 
   flips = int((gates(got) != gates(ref)).sum())
   print(f'  {name}: x/y and NaN exact over {ref[0].numel()} patches; '
@@ -421,7 +450,8 @@ def compare_flow(got, ref, name, fraction=STAT_FRACTION):
   # max_abs_err is the flow itself (x/y peaks, NaN rows excluded); the
   # statistics' agreement is reported beside it.
   return dict(
-      err=float(torch.nan_to_num((got[:2] - ref[:2]).abs(), nan=0.0).max()),
+      err=float(torch.nan_to_num((got[:dim] - ref[:dim]).abs(),
+                                 nan=0.0).max()),
       stat_frac=frac, stat_max_rel=rel, stat_max_abs=float(d.max()))
 
 
@@ -1582,15 +1612,66 @@ def montage_inputs(dev):
   return img, tiles, cfg
 
 
+def montage_error(canvas, mask, solved, key_to_idx, img, tile_t):
+  """bench.py's montage2d measure: mean |canvas - source| over the
+  rendered pixels of the interior, after the solve's gauge shift, and
+  the share of the interior rendered."""
+  i0 = key_to_idx[(0, 0)]
+  sx, sy = (int(round(float(solved[c, i0, 0, 0]))) for c in (0, 1))
+  n = img.shape[0]
+  lo, hi = tile_t // 4, n - tile_t // 4
+  truth = img[lo:hi, lo:hi]
+  sel = (slice(lo + sy, hi + sy), slice(lo + sx, hi + sx))
+  m = mask[sel]
+  cnt = int(m.sum())
+  err = float(torch.where(m, (canvas[sel] - truth).abs(),
+                          torch.zeros_like(truth)).sum()) / max(cnt, 1)
+  return err, cnt / truth.numel()
+
+
+def k8_against_plain(k8_in, rng, label: str) -> float:
+  """K8 against its plain version on a joint solve's recorded calls
+  (`recorded_calls(...)['force_2d']`): the first and last positions, and
+  the last ones moved by seeded 2 px noise with 1% NaN holes, so that
+  every link carries a force; both force forms, NaN patterns equal.
+  Returns the largest |difference|."""
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch.ops import cuda_mesh
+  x_end, consts = k8_in[-1][0], k8_in[-1][1:3]
+  noise = torch.from_numpy(rng.randn(*x_end.shape).astype(np.float32)
+                           * 2.0).to(x_end.device)
+  holes = torch.from_numpy(rng.rand(*x_end.shape[1:]) < 0.01).to(
+      x_end.device)
+  x_moved = torch.where(holes, torch.full_like(x_end, float('nan')),
+                        x_end + noise)
+  k8e, f_solve, f_moved = 0.0, 0.0, 0.0
+  for x in (k8_in[0][0], x_end, x_moved):
+    for prefer in (False, True):
+      got = cuda_mesh.force_2d(x, *consts, prefer)
+      ref = mesh.inplane_force_plain(x, *consts, prefer)
+      check(torch.equal(torch.isnan(got), torch.isnan(ref)),
+            f'K8 NaN pattern differs on {label}')
+      k8e = max(k8e, float(torch.nan_to_num((got - ref).abs()).max()))
+      size = float(torch.nan_to_num(ref.abs()).max())
+      if x is x_moved:
+        f_moved = size
+      else:
+        f_solve = max(f_solve, size)
+  print(f'  K8 on {label} ({list(x_end.shape)}; largest force {f_solve:.3g} '
+        f'at the first and last positions, {f_moved:.3g} moved): max |df| '
+        f'{k8e:.3g} (bar {FORCE_TOL})')
+  check(k8e < FORCE_TOL, f'K8 differs from the plain force by {k8e} on '
+        f'{label}')
+  return k8e
+
+
 def montage_path(dev, report, _build, rng) -> dict:
   """Path (e): `montage_align_2d` at bench.py's montage2d geometry, its
   kernels on the inputs it gave them, and the whole path against the
   same run with its kernels swapped for their plain versions.
 
   Returns the kernels' launch counts from the timed run."""
-  from sofima_tpu_torch import mesh
   from sofima_tpu_torch.ops import cuda_flow
-  from sofima_tpu_torch.ops import cuda_mesh
   from sofima_tpu_torch.ops import cuda_warp
   from sofima_tpu_torch.pipeline import montage
 
@@ -1615,16 +1696,8 @@ def montage_path(dev, report, _build, rng) -> dict:
   launches_e = dict(_build.launch_counts)
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
   solved, key_to_idx = out['solved'], out['key_to_idx']
-  i0 = key_to_idx[(0, 0)]
-  sx, sy = (int(round(float(solved[c, i0, 0, 0]))) for c in (0, 1))
-  lo, hi = tile_t // 4, n_m - tile_t // 4
-  truth = img[lo:hi, lo:hi]
-  sel = (slice(lo + sy, hi + sy), slice(lo + sx, hi + sx))
-  m = out['mask'][sel]
-  cnt = int(m.sum())
-  err_m = float(torch.where(m, (out['canvas'][sel] - truth).abs(),
-                            torch.zeros_like(truth)).sum()) / max(cnt, 1)
-  cov = cnt / truth.numel()
+  err_m, cov = montage_error(out['canvas'], out['mask'], solved, key_to_idx,
+                             img, tile_t)
   steps = out['solve_steps']
   mpix = n_m * n_m / wall / 1e6
   print('  stage seconds: ' + ', '.join(f'{k} {v:.3f}'
@@ -1642,7 +1715,6 @@ def montage_path(dev, report, _build, rng) -> dict:
   check(not bool(out['overflow']), 'montage render envelope overflow')
   for k in ('dense_flow_peaks', 'force2d', 'warp_gather'):
     check(launches_e[k] > 0, f'kernel {k} was not launched on path (e)')
-  del truth, m
 
   # Path (e)'s kernels against their plain versions on the inputs this
   # path gave them (recorded in the warm-up call). K1: every overlap
@@ -1662,31 +1734,9 @@ def montage_path(dev, report, _build, rng) -> dict:
         f'gray levels (bar {RENDER_TOL})')
   check(k4e < RENDER_TOL, f'K4 differs from the plain render by {k4e}')
   # K8: the joint solve's first and last positions (at rest, since the
-  # cut is exact), and the last ones moved by seeded 2 px noise with NaN
-  # holes, so that every link carries a force; both force forms.
-  k8_in = calls['force_2d']
-  x_end = k8_in[-1][0]
-  noise = torch.from_numpy(rng.randn(*x_end.shape).astype(np.float32)
-                           * 2.0).to(dev)
-  holes = torch.from_numpy(rng.rand(*x_end.shape[1:]) < 0.01).to(dev)
-  x_moved = torch.where(holes, torch.full_like(x_end, float('nan')),
-                        x_end + noise)
-  k8e, f_rest, f_moved = 0.0, 0.0, 0.0
-  for x in (k8_in[0][0], x_end, x_moved):
-    for prefer in (False, True):
-      got = cuda_mesh.force_2d(x, *k8_in[-1][1:3], prefer)
-      ref = mesh.inplane_force_plain(x, *k8_in[-1][1:3], prefer)
-      check(torch.equal(torch.isnan(got), torch.isnan(ref)),
-            'K8 NaN pattern differs on the montage mesh')
-      k8e = max(k8e, float(torch.nan_to_num((got - ref).abs()).max()))
-      size = float(torch.nan_to_num(ref.abs()).max())
-      f_moved = size if x is x_moved else f_moved
-      f_rest = f_rest if x is x_moved else max(f_rest, size)
-  print(f'  K8 on the joint solve\'s mesh ({list(x_end.shape)}; largest '
-        f'force {f_rest:.3g} at rest, {f_moved:.3g} moved): max |df| '
-        f'{k8e:.3g} (bar {FORCE_TOL})')
-  check(k8e < FORCE_TOL, f'K8 differs from the plain force by {k8e}')
-  del calls, k1_in, k8_in, x_end, noise, holes, x_moved, got, ref
+  # cut is exact), and the last ones moved.
+  k8e = k8_against_plain(calls['force_2d'], rng, 'the joint solve\'s mesh')
+  del calls, k1_in
 
   # The whole path again with K1, K4 and K8 swapped for their plain
   # versions on the card.
@@ -2372,6 +2422,327 @@ def library_slice(dev, report, _build) -> dict:
               warp_subvolume=launches_f['warp_subvolume'])
 
 
+def stitch_api_inputs(dev, geometry):
+  """Path (g)'s input: (source image, jittered tiles, true coarse offsets).
+
+  bench.py's montage2d grid of `geometry` (grid, tile, overlap) cut from
+  the seeded texture, each tile moved by its own integer jitter of at
+  most STITCH_API_JITTER px (tile (0, 0) by none, the first column and
+  row only forward, the last only back, so every tile stays in the
+  source), and tile (1, 1)'s content displaced by a Gaussian bump of
+  non-integer amplitude centred in its left overlap (bilinear resampling
+  of the source), so that the fine flow there is not zero. The true
+  offsets are those of the integer cut: [2, 1, grid, grid] XY arrays
+  for the x and y neighbour pairs, NaN where no pair is."""
+  grid_t, tile_t, overlap_t = geometry
+  step_t = tile_t - overlap_t
+  n = step_t * (grid_t - 1) + tile_t
+  img = texture(N, dev)[:n, :n].contiguous()
+  rng = np.random.RandomState(SEED + 13)
+  j = STITCH_API_JITTER
+
+  def draw(i):
+    lo = 0 if i == 0 else -j
+    hi = 0 if i == grid_t - 1 else j
+    return int(rng.randint(lo, hi + 1))
+
+  jit = {(tx, ty): (draw(ty), draw(tx))
+         for ty in range(grid_t) for tx in range(grid_t)}
+  jit[(0, 0)] = (0, 0)
+  tiles = {}
+  for (tx, ty), (jy, jx) in jit.items():
+    y0, x0 = ty * step_t + jy, tx * step_t + jx
+    tiles[(tx, ty)] = img[y0:y0 + tile_t, x0:x0 + tile_t].contiguous()
+  amp_x, amp_y, sigma = STITCH_API_BUMP
+  sigma *= tile_t
+  (jy, jx) = jit[(1, 1)]
+  ys = torch.arange(tile_t, device=dev, dtype=torch.float32)[:, None]
+  xs = torch.arange(tile_t, device=dev, dtype=torch.float32)[None, :]
+  bump = torch.exp(-((ys - tile_t / 2) ** 2 + (xs - overlap_t / 2) ** 2)
+                   / (2 * sigma ** 2))
+  src_y = ys + (step_t + jy) + amp_y * bump
+  src_x = xs + (step_t + jx) + amp_x * bump
+  pos = torch.stack([src_x / (n - 1), src_y / (n - 1)], dim=-1) * 2 - 1
+  tiles[(1, 1)] = torch.nn.functional.grid_sample(
+      img[None, None], pos[None], mode='bilinear',
+      align_corners=True)[0, 0].contiguous()
+  true = []
+  for dx, dy in ((1, 0), (0, 1)):
+    conn = np.full((2, 1, grid_t, grid_t), np.nan)
+    for ty in range(grid_t - dy):
+      for tx in range(grid_t - dx):
+        (ay, ax), (by, bx) = jit[(tx, ty)], jit[(tx + dx, ty + dy)]
+        conn[:, 0, ty, tx] = (bx - ax - overlap_t * dx, by - ay - overlap_t * dy)
+    true.append(conn)
+  return img, tiles, true[0], true[1]
+
+
+def stitch_api_config():
+  """examples/e2e_stitching.py's joint-solve configuration."""
+  from sofima_tpu_torch import mesh
+  return mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(20, 20), num_iters=400,
+      max_iters=20000, stop_v_max=0.005, dt_max=100.0)
+
+
+def stitch_api_chain(tiles, grid_t: int, tile_t: int, overlaps,
+                     min_overlap: int, timings: dict | None = None):
+  """examples/e2e_stitching.py's steps through the port's library API on
+  the tiles' device: the sequential coarse search, interpolation of
+  failed pairs, tile placement, the padfield fine flow at the
+  reference's defaults (patch 120, stride 20, batch 256), packing, the
+  joint solve (mesh.relax_mesh with K8, targets from compute_target_mesh
+  batched over the tiles as stitch_elastic.TargetMeshPlan) and the render
+  (warp.render_tiles, K4 under 'warp_subvolume')."""
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch import stitch_elastic
+  from sofima_tpu_torch import stitch_rigid
+  from sofima_tpu_torch import warp
+  timings = {} if timings is None else timings
+  dev = next(iter(tiles.values())).device
+  stride = (20, 20)
+  t0 = time.perf_counter()
+  cx, cy = stitch_rigid.compute_coarse_offsets(
+      (grid_t, grid_t), tiles, overlaps_xy=(overlaps, overlaps),
+      min_overlap=min_overlap)
+  raw = (cx.copy(), cy.copy())
+  cx = stitch_rigid.interpolate_missing_offsets(cx, axis=-1)
+  cy = stitch_rigid.interpolate_missing_offsets(cy, axis=-2)
+  timings['coarse'] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  coarse = stitch_rigid.optimize_coarse_mesh(cx, cy, device=dev)
+  sync()
+  timings['place'] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  fine_x, off_x = stitch_elastic.compute_flow_map(tiles, cx[:, 0], axis=0)
+  fine_y, off_y = stitch_elastic.compute_flow_map(tiles, cy[:, 0], axis=1)
+  sync()
+  timings['fine_flow'] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  fx, fy, x0, nbors, key_to_idx = stitch_elastic.aggregate_arrays(
+      (cx[:, 0], fine_x, off_x), (cy[:, 0], fine_y, off_y), list(tiles),
+      coarse[:, 0], stride, tile_shape=(tile_t, tile_t))
+  x0 = torch.from_numpy(x0).to(dev)
+  prev_fn = stitch_elastic.TargetMeshPlan(nbors, fx, fy, stride,
+                                          x0.shape[-2:])
+  solved, _, steps = mesh.relax_mesh(x0, None, stitch_api_config(),
+                                     prev_fn=prev_fn)
+  sync()
+  timings['solve'] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  maps = {k: solved[:, i:i + 1] for k, i in key_to_idx.items()}
+  canvas, mask = warp.render_tiles(tiles, maps, stride=stride, margin=4)
+  timings['render'] = time.perf_counter() - t0
+  flows = sum(int(torch.isfinite(f[0]).sum())
+              for f in list(fine_x.values()) + list(fine_y.values()))
+  return dict(raw=raw, cx=cx, cy=cy, coarse=coarse, x0=x0, solved=solved,
+              key_to_idx=key_to_idx, steps=int(steps), canvas=canvas,
+              mask=mask, flows=flows, fine_x=fine_x)
+
+
+def stitch_api_path(dev, report, _build) -> None:
+  """Path (g): examples/e2e_stitching.py's chain through the port's
+  public API at bench.py's montage2d geometry, on a jittered cut with
+  one tile's content displaced, against its gates; K4 and K8 against
+  their plain versions on the inputs recorded in the run (the renders
+  of two tiles, the bumped one among them; the joint solve's positions);
+  then the whole chain against the same run with K4 and K8 swapped for
+  their plain versions: meshes within 0.01 * stride, the canvas within
+  path (e)'s mean bar and a max bar derived from the measured mesh gap
+  (see `chain_canvas_max_bar`)."""
+  t_phase = time.perf_counter()
+  grid_t, tile_t, overlap_t = MONTAGE
+  img, tiles, true_x, true_y = stitch_api_inputs(dev, MONTAGE)
+  n_m = img.shape[0]
+  print(f'path (g): examples/e2e_stitching.py\'s chain (library API), '
+        f'{grid_t} x {grid_t} tiles of {tile_t}^2, {overlap_t} px overlap, '
+        f'jitter <= {STITCH_API_JITTER} px, tile (1, 1) bumped by '
+        f'{STITCH_API_BUMP[:2]} px')
+  print(f'  {smi()}')
+  args = (grid_t, tile_t, STITCH_API_OVERLAPS, STITCH_API_MIN_OVERLAP)
+  from sofima_tpu_torch.ops import cuda_warp
+  _build.reset_launch_counts()
+  timings, calls = {}, {}
+  with recorded_calls(calls):  # K4's and K8's inputs kept
+    t0 = time.perf_counter()
+    out = stitch_api_chain(tiles, *args, timings=timings)
+    wall = time.perf_counter() - t0
+  launches = dict(_build.launch_counts)
+  print('  phase seconds: ' + ', '.join(f'{k} {v:.3f}'
+                                        for k, v in timings.items())
+        + f'; wall {wall:.3f} s, solve steps {out["steps"]}')
+  print(f'  launches {launches}')
+  check(launches['force2d'] > 0, 'K8 was not launched on path (g)')
+  check(launches['warp_subvolume'] > 0, 'K4 was not launched on path (g)')
+
+  # Coarse offsets: the known jitter, and the batched search's.
+  bx, by = stitch_rigid_batched(tiles, args)
+  for got, want, b, name in ((out['raw'][0], true_x, bx, 'x'),
+                             (out['raw'][1], true_y, by, 'y')):
+    print(f'  coarse {name} offsets {got[:, 0].tolist()}')
+    check(np.array_equal(got, want, equal_nan=True),
+          f'path (g) coarse {name} offsets differ from the cut\'s '
+          f'{want[:, 0].tolist()}')
+    check(np.array_equal(got, b, equal_nan=True),
+          f'path (g) coarse {name} offsets differ from the batched search')
+  solved = out['solved']
+  move = float(torch.nan_to_num((solved - out['x0']).abs()).max())
+  print(f'  fine flow: {out["flows"]} finite vectors; largest node move '
+        f'in the joint solve {move:.3f} px (at least {STITCH_API_MOVE})')
+  check(bool(torch.isfinite(solved).all()), 'path (g) meshes not finite')
+  check(move >= STITCH_API_MOVE, 'path (g)\'s joint solve stayed at rest')
+  canvas = torch.from_numpy(out['canvas']).to(dev)
+  mask = torch.from_numpy(out['mask']).to(dev)
+  err, cov = montage_error(canvas, mask, solved, out['key_to_idx'], img,
+                           tile_t)
+  print(f'  error {err:.3f} (gate {MONTAGE_ERR}), coverage {cov:.4f} (gate '
+        f'{MONTAGE_COVERAGE})')
+  check(err <= MONTAGE_ERR, f'path (g) montage error {err}')
+  check(cov >= MONTAGE_COVERAGE, f'path (g) montage coverage {cov}')
+  # K4 on the renders of tile (0, 0) and the bumped tile (1, 1): two
+  # calls a tile (image and margin mask), in the tiles' order.
+  k4_in = calls['warp_subvolume']
+  check(len(k4_in) == 2 * len(tiles), 'path (g): K4 calls per tile')
+  picks = [2 * i + c for i in (0, list(tiles).index((1, 1))) for c in (0, 1)]
+  k4e = max(float((cuda_warp.shift_warp(*k4_in[i], counter='warp_subvolume')
+                   - shift_warp_plain(*k4_in[i])).abs().max())
+            for i in picks)
+  print(f'  K4 on {len(picks)} of the {len(k4_in)} tile renders '
+        f'({list(k4_in[0][1].shape)}): max |diff| {k4e:.3g} gray levels '
+        f'(bar {RENDER_TOL})')
+  check(k4e < RENDER_TOL, f'path (g): K4 differs from plain by {k4e}')
+  # K8: the solve's first positions (each tile's regular grid) and last
+  # ones (bent by the fine flow), and the last ones moved.
+  k8e = k8_against_plain(calls['force_2d'], np.random.RandomState(SEED + 15),
+                         'path (g)\'s joint solve')
+  del calls, k4_in
+
+  # The whole chain again with K4 and K8 swapped for their plain versions.
+  t0 = time.perf_counter()
+  with plain_kernels():
+    ref = stitch_api_chain(tiles, *args)
+  wall_plain = time.perf_counter() - t0
+  dm = float(torch.nan_to_num((solved - ref['solved']).abs()).max())
+  ref_canvas = torch.from_numpy(ref['canvas']).to(dev)
+  ref_mask = torch.from_numpy(ref['mask']).to(dev)
+  both = mask & ref_mask
+  mask_diff = int((mask != ref_mask).sum())
+  dc = (canvas - ref_canvas).abs()[both]
+  grad, max_bar = chain_canvas_max_bar(tiles, dm)
+  print(f'  against the plain kernels ({wall_plain:.1f} s): mesh max |diff| '
+        f'{dm:.3g} px (bar {SMALL_MESH_TOL_2D}), canvas mean / max |diff| '
+        f'{float(dc.mean()):.3g} / {float(dc.max()):.3g} (bar '
+        f'{SMALL_CANVAS_TOL_2D[0]} / {max_bar:.3g} = {grad:.3g} gray '
+        f'levels/px x the mesh gap + {RENDER_TOL}) where both masks are set, '
+        f'mask differs at {mask_diff} px, steps {out["steps"]} / '
+        f'{ref["steps"]}')
+  check(all(np.array_equal(a, b, equal_nan=True)
+            for a, b in zip(out['raw'], ref['raw'])),
+        'path (g) coarse offsets differ from the plain run')
+  check(torch.equal(torch.isnan(solved), torch.isnan(ref['solved'])),
+        'path (g) mesh NaN pattern differs from the plain run')
+  check(dm < SMALL_MESH_TOL_2D, 'path (g) meshes differ from the plain run')
+  check(mask_diff <= MONTAGE_MASK_SHARE * both.numel(),
+        'path (g) mask differs from the plain run')
+  check(float(dc.mean()) < SMALL_CANVAS_TOL_2D[0]
+        and float(dc.max()) < max_bar,
+        'path (g) canvas differs from the plain run')
+  report['K8']['launches_path_g'] = launches['force2d']
+  report['K8']['max_abs_err_path_g'] = k8e
+  report['K4p']['launches_path_g'] = launches['warp_subvolume']
+  report['path_g'] = dict(
+      wall_s=wall, solve_steps=out['steps'], error=err, coverage=cov,
+      largest_move_px=move, fine_flow_vectors=out['flows'], k4_err=k4e,
+      k8_launches=launches['force2d'],
+      k4_launches=launches['warp_subvolume'], plain_wall_s=wall_plain,
+      mesh_diff_plain=dm, canvas_mean_diff_plain=float(dc.mean()),
+      canvas_max_diff_plain=float(dc.max()), canvas_max_bar=max_bar,
+      tile_gradient=grad, mask_diff_plain=mask_diff, canvas=[n_m, n_m],
+      **timings)
+  del out, ref, canvas, mask, ref_canvas, ref_mask, both, dc, tiles, img
+  torch.cuda.empty_cache()
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+
+
+def chain_canvas_max_bar(tiles, mesh_gap: float) -> tuple[float, float]:
+  """The largest canvas difference two renders of the same tiles may
+  show when their meshes differ by at most `mesh_gap` px: a pixel's
+  sampling position moves by at most `mesh_gap` along each axis, so its
+  value moves by at most (|d/dx| + |d/dy|) * mesh_gap. The slope `g` is
+  the tiles' largest one-pixel difference along x plus that along y (the
+  texture is band-limited well below the pixel rate, so its interpolant
+  is no steeper); the bar is g * mesh_gap plus the render bar
+  RENDER_TOL. Returns (g, bar)."""
+  gx = max(float((t[:, 1:] - t[:, :-1]).abs().max()) for t in tiles.values())
+  gy = max(float((t[1:] - t[:-1]).abs().max()) for t in tiles.values())
+  return gx + gy, (gx + gy) * mesh_gap + RENDER_TOL
+
+
+def stitch_rigid_batched(tiles, args):
+  """compute_coarse_offsets_batched on path (g)'s tiles and search grid."""
+  from sofima_tpu_torch import stitch_rigid
+  grid_t, _, overlaps, min_overlap = args
+  return stitch_rigid.compute_coarse_offsets_batched(
+      (grid_t, grid_t), tiles, overlaps_xy=(overlaps, overlaps),
+      min_overlap=min_overlap)
+
+
+def padfield3d_phase(dev, report) -> None:
+  """compute_flow_map3d(flow_mode='padfield', mask_map=...) on the x pair
+  of path (a)'s LICONN tiles cut to PADFIELD3D_ROWS rows, on the card and
+  on the CPU: integer peaks equal, statistics by share; both timed."""
+  from sofima_tpu_torch import stitch_elastic
+  t_phase = time.perf_counter()
+  zdim, tile_yx, overlap = LICONN
+  n3 = 2 * tile_yx - overlap
+  rows = PADFIELD3D_ROWS
+  vol3 = texture3d((zdim, n3, n3), 9, dev)
+  tiles, cx, _, _ = liconn_inputs(vol3, tile_yx, overlap)
+  del vol3
+  pair = {k: tiles[k][:, :rows].contiguous()[None] for k in ((0, 0), (1, 0))}
+  masks = {k: torch.zeros_like(v, dtype=torch.bool) for k, v in pair.items()}
+  masks[(0, 0)][:, 20:26] = True                       # an invalid slab
+  masks[(1, 0)][:, :, 40:120, :48] = True              # a box in the overlap
+  kw = dict(tile_shape=(tile_yx, rows, zdim), offset_map=cx[:, :, :1],
+            axis=0, patch_size=(32, 32, 32), stride=(16, 16, 16),
+            batch_size=64, flow_mode='padfield')
+  print(f'3d padfield: compute_flow_map3d(flow_mode=\'padfield\', '
+        f'mask_map=...), path (a)\'s x pair cut to {zdim} x {rows} x '
+        f'{tile_yx}, patch 32^3, stride 16')
+
+  def run(device):
+    on = {k: v.to(device) for k, v in pair.items()}
+    mk = {k: v.to(device) for k, v in masks.items()}
+    sync()
+    t0 = time.perf_counter()
+    flows, offs = stitch_elastic.compute_flow_map3d(on, mask_map=mk, **kw)
+    sync()
+    return flows[(0, 0)], offs, (time.perf_counter() - t0) * 1e3
+
+  run(dev)  # warm-up (cuFFT plans)
+  got, offs, ms_card = run(dev)
+  ref, offs_cpu, ms_cpu = run('cpu')
+  check(offs == offs_cpu, '3d padfield offsets differ from the CPU')
+  n_nodes = int(torch.isfinite(ref[0]).sum())
+  r = compare_flow(got.cpu(), ref, f'3d padfield flow ({list(ref.shape)})',
+                   fraction=STAT_FRACTION_MASKED, dim=3)
+  check(0 < n_nodes < ref[0].numel(), '3d padfield: no node estimated, or '
+        'the masks deselected none')
+  print(f'  card {ms_card:.1f} ms, CPU {ms_cpu:.1f} ms; {n_nodes} nodes '
+        f'estimated of {ref[0].numel()}')
+  report['padfield3d'] = dict(shape=list(ref.shape), nodes=n_nodes,
+                              ms=ms_card, cpu_ms=ms_cpu, **r)
+  del tiles, pair, masks, got, ref
+  torch.cuda.empty_cache()
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+
+
+def stitch_api_slice(dev, report, _build) -> None:
+  """The tile-stitching library API: path (g) and the 3d padfield phase."""
+  stitch_api_path(dev, report, _build)
+  padfield3d_phase(dev, report)
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2409,6 +2780,8 @@ def main() -> int:
   launches['force2d'] = montage_slice(dev, report, _build)
   torch.cuda.empty_cache()
   launches.update(library_slice(dev, report, _build))
+  torch.cuda.empty_cache()
+  stitch_api_slice(dev, report, _build)
   print(f'total {time.perf_counter() - t_start:.1f} s')
 
   kernels = []
@@ -2455,7 +2828,8 @@ def main() -> int:
   paths = {k: report[k] for k in ('stack_cold', 'path_masked', 'stack_warm',
                                    'refresh', 'path_a', 'path_b', 'path_c',
                                    'path_d', 'path_e', 'montage_small',
-                                   'drift_removal', 'path_f')}
+                                   'drift_removal', 'path_f', 'path_g',
+                                   'padfield3d')}
   print(json.dumps({'paths': paths}))
   print(smi())
   print(json.dumps({'kernels': kernels}))

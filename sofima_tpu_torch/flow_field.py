@@ -3,17 +3,24 @@
 Twin of sofima_tpu/flow_field.py. Ported:
   * the peak contract of `_batched_peaks`, 2d and 3d
     (ops.cuda_flow.batched_peaks);
-  * the circular dense-grid branch of `dense_flow_field`: 2d square
-    patches backed by kernel K1 (ops.cuda_flow.dense_flow_peaks) and,
-    with masks, K5 (ops.cuda_flow.masked_dense_flow_peaks, masked
-    Padfield NCC); 2d rectangular patches by the strip path
-    `_dense_flow_strips` (stride divides the patch) or the start-list
-    path (`_dense_flow_starts`), both on kernel K6
-    (ops.cuda_flow.flow_peaks) or, with masks, the batch-rule Padfield
-    twin `_masked_xcorr_circular`; 3d by the strip path
-    `_dense_flow_strips_3d` (patch-periodic FFT correlation, torch.fft as
-    the reference leaves it to XLA's FFT, the masked Padfield twin
-    `_masked_xcorr_circular_fft`, then the peaks);
+  * `dense_flow_field`, every branch:
+      - circular, 2d square patches: kernel K1
+        (ops.cuda_flow.dense_flow_peaks) and, with masks, K5
+        (ops.cuda_flow.masked_dense_flow_peaks, masked Padfield NCC);
+      - circular, 2d rectangular patches: the strip path
+        `_dense_flow_strips` (stride divides the patch) on kernel K6
+        (ops.cuda_flow.flow_peaks) or, with masks, the batch-rule
+        Padfield twin `_masked_xcorr_circular`;
+      - circular, 3d: the strip path `_dense_flow_strips_3d`
+        (patch-periodic FFT correlation, torch.fft as the reference
+        leaves it to XLA's FFT, the masked Padfield twin
+        `_masked_xcorr_circular_fft`, then the peaks);
+      - circular, any other geometry (2d or 3d): the start list of the
+        whole grid (`_dense_flow_starts`), each batch through the same
+        correlations;
+      - `circular=False` (the default): the start list with the linear
+        Padfield NCC of `batched_xcorr_peaks`, pre patches centred on
+        the post patches (`post_patch_size`), as the reference pads them;
   * `coarse_to_fine_flow`: the coarse pass (K1, or K5 with masks) or a
     warm-start `prior`, the robustified prior, and then
       - unmasked, the targeted fine pass: `rint(-coarse)` window offsets
@@ -23,15 +30,13 @@ Twin of sofima_tpu/flow_field.py. Ported:
         'nearest' mode), the fine masked pass (K5) and the add-back of
         the rounded shift (`overflow` from the transport's plan);
   * `JAXMaskedXCorrWithStatsCalculator`: its dense branch (circular
-    modes, no targeting fields) and, in 2d, its padfield mode
+    modes, no targeting fields) and, in 2d and 3d, its padfield mode
     (`batched_xcorr_peaks`: the linear Padfield NCC of `masked_xcorr` on
     torch.fft, as the reference computes it outside any Pallas kernel,
     with its batch rules, targeting fields, the pre-patch clamp and its
     compensation, `post_patch_size` and `progress_fn` streaming);
   * `masked_xcorr` (the full linear Padfield NCC on torch.fft, padded to
     `next_fast_len`, batch or per-item thresholds).
-The calculator's 3d padfield mode is still to be ported (ROADMAP.md
-Queue 1) and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -197,6 +202,39 @@ def _masked_xcorr_circular_fft(pre_b: torch.Tensor, post_b: torch.Tensor,
       per_patch=False)
 
 
+def _circular_peaks_fft(a: torch.Tensor, b: torch.Tensor, va, vb,
+                        mean: float | None, min_distance: int,
+                        threshold_rel: float,
+                        peak_radius: int) -> torch.Tensor:
+  """Peak rows of one batch of patch pairs on the patch-periodic torus.
+
+  Dim-generic (torch.fft): the mean over valid voxels (or `mean`)
+  removed, the circular cross-correlation irfftn(F(pre) conj(F(post))),
+  or with masks (`va` / `vb` True where valid, None: all valid) the
+  batch-rule Padfield NCC `_masked_xcorr_circular_fft`, the zero shift
+  rolled to the patch centre, and the peak statistics.
+  """
+  patch_size = tuple(a.shape[1:])
+  axes = tuple(range(-len(patch_size), 0))
+  if mean is None:
+    a = a - _valid_mean(a, va, axes)
+    b = b - _valid_mean(b, vb, axes)
+  else:
+    a, b = a - mean, b - mean
+  if va is not None or vb is not None:
+    va = torch.ones_like(a, dtype=torch.bool) if va is None else va
+    vb = torch.ones_like(b, dtype=torch.bool) if vb is None else vb
+    corr = _masked_xcorr_circular_fft(a, b, va, vb, patch_size)
+  else:
+    fa = torch.fft.rfftn(a, dim=axes)
+    fb = torch.fft.rfftn(b, dim=axes)
+    corr = torch.fft.irfftn(fa * torch.conj(fb), s=patch_size, dim=axes)
+  center = tuple(p // 2 for p in patch_size)
+  corr = torch.roll(corr, center, dims=axes)
+  return _batched_peaks(corr, center, min_distance, threshold_rel,
+                        peak_radius)
+
+
 def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
                           patch_size, step, mean: float | None,
                           min_distance: int, threshold_rel: float,
@@ -204,12 +242,9 @@ def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
                           post_mask=None) -> torch.Tensor:
   """Dense circular 3d flow over grid z-rows -> [5, gz, gy, gx].
 
-  Per z-row: one [pz, strip_h, strip_w] slab of each image, its patches,
-  mean removal (over valid voxels where masked), the patch-periodic
-  cross-correlation irfftn(F(pre) conj(F(post))), or with masks (True =
-  invalid) the Padfield NCC `_masked_xcorr_circular_fft`, with the zero
-  shift rolled to the patch centre, and the peak statistics (x, y, z,
-  sharpness, ratio).
+  Per z-row: one [pz, strip_h, strip_w] slab of each image, its patches
+  and their peaks (`_circular_peaks_fft`; masks True / > 0 where
+  invalid).
   """
   pz, py, px = patch_size
   sz, sy, sx = step
@@ -219,8 +254,6 @@ def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
   gx = (w - (px - sx)) // sx
   strip_h = (gy - 1) * sy + py
   strip_w = (gx - 1) * sx + px
-  center = (pz // 2, py // 2, px // 2)
-  axes = (-3, -2, -1)
   pre_image = pre_image.to(torch.float32)
   post_image = post_image.to(torch.float32)
   rows = []
@@ -231,30 +264,10 @@ def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
       return _strip_patches_3d(img[z0:z0 + pz, :strip_h, :strip_w], gy, gx,
                                patch_size, step)
 
-    a, b = patches(pre_image), patches(post_image)
-    va = vb = None
-    if pre_mask is not None:
-      va = patches(pre_mask.to(torch.float32)) <= 0
-    if post_mask is not None:
-      vb = patches(post_mask.to(torch.float32)) <= 0
-
-    if mean is None:
-      a = a - _valid_mean(a, va, axes)
-      b = b - _valid_mean(b, vb, axes)
-    else:
-      a, b = a - mean, b - mean
-    if va is not None or vb is not None:
-      va = torch.ones_like(a, dtype=torch.bool) if va is None else va
-      vb = torch.ones_like(b, dtype=torch.bool) if vb is None else vb
-      corr = _masked_xcorr_circular_fft(a, b, va, vb, patch_size)
-    else:
-      fa = torch.fft.rfftn(a, dim=axes)
-      fb = torch.fft.rfftn(b, dim=axes)
-      corr = torch.fft.irfftn(fa * torch.conj(fb), s=tuple(patch_size),
-                              dim=axes)
-    corr = torch.roll(corr, center, dims=axes)
-    rows.append(_batched_peaks(corr, center, min_distance, threshold_rel,
-                               peak_radius))
+    rows.append(_circular_peaks_fft(
+        patches(pre_image), patches(post_image),
+        _valid_patches(pre_mask, patches), _valid_patches(post_mask, patches),
+        mean, min_distance, threshold_rel, peak_radius))
   out = torch.stack(rows).reshape(gz, gy, gx, 5)
   return out.permute(3, 0, 1, 2).contiguous()
 
@@ -293,13 +306,17 @@ def _masked_xcorr_circular(pre_b: torch.Tensor, post_b: torch.Tensor,
 def _circular_peaks(pre_b: torch.Tensor, post_b: torch.Tensor, pre_valid,
                     post_valid, mean, min_distance: int,
                     threshold_rel: float, peak_radius: int) -> torch.Tensor:
-  """Peak rows [b, 4] of one dispatch batch of 2d patch pairs.
+  """Peak rows [b, dim + 2] of one dispatch batch of patch pairs.
 
-  Unmasked: kernel K6 (mean removal, circular correlation, peaks).
-  Masked (`*_valid` True where a pixel is valid, None: all valid): the
-  mean over valid pixels, the batch-rule Padfield NCC
-  `_masked_xcorr_circular`, and the peak chain.
+  2d unmasked: kernel K6 (mean removal, circular correlation, peaks).
+  2d masked (`*_valid` True where a pixel is valid, None: all valid):
+  the mean over valid pixels, the batch-rule Padfield NCC
+  `_masked_xcorr_circular`, and the peak chain. 3d:
+  `_circular_peaks_fft`.
   """
+  if pre_b.ndim == 4:
+    return _circular_peaks_fft(pre_b, post_b, pre_valid, post_valid, mean,
+                               min_distance, threshold_rel, peak_radius)
   if pre_valid is None and post_valid is None:
     return cuda_flow.flow_peaks(pre_b, post_b, mean, min_distance,
                                 threshold_rel, peak_radius)
@@ -365,42 +382,57 @@ def _dense_flow_strips(pre_image: torch.Tensor, post_image: torch.Tensor,
 
 
 def _dense_flow_starts(pre_image: torch.Tensor, post_image: torch.Tensor,
-                       patch_size, step, mean: float | None,
+                       patch_size, post_patch_size, step, mean: float | None,
                        min_distance: int, threshold_rel: float,
-                       peak_radius: int, batch_size: int,
+                       peak_radius: int, batch_size: int, circular: bool,
                        pre_mask=None, post_mask=None) -> torch.Tensor:
-  """Dense circular 2d flow from the grid's start list -> [4, gy, gx].
+  """Dense flow from the grid's start list -> [dim + 2, *grid].
 
-  Twin of the start-list branch of flow_field.dense_flow_field (the
-  stride does not divide the patch): the patches of all grid nodes,
-  row-major, in dispatch batches of `batch_size` (the last one padded
-  by repeating its last start), each measured by `_circular_peaks`.
+  Twin of the start-list branch of flow_field.dense_flow_field (2d or
+  3d; the geometries no strip path takes, and every `circular=False`
+  run): post patches at the starts of the `post_patch_size` grid,
+  row-major, pre patches at max(start - (patch - post_patch) // 2, 0)
+  (no upper clamp and no compensation; the gather clamps each patch
+  into its image as lax.dynamic_slice does), in dispatch batches of
+  `batch_size` padded by repeating the last start. Each batch goes
+  through `_circular_peaks` (equal patch sizes, masks allowed) or the
+  linear Padfield chain of `batched_xcorr_peaks`.
   """
-  py, px = patch_size
-  sy, sx = step
-  h, w = pre_image.shape
-  gy, gx = (h - (py - sy)) // sy, (w - (px - sx)) // sx
-  n = gy * gx
+  grid = tuple((post_image.shape[a] - (p - s)) // s
+               for a, (p, s) in enumerate(zip(post_patch_size, step)))
+  n = int(np.prod(grid))
   batch_size = min(batch_size, n)
+  padded = -(-n // batch_size) * batch_size
   dev = pre_image.device
-  idx = torch.arange(-(-n // batch_size) * batch_size, device=dev).clamp(
-      max=n - 1)
-
-  def patches(img, sel):
-    return img.unfold(0, py, sy).unfold(1, px, sx)[sel // gx, sel % gx]
-
+  axes = [torch.arange(g, device=dev) * s for g, s in zip(grid, step)]
+  starts = torch.stack(torch.meshgrid(*axes, indexing='ij'),
+                       dim=-1).reshape(n, len(grid))
+  starts = torch.cat([starts, starts[-1:].expand(padded - n, len(grid))])
+  offset = torch.tensor([(p - q) // 2 for p, q in
+                         zip(patch_size, post_patch_size)], device=dev)
+  pre_starts = torch.clamp(starts - offset[None], min=0)
   pre_image = pre_image.to(torch.float32)
   post_image = post_image.to(torch.float32)
+  kw = dict(min_distance=min_distance, threshold_rel=threshold_rel,
+            peak_radius=peak_radius)
   rows = []
-  for b0 in range(0, idx.numel(), batch_size):
-    sel = idx[b0:b0 + batch_size]
-    cut = lambda img, sel=sel: patches(img, sel)
+  for b0 in range(0, padded, batch_size):
+    ps, qs = pre_starts[b0:b0 + batch_size], starts[b0:b0 + batch_size]
+    if not circular:
+      rows.append(batched_xcorr_peaks(
+          pre_image, post_image, None, None, patch_size, ps, mean,
+          post_patch_size=post_patch_size, post_starts=qs, **kw))
+      continue
+
+    def cut(img, sel):
+      return _gather_patches(img, sel, patch_size)
+
     rows.append(_circular_peaks(
-        cut(pre_image), cut(post_image), _valid_patches(pre_mask, cut),
-        _valid_patches(post_mask, cut), mean, min_distance, threshold_rel,
-        peak_radius))
+        cut(pre_image, ps), cut(post_image, qs),
+        _valid_patches(pre_mask, lambda m: cut(m, ps)),
+        _valid_patches(post_mask, lambda m: cut(m, qs)), mean, **kw))
   peaks = torch.cat(rows)[:n]
-  return peaks.reshape(gy, gx, 4).permute(2, 0, 1).contiguous()
+  return peaks.reshape(grid + (peaks.shape[-1],)).movedim(-1, 0).contiguous()
 
 
 def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
@@ -412,66 +444,62 @@ def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
                      pre_mask=None, post_mask=None) -> torch.Tensor:
   """Flow over the full dense patch grid.
 
-  The reference's parameters, order and defaults. Only the circular
-  branches are ported: `circular=False` (the default, as in the
-  reference), a `post_patch_size` and `bf16=True` (the port correlates
-  in float32) raise NotImplementedError. `dft_matmul` picks a TPU
-  transform and is ignored.
+  The reference's parameters, order and defaults. `dft_matmul` and
+  `bf16` pick the TPU's DFT-matmul transform and its bfloat16 inputs;
+  they are accepted and ignored (the port correlates in float32).
 
-  2d: [4, gy, gx] (x, y, sharpness, ratio). Square patches: kernel K1,
-  or K5 when a mask is given (float32 correlation; any geometry).
-  Rectangular patches: the strip path when the stride divides the patch
-  (`batch_size` / gx grid rows per strip, as the reference), else the
-  start-list path in batches of `batch_size`; both correlate on kernel
-  K6, or with masks on the batch-rule Padfield twin. 3d: [5, gz, gy, gx]
-  (x, y, z, sharpness, ratio), via the strip path (stride must divide
-  the patch size). Masks are True (or > 0) where a pixel is invalid.
+  2d: [4, gy, gx] (x, y, sharpness, ratio); 3d: [5, gz, gy, gx] (x, y,
+  z, sharpness, ratio), on the grid of `post_patch_size` (default
+  `patch_size`) at `step` over `post_image`. With `circular=True`
+  (equal patch sizes): square 2d patches on kernel K1, or K5 when a mask
+  is given; rectangular 2d patches on the strip path (`batch_size` / gx
+  grid rows per strip, as the reference) when the stride divides the
+  patch, 3d likewise on the 3d strip path; other geometries on the
+  start list in batches of `batch_size`. With `circular=False` (the
+  default): the linear Padfield correlation over the start list.
+  Masks (True or > 0 where a pixel is invalid) need `circular=True`;
+  both ValueErrors are the reference's.
   """
-  del dft_matmul
-  if not circular:
-    raise NotImplementedError(
-        'dense_flow_field: only circular=True is ported (the reference\'s '
-        'default, circular=False, pads each post patch; pass circular=True)')
-  if post_patch_size is not None:
-    raise NotImplementedError(
-        'dense_flow_field: post_patch_size is not ported (circular mode '
-        'correlates equal pre/post patches)')
-  if bf16:
-    raise NotImplementedError(
-        'dense_flow_field: bf16=True is not ported (the port correlates in '
-        'float32)')
-  if tuple(pre_image.shape) != tuple(post_image.shape):
-    raise ValueError('pre and post images must share a shape')
-  if pre_image.ndim == 3:
-    if any(p % s for p, s in zip(patch_size, step)):
-      raise NotImplementedError('3d dense flow needs the stride to divide '
-                                'the patch size (the strip path)')
-    return _dense_flow_strips_3d(pre_image, post_image, tuple(patch_size),
-                                 tuple(step), mean, min_distance,
-                                 threshold_rel, peak_radius,
-                                 pre_mask=pre_mask, post_mask=post_mask)
-  if pre_image.ndim != 2:
+  del dft_matmul, bf16
+  ndim = pre_image.ndim
+  if ndim not in (2, 3):
     raise ValueError('2d or 3d images expected')
   patch_size, step = tuple(patch_size), tuple(step)
+  post_patch_size = (patch_size if post_patch_size is None
+                     else tuple(post_patch_size))
   kw = dict(mean=mean, min_distance=min_distance,
             threshold_rel=threshold_rel, peak_radius=peak_radius)
-  if patch_size[0] != patch_size[1]:
-    if patch_size[0] % step[0] == 0 and patch_size[1] % step[1] == 0:
+  masked = pre_mask is not None or post_mask is not None
+  divides = all(p % s == 0 for p, s in zip(patch_size, step))
+  if (circular and post_patch_size == patch_size
+      and tuple(pre_image.shape) == tuple(post_image.shape)):
+    if ndim == 3 and divides:
+      return _dense_flow_strips_3d(pre_image, post_image, patch_size, step,
+                                   pre_mask=pre_mask, post_mask=post_mask,
+                                   **kw)
+    if ndim == 2 and patch_size[0] == patch_size[1]:
+      if masked:
+        valid = [None if m is None else ~(m > 0)
+                 for m in (pre_mask, post_mask)]
+        return cuda_flow.masked_dense_flow_peaks(
+            pre_image, post_image, valid[0], valid[1], patch_size, step, **kw)
+      return cuda_flow.dense_flow_peaks(pre_image, post_image, patch_size,
+                                        step, **kw)
+    if ndim == 2 and divides:
       gy = (pre_image.shape[0] - (patch_size[0] - step[0])) // step[0]
       gx = (pre_image.shape[1] - (patch_size[1] - step[1])) // step[1]
       rows = max(1, min(gy, int(round(batch_size / max(gx, 1))) or 1))
       return _dense_flow_strips(pre_image, post_image, patch_size, step,
                                 rows_per_step=rows, pre_mask=pre_mask,
                                 post_mask=post_mask, **kw)
-    return _dense_flow_starts(pre_image, post_image, patch_size, step,
-                              batch_size=batch_size, pre_mask=pre_mask,
-                              post_mask=post_mask, **kw)
-  if pre_mask is not None or post_mask is not None:
-    valid = [None if m is None else ~(m > 0) for m in (pre_mask, post_mask)]
-    return cuda_flow.masked_dense_flow_peaks(
-        pre_image, post_image, valid[0], valid[1], patch_size, step, **kw)
-  return cuda_flow.dense_flow_peaks(pre_image, post_image, patch_size, step,
-                                    **kw)
+  if circular and post_patch_size != patch_size:
+    raise ValueError('circular mode requires equal pre/post patch sizes')
+  if masked and not circular:
+    raise ValueError('dense masked mode requires circular=True')
+  return _dense_flow_starts(pre_image, post_image, patch_size,
+                            post_patch_size, step, batch_size=batch_size,
+                            circular=circular, pre_mask=pre_mask,
+                            post_mask=post_mask, **kw)
 
 
 def _nanmedian(c: torch.Tensor) -> torch.Tensor:
@@ -681,15 +709,16 @@ def _tuple(v, ndim: int):
 
 def _gather_patches(image: torch.Tensor, starts: torch.Tensor,
                     size) -> torch.Tensor:
-  """[b, *size] patches of a 2d image at [b, 2] (y, x) starts, each start
+  """[b, *size] patches of an image at [b, dim] starts, each start
   clamped into the image as lax.dynamic_slice clamps it."""
-  h, w = image.shape
-  dev = image.device
-  y0 = starts[:, 0].clamp(0, max(h - size[0], 0))
-  x0 = starts[:, 1].clamp(0, max(w - size[1], 0))
-  yy = y0[:, None, None] + torch.arange(size[0], device=dev)[None, :, None]
-  xx = x0[:, None, None] + torch.arange(size[1], device=dev)[None, None, :]
-  return image[yy, xx]
+  dim = len(size)
+  idx = []
+  for a, n in enumerate(size):
+    s0 = starts[:, a].clamp(0, max(image.shape[a] - n, 0))
+    ar = torch.arange(n, device=image.device)
+    idx.append(s0.reshape((-1,) + (1,) * dim)
+               + ar.reshape((1,) * (a + 1) + (n,) + (1,) * (dim - a - 1)))
+  return image[tuple(idx)]
 
 
 def batched_xcorr_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
@@ -699,13 +728,13 @@ def batched_xcorr_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
                         post_patch_size=None,
                         post_starts: torch.Tensor | None = None
                         ) -> torch.Tensor:
-  """Gather -> linear (Padfield) xcorr -> peak rows [b, 4], one batch.
+  """Gather -> linear (Padfield) xcorr -> peak rows [b, dim + 2], one batch.
 
-  Twin of flow_field.batched_xcorr_peaks in 2d: pre patches of
+  Twin of flow_field.batched_xcorr_peaks, 2d or 3d: pre patches of
   `patch_size` at `starts` and post patches of `post_patch_size` at
-  `post_starts` ([b, 2] (y, x)), the mean over each patch's unmasked
-  pixels (or the constant `mean`) removed, `masked_xcorr` over the batch
-  (masks True where invalid; with masks its thresholds are the
+  `post_starts` ([b, dim] ([z,] y, x)), the mean over each patch's
+  unmasked pixels (or the constant `mean`) removed, `masked_xcorr` over
+  the batch (masks True where invalid; with masks its thresholds are the
   batch's), and the peaks around the linear correlation's zero shift
   (patch + post_patch) // 2 - 1.
   """
@@ -714,6 +743,7 @@ def batched_xcorr_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
                      else tuple(post_patch_size))
   if post_starts is None:
     post_starts = starts
+  dim = len(patch_size)
   pre_b = _gather_patches(pre_image, starts, patch_size)
   post_b = _gather_patches(post_image, post_starts, post_patch_size)
   pre_m = None if pre_mask is None else _gather_patches(
@@ -722,7 +752,7 @@ def batched_xcorr_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
       post_mask, post_starts, post_patch_size).to(torch.bool)
 
   if mean is None:
-    axes = (-2, -1)
+    axes = tuple(range(-dim, 0))
     pre_b = pre_b - _valid_mean(pre_b, None if pre_m is None else ~pre_m,
                                 axes)
     post_b = post_b - _valid_mean(post_b, None if post_m is None else ~post_m,
@@ -730,8 +760,13 @@ def batched_xcorr_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
   else:
     pre_b, post_b = pre_b - mean, post_b - mean
   center = tuple((np.array(patch_size) + np.array(post_patch_size)) // 2 - 1)
-  xc = masked_xcorr(pre_b, post_b, pre_m, post_m)
+  xc = masked_xcorr(pre_b, post_b, pre_m, post_m, dim=dim)
   return _batched_peaks(xc, center, min_distance, threshold_rel, peak_radius)
+
+
+def _silent_fn(x):
+  """The calculator's default `progress_fn`: the batches, unreported."""
+  yield from x
 
 
 # The reference calculator's modes: 'padfield' (the linear Padfield NCC,
@@ -756,9 +791,10 @@ def _selected_nodes(post_shape, patch, post_patch, step, pre_mask, post_mask,
 
   A node is kept where `selection_mask` (if given) is True and fewer than
   `max_masked` of each of its pre / post patch's pixels are masked (the
-  occupancy from integral images, as the reference computes it).
+  occupancy from integral images, as the reference computes it; a
+  tensor mask's on its own device).
   """
-  out_shape = (np.asarray(post_shape) - (np.asarray(post_patch)
+  out_shape = (np.asarray(tuple(post_shape)) - (np.asarray(post_patch)
                                          - np.asarray(step))) // step
   out_sel = tuple(np.s_[:n] for n in out_shape)
   keep = np.ones(out_shape, dtype=bool)
@@ -766,8 +802,7 @@ def _selected_nodes(post_shape, patch, post_patch, step, pre_mask, post_mask,
     keep &= np.array(placement.to_host(selection_mask)[out_sel], dtype=bool)
   for mask, size in ((pre_mask, patch), (post_mask, post_patch)):
     if mask is not None:
-      occ = geom.query_integral_image(
-          geom.integral_image_np(placement.to_host(mask)), size, step)
+      occ = geom.query_integral_image(geom.integral_image(mask), size, step)
       keep &= ~(occ / np.prod(size) >= max_masked)[out_sel]
   return keep
 
@@ -782,8 +817,9 @@ class JAXMaskedXCorrWithStatsCalculator:
       nodes whose patches are at least `max_masked` masked or that
       `selection_mask` drops;
     * its padfield mode (the default, and any run with targeting
-      fields), 2d: the same deselection, then the selected nodes in
-      dispatch batches of `batch_size` through `batched_xcorr_peaks`.
+      fields, or with masks or a selection in 3d), 2d or 3d: the same
+      deselection, then the selected nodes in dispatch batches of
+      `batch_size` through `batched_xcorr_peaks`.
       With masks the batch decides the Padfield thresholds, so the
       batches and the padding of the last one (its last start repeated)
       are the reference's.
@@ -807,12 +843,14 @@ class JAXMaskedXCorrWithStatsCalculator:
                  batch_size: int = 1024, post_patch_size=None,
                  pre_targeting_field=None, pre_targeting_step=None,
                  post_targeting_field=None, post_targeting_step=None,
-                 progress_fn=None, mode: str = 'padfield') -> np.ndarray:
+                 progress_fn=_silent_fn,
+                 mode: str = 'padfield') -> np.ndarray:
     """Flow from `post` to `pre` -> [dim+2, *grid] numpy, NaN where no
     estimate was made (see the reference for the conventions).
 
     `progress_fn(list_of_batch_indices)` (padfield mode) yields the
-    batches to run; each is fetched as it completes.
+    batches to run; any other function than the default `_silent_fn`
+    has each batch fetched as it completes.
     """
     ndim = pre_image.ndim
     check_flow_mode(mode)
@@ -825,10 +863,6 @@ class JAXMaskedXCorrWithStatsCalculator:
                          post_mask, mask_only_for_patch_selection,
                          selection_mask, max_masked, batch_size,
                          post_patch_size)
-    if ndim != 2:
-      raise NotImplementedError(
-          "the calculator's 3d padfield mode (and 3d masked, selected or "
-          'targeted runs) is not ported yet (ROADMAP.md Queue 1)')
     return self._padfield(
         pre_image, post_image, patch_size, step, pre_mask, post_mask,
         mask_only_for_patch_selection, selection_mask, max_masked,
@@ -866,14 +900,14 @@ class JAXMaskedXCorrWithStatsCalculator:
                 max_masked, batch_size, post_patch_size, pre_targeting_field,
                 pre_targeting_step, post_targeting_field,
                 post_targeting_step, progress_fn) -> np.ndarray:
-    ndim = 2
+    ndim = pre_image.ndim
     patch_size = _tuple(patch_size, ndim)
     post_patch_size = _tuple(post_patch_size, ndim) or patch_size
     step = _tuple(step, ndim)
     pre_targeting_step = _tuple(pre_targeting_step, ndim)
     post_targeting_step = _tuple(post_targeting_step, ndim)
-    pre_shape = np.asarray(pre_image.shape)
-    post_shape = np.asarray(post_image.shape)
+    pre_shape = np.asarray(tuple(pre_image.shape))
+    post_shape = np.asarray(tuple(post_image.shape))
 
     selection = _selected_nodes(post_shape, patch_size, post_patch_size,
                                 step, pre_mask, post_mask, selection_mask,
@@ -883,7 +917,7 @@ class JAXMaskedXCorrWithStatsCalculator:
     if mask_only_for_patch_selection:
       pre_mask = post_mask = None
 
-    coords = np.argwhere(selection)  # [n, 2] grid coords (y, x)
+    coords = np.argwhere(selection)  # [n, dim] grid coords ([z]yx)
     n = coords.shape[0]
     if n == 0:
       return output
@@ -899,7 +933,7 @@ class JAXMaskedXCorrWithStatsCalculator:
     pre_clamp_delta = pre_starts - pre_unclamped
 
     def targeting_offsets(field, tstep, starts, psize, img_shape):
-      """In-bounds-clamped targeting offsets ([n, 2], (y, x) order)."""
+      """In-bounds-clamped targeting offsets ([n, dim], [z]yx order)."""
       field = placement.to_host(field)
       center = (np.array(psize) // 2)[None, :]
       query = np.round((starts + center) / np.asarray(tstep)[None, :])
@@ -907,7 +941,7 @@ class JAXMaskedXCorrWithStatsCalculator:
       gather_idx = tuple(np.clip(query[:, i], 0, field.shape[i + 1] - 1)
                          for i in range(ndim))
       offs = np.nan_to_num(field[(slice(None),) + gather_idx].T)
-      offs = offs.astype(int)[:, ::-1]  # channels xy -> yx
+      offs = offs.astype(int)[:, ::-1]  # channels xy[z] -> [z]yx
       new_starts = starts + offs
       offs = offs - np.minimum(new_starts, 0)
       ends = new_starts + np.asarray(psize)[None, :]
@@ -954,7 +988,7 @@ class JAXMaskedXCorrWithStatsCalculator:
           peak_radius=int(self._peak_radius),
           post_patch_size=post_patch_size, post_starts=qs[i])
 
-    if progress_fn is None:
+    if progress_fn is _silent_fn:
       peaks = torch.cat([one_batch(i) for i in range(num_batches)])
       peaks = peaks.cpu().numpy()
     else:

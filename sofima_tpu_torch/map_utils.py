@@ -117,7 +117,8 @@ class ComposePlan3d:
         (self.ref1[dim - 1 - c] + map1[:, c]) / self.stride2[dim - 1 - c]
         - self._starts(start2, dev)[dim - 1 - c]
         for c in reversed(range(dim))], dim=1)  # [P, zyx, *grid1]
-    self.taps, self.nan = interp.linear_taps(q, tuple(shape2), mode, lead=1)
+    self.taps, self.nan = interp.method_taps(q, tuple(shape2), 'linear', mode,
+                                             lead=1)
 
   @staticmethod
   def _starts(starts, dev):
@@ -365,7 +366,8 @@ def _invert_section(abs_map_xy: torch.Tensor, src_start_yx: torch.Tensor,
       r = query_xy - (p_n + sample_d(p_n))
       r0, r1 = r[..., 0, :, :], r[..., 1, :, :]
       idx = to_idx(p_n)
-      a, b, c_, e = (interp.sample(j, idx, method='linear', mode='nearest')
+      a, b, c_, e = (interp.sample_batched(j, idx, method='linear',
+                                           mode='nearest')
                      for j in jac_planes)
       det = (1.0 + a) * (1.0 + e) - b * c_
       safe = torch.abs(det) > 0.005

@@ -394,14 +394,17 @@ def relax_mesh(x, prev, config: IntegrationConfig, mesh_force=inplane_force,
 
 
 def relax_mesh_fused(x: torch.Tensor, prev: torch.Tensor | None,
-                     config: IntegrationConfig, mesh_force=inplane_force):
+                     config: IntegrationConfig, mesh_force=inplane_force,
+                     prev_fn=None):
   """Relaxes the mesh until convergence.
 
+  With `prev_fn`, the k0 springs pull toward `prev_fn(x)`, evaluated at
+  every force evaluation (in place of `prev`).
   Returns (x, e_kin history [max_chunks], steps executed).
   """
   if not config.fire:
     raise NotImplementedError('relax_mesh_fused requires FIRE.')
-  force, _, fire_step = _make_step_fns(config, mesh_force)
+  force, _, fire_step = _make_step_fns(config, mesh_force, prev_fn)
   max_chunks = int(math.ceil(config.max_iters / config.num_iters))
   x = x.to(torch.float32)
   a0 = force(x, prev, torch.tensor(config.start_cap, dtype=torch.float32,

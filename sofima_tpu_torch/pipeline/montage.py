@@ -50,9 +50,9 @@ class MontageConfig:
   """Static configuration of the 2d montage chain.
 
   Same fields and defaults as sofima_tpu's MontageConfig. Every
-  circular `flow_mode` correlates in float32 and 'padfield' raises
-  (stitch_elastic.compute_flow_map); `flow_batch`
-  is not read, since K1 takes each overlap strip in one launch.
+  circular `flow_mode` correlates in float32 (K1 takes each overlap
+  strip in one launch), and 'padfield' runs the calculator's padfield
+  mode in batches of `flow_batch` (stitch_elastic.compute_flow_map).
   """
   stride: int = 40
   patch_size: int = 160

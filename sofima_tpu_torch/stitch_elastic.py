@@ -1,4 +1,4 @@
-"""Elastic (fine) 2d and 3d tile stitching (subset).
+"""Elastic (fine) 2d and 3d tile stitching.
 
 Twin of sofima_tpu/stitch_elastic.py. Every tile is a spring mesh; all
 tile meshes are packed into one [2|3, N, (z,) y, x] array and relaxed
@@ -6,9 +6,11 @@ together, coupled through virtual springs whose targets come from
 composing inter-tile flow fields with the neighbouring tiles' meshes.
 
 Ported: `NeighborInfo`, `_relative_intersection`, `compute_flow_map`
-(2d, its circular modes: the calculator's dense branch, kernel K1) and
-`compute_flow_map3d` (its circular strip branch), `aggregate_arrays`
-(2d and 3d), and the target-mesh machinery (`_window_edge_start`, the
+(2d: the calculator's padfield mode, the default, or its circular
+modes, kernel K1), `compute_flow_map3d` (its circular strip branch, the
+padfield mode where the strips do not fit or when asked for, and tile
+masks on both), `aggregate_arrays` (2d and 3d), and the target-mesh
+machinery (`_window_edge_start`, the
 reference's `_apply_flow` window rule, `compute_target_mesh`). The
 reference evaluates the targets inside the solver as a vmap over tiles
 of a scan over the neighbour rows, with `lax.cond` on the row values;
@@ -16,9 +18,7 @@ here the rows are a host table, so `TargetMeshPlan` resolves every
 (tile, neighbour) window to Python ints once, before the solve, and
 each solver step is then one batched 3d composition and a fixed short
 sequence of slice pastes, with no host read. 2d meshes take the same
-plan as z = 1 (the reference composes 2d as z = 1 too). Still to port
-(ROADMAP.md Queue 1): the padfield branches of both flow maps and the
-3d masks.
+plan as z = 1 (the reference composes 2d as z = 1 too).
 """
 
 from __future__ import annotations
@@ -35,9 +35,6 @@ from sofima_tpu_torch import placement
 from sofima_tpu_torch.utils.bounding_box import BoundingBox
 
 TileXY = tuple[int, int]
-
-_TODO_FLOW = ('only the circular strip branch of compute_flow_map3d is '
-              'ported (ROADMAP.md Queue 1: the padfield branch and masks)')
 
 
 class NeighborInfo(enum.IntEnum):
@@ -62,6 +59,25 @@ def _relative_intersection(box1: BoundingBox, box2: BoundingBox):
           BoundingBox(start=ibox.start - box2.start, size=ibox.size))
 
 
+def _overlap_flow(pre: torch.Tensor, post: torch.Tensor, pre_mask, post_mask,
+                  patch_size, stride, batch_size: int,
+                  circular: bool) -> torch.Tensor:
+  """The flow between two overlap crops, as a tensor on their device:
+  the circular dense branch (`circular`, which needs equal crops) or the
+  calculator's padfield mode."""
+  patch = tuple(int(p) for p in patch_size)
+  step = tuple(int(v) for v in stride)
+  if circular:
+    return flow_field.dense_flow_field(
+        pre.to(torch.float32), post.to(torch.float32), patch, step,
+        batch_size=batch_size, circular=True, pre_mask=pre_mask,
+        post_mask=post_mask)
+  mfc = flow_field.JAXMaskedXCorrWithStatsCalculator(device=pre.device)
+  return torch.from_numpy(mfc.flow_field(
+      pre, post, patch, step, pre_mask=pre_mask, post_mask=post_mask,
+      batch_size=batch_size)).to(pre.device)
+
+
 def compute_flow_map(tile_map: Mapping[TileXY, Any], offset_map: np.ndarray,
                      axis: int, patch_size=(120, 120), stride=(20, 20),
                      batch_size: int = 256, flow_mode: str = 'padfield',
@@ -70,22 +86,18 @@ def compute_flow_map(tile_map: Mapping[TileXY, Any], offset_map: np.ndarray,
 
   For each valid tile pair, crops stride-aligned overlap strips (shifted
   by the rounded orthogonal offset) from both tiles and estimates the
-  patch flow between them, with the calculator's circular dense branch
-  (kernel K1 on the card; every circular mode correlates in float32,
-  `flow_field.check_flow_mode`).
-  Tiles may be tensors (the strips are sliced on their device) or host
-  arrays (they go to `device`, default the CUDA card). `batch_size` is
-  accepted for parity and not read.
+  patch flow between them: with 'padfield' (the default), the
+  calculator's padfield mode in dispatch batches of `batch_size`; with
+  a circular mode, its dense branch (kernel K1 on the card, one launch
+  per strip; every circular mode correlates in float32,
+  `flow_field.check_flow_mode`). Tiles may be tensors (the strips are
+  sliced on their device) or host arrays (they go to `device`, default
+  the CUDA card).
 
   Returns ({(x, y): [4, gy, gx] flow tensor padded with NaN to the tile
   mesh grid}, {(x, y): xy offset used for the crop}).
   """
-  del batch_size
   flow_field.check_flow_mode(flow_mode)
-  if flow_mode == 'padfield':
-    raise NotImplementedError(
-        "compute_flow_map's padfield mode is not ported yet (ROADMAP.md "
-        'Queue 1); use a circular mode')
   yx_shape = offset_map.shape[-2:]
   flows, offsets = {}, {}
   pad_y = patch_size[0] // 2 // stride[0]
@@ -122,10 +134,10 @@ def compute_flow_map(tile_map: Mapping[TileXY, Any], offset_map: np.ndarray,
         pre_sel[axis] = slice(None, ortho_offset)
         post_sel[axis] = slice(-ortho_offset, None)
 
-      f = flow_field.dense_flow_field(
+      f = _overlap_flow(
           pre[tuple(pre_sel)].contiguous(), post[tuple(post_sel)].contiguous(),
-          tuple(int(p) for p in patch_size), tuple(int(s) for s in stride),
-          circular=True)
+          None, None, patch_size, stride, batch_size,
+          flow_mode != 'padfield')
       flows[(x, y)] = torch.nn.functional.pad(
           f, (pad_x, pad_x - 1, pad_y, pad_y - 1), value=float('nan'))
       offsets[(x, y)] = ((-overlap, ortho_offset) if axis == 0
@@ -138,21 +150,22 @@ def compute_flow_map3d(tile_map: Mapping[TileXY, Any], tile_shape,
                        offset_map: np.ndarray, axis: int,
                        patch_size=(120, 120, 120), stride=(40, 40, 40),
                        batch_size: int = 16, flow_mode: str = 'circular',
-                       mask_map=None):
+                       mask_map=None, device=None):
   """Fine flow between adjacent 3d tiles along `axis` (0: x, 1: y).
 
-  `tile_map` values are [1, z, y, x] array-likes over tensors (slices stay
-  on the tensors' device); `offset_map` is [3, 1, ys, xs] with coarse XYZ
-  offsets; `tile_shape` is XYZ; `patch_size` and `stride` are ZYX. Crop
-  starts are stride-aligned in every dimension. Returns flows
-  ([5, gz, gy, gx] tensors, padded with NaN to the mesh grid) and the
-  XYZ offsets at which the neighbouring tile was placed. `batch_size`
-  is accepted for parity and not read (the strip path takes whole
-  z-rows).
+  `tile_map` values are [1, z, y, x] array-likes (slices of tensors stay
+  on their device; host slices go to `device`, default the CUDA card);
+  `offset_map` is [3, 1, ys, xs] with coarse XYZ offsets; `tile_shape`
+  is XYZ; `patch_size` and `stride` are ZYX. Crop starts are
+  stride-aligned in every dimension. With `flow_mode='circular'` each
+  overlap pair takes the 3d circular strip path; unequal crops, a stride
+  that does not divide the patch, or any other mode take the
+  calculator's padfield mode in batches of `batch_size`, as the
+  reference falls back. `mask_map` maps tile coordinates to [1, z, y, x]
+  invalid-voxel masks (nonzero = invalid), used on both branches.
+  Returns flows ([5, gz, gy, gx] tensors, padded with NaN to the mesh
+  grid) and the XYZ offsets at which the neighbouring tile was placed.
   """
-  del batch_size
-  if flow_mode != 'circular' or mask_map is not None:
-    raise NotImplementedError(_TODO_FLOW)
   flows, offsets = {}, {}
   grid_yx = offset_map.shape[-2:]
   pad_zyx = np.array(patch_size) // 2 // np.asarray(stride)
@@ -196,15 +209,23 @@ def compute_flow_map3d(tile_map: Mapping[TileXY, Any], tile_shape,
       final[axis] = -isec_curr.size[axis]
       offsets[(x, y)] = tuple(int(v) for v in final)
 
-      pre = tile_map[(x, y)][isec_curr.to_slice4d()][0]
-      post = tile_map[(nx, ny)][isec_nbor.to_slice4d()][0]
-      if (tuple(pre.shape) != tuple(post.shape)
-          or any(p % st for p, st in zip(patch_size, stride))):
-        raise NotImplementedError(_TODO_FLOW)
-      f = flow_field.dense_flow_field(
-          pre.to(torch.float32), post.to(torch.float32),
-          tuple(int(p) for p in patch_size), tuple(int(v) for v in stride),
-          circular=True)
+      def take(view, box, like=None):
+        t = view[box.to_slice4d()][0]
+        return placement.place(t, device if like is None else like.device)
+
+      pre = take(tile_map[(x, y)], isec_curr)
+      post = take(tile_map[(nx, ny)], isec_nbor, pre)
+      pre_mask = post_mask = None
+      if mask_map is not None:
+        if (x, y) in mask_map:
+          pre_mask = take(mask_map[(x, y)], isec_curr, pre)
+        if (nx, ny) in mask_map:
+          post_mask = take(mask_map[(nx, ny)], isec_nbor, pre)
+      strips = (flow_mode == 'circular'
+                and tuple(pre.shape) == tuple(post.shape)
+                and all(p % st == 0 for p, st in zip(patch_size, stride)))
+      f = _overlap_flow(pre, post, pre_mask, post_mask, patch_size, stride,
+                        batch_size, strips)
       pad = []
       for p in pad_zyx[::-1]:  # torch pad order: x, y, z
         pad += [int(p), int(p) - 1]
@@ -227,13 +248,16 @@ def aggregate_arrays(x_data, y_data, tile_coords: Sequence[TileXY],
 
   Returns:
     (fx_all, fy_all, x_all, nbors, key_to_idx): the packed flows as
-    float32 tensors on the flows' device, the initial meshes as a numpy
-    float32 array, the int `nbors` table (see NeighborInfo; 8 columns in
-    2d, 11 in 3d) on the host.
+    float32 tensors on the flows' device (host flows, as clean_flow
+    returns them, are packed on the host), the initial meshes as a
+    numpy float32 array, the int `nbors` table (see NeighborInfo; 8
+    columns in 2d, 11 in 3d) on the host.
   """
   cx, fine_x, offsets_x = x_data
   cy, fine_y, offsets_y = y_data
   assert cx.ndim == 3 and cy.ndim == 3
+  fine_x = {k: torch.as_tensor(v) for k, v in fine_x.items()}
+  fine_y = {k: torch.as_tensor(v) for k, v in fine_y.items()}
   key_to_idx = {tuple(k): i for i, k in enumerate(tile_coords)}
   dim = len(stride)
   n = len(key_to_idx)
@@ -411,7 +435,7 @@ class TargetMeshPlan:
 
 
 def compute_target_mesh(nbor_data, x: torch.Tensor, fx: torch.Tensor,
-                        fy: torch.Tensor, stride) -> torch.Tensor:
+                        fy: torch.Tensor, stride=(20, 20)) -> torch.Tensor:
   """Virtual-spring target positions for one tile mesh.
 
   A one-tile `TargetMeshPlan`; the solver builds the plan once instead.

@@ -1,17 +1,20 @@
-"""Rigid (coarse) 2d tile stitching (subset).
+"""Rigid (coarse) 2d tile stitching.
 
-Twin of sofima_tpu/stitch_rigid.py, its batched device path:
+Twin of sofima_tpu/stitch_rigid.py:
   1. a coarse XY offset for every pair of adjacent tiles from one
      full-strip masked cross-correlation per (overlap width, dynamic-range
-     limit), all pairs of an axis at once (`compute_coarse_offsets_batched`,
-     `_strip_peaks_batched`, flow_field.masked_xcorr on torch.fft), with
-     the reference's preference logic `_select_offset`;
+     limit), with the reference's preference logic `_select_offset`:
+       - sequentially, one probe at a time (`compute_coarse_offsets`,
+         `_find_offset`, `_estimate_offset`: the calculator's padfield
+         mode on one strip-sized patch, with external tile masks);
+       - batched, all pairs of an axis at once
+         (`compute_coarse_offsets_batched`, `_strip_peaks_batched`,
+         flow_field.masked_xcorr on torch.fft); the strips stay on the
+         tiles' device and only [limits, pairs, 4] peak rows per overlap
+         width cross to the host;
   2. tile placement by relaxing a spring system with one node per tile
-     (`optimize_coarse_mesh`, `elastic_tile_mesh`, mesh.relax_mesh).
-The strips stay on the tiles' device; only [limits, pairs, 4] peak rows
-per overlap width cross to the host. Still to port (ROADMAP.md Queue 1):
-the sequential `compute_coarse_offsets` / `_find_offset` (on the
-calculator's padfield mode, ported since) and external tile masks.
+     (`optimize_coarse_mesh`, `elastic_tile_mesh` in 2d and
+     `elastic_tile_mesh_3d` with a z coupling, mesh.relax_mesh).
 """
 
 from __future__ import annotations
@@ -26,10 +29,7 @@ from sofima_tpu_torch import mesh
 from sofima_tpu_torch import placement
 
 TileXY = tuple[int, int]
-
-_TODO_SEQUENTIAL = ('the sequential coarse-offset search is not ported yet '
-                    '(ROADMAP.md Queue 1: stitch_rigid); use '
-                    'compute_coarse_offsets_batched')
+MaskMap = Mapping[TileXY, Any]
 
 
 def _overlap_crops(pre, post, overlap: int, axis: int):
@@ -100,6 +100,60 @@ def _local_range(img: torch.Tensor, filter_size: int) -> torch.Tensor:
 
   return (max_filter(img, float('-inf'))
           + max_filter(-img, float('-inf')))  # hi - lo
+
+
+def _dynamic_range_mask(img: torch.Tensor, range_limit: float,
+                        filter_size: int) -> torch.Tensor:
+  """True where the local max - min of a 2d image is below `range_limit`
+  (`_local_range`'s 'SAME' window)."""
+  return _local_range(img.to(torch.float32)[None], filter_size)[0] < (
+      range_limit)
+
+
+def _estimate_offset(a: torch.Tensor, b: torch.Tensor, range_limit: float,
+                     filter_size: int = 10, masks=None):
+  """Single global offset between overlap crops `a` (pre) and `b` (post).
+
+  The flat-region masks (ORed with the caller's `masks`, True where
+  invalid), then the calculator's padfield mode on one patch the size of
+  the strip, on the crops' device. Returns ([x_offset, y_offset],
+  |peak ratio|); the ratio is exactly 0.0 for a single peak.
+  """
+  a_f, b_f = a.to(torch.float32), b.to(torch.float32)
+  a_mask = _dynamic_range_mask(a_f, range_limit, filter_size)
+  b_mask = _dynamic_range_mask(b_f, range_limit, filter_size)
+  if masks is not None:
+    a_mask = a_mask | masks[0]
+    b_mask = b_mask | masks[1]
+  mfc = flow_field.JAXMaskedXCorrWithStatsCalculator(device=a.device)
+  xo, yo, _, pr = mfc.flow_field(
+      a_f, b_f, pre_mask=a_mask, post_mask=b_mask,
+      patch_size=tuple(a.shape), step=(1, 1), batch_size=1).squeeze()
+  return [xo, yo], abs(pr)
+
+
+def _find_offset(pre: torch.Tensor, post: torch.Tensor, overlaps, min_range,
+                 min_overlap: int, max_ortho_shift: int, axis: int,
+                 filter_size: int, masks=None):
+  """Searches overlap widths / range limits for a reliable offset.
+
+  Sequential search: one `_estimate_offset` per (range_limit, overlap)
+  probe, in `_select_offset`'s order and with its early exits. A tile
+  mask that would blank a whole strip is dropped for that strip.
+  """
+
+  def get_estimate(range_limit, overlap):
+    ov_masks = None
+    if masks is not None:
+      ma, mb = _overlap_crops(masks[0], masks[1], overlap, axis)
+      ma = torch.zeros_like(ma) if bool(ma.all()) else ma
+      mb = torch.zeros_like(mb) if bool(mb.all()) else mb
+      ov_masks = (ma, mb)
+    a, b = _overlap_crops(pre, post, overlap, axis)
+    return _estimate_offset(a, b, range_limit, filter_size, ov_masks)
+
+  return _select_offset(get_estimate, overlaps, min_range, min_overlap,
+                        max_ortho_shift, axis)
 
 
 def _strip_peaks_batched(pre_strips: torch.Tensor, post_strips: torch.Tensor,
@@ -209,14 +263,61 @@ def compute_coarse_offsets_batched(
   return conns[0], conns[1]
 
 
-def compute_coarse_offsets(*args, **kwargs):
-  """The sequential search (one xcorr per probe, external masks); not
-  ported yet."""
-  raise NotImplementedError(_TODO_SEQUENTIAL)
+def compute_coarse_offsets(
+    yx_shape: tuple[int, int],
+    tile_map: Mapping[TileXY, Any],
+    overlaps_xy=((200, 300), (200, 300)),
+    min_range=(10, 100, 0),
+    min_overlap: int = 160,
+    filter_size: int = 10,
+    mask_map: MaskMap | None = None,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+  """Coarse offset between every adjacent tile pair of a grid.
 
+  The sequential search: each pair's probes run one after another
+  (`_find_offset`) on the tiles' device (host tiles go to `device`,
+  default the CUDA card). `mask_map` gives tiles' invalid-pixel masks
+  (True / nonzero = invalid), cropped to the widest overlap of the axis,
+  each on its tile's device.
 
-def _find_offset(*args, **kwargs):
-  raise NotImplementedError(_TODO_SEQUENTIAL)
+  Returns (conn_x, conn_y), each [2, 1, ys, xs]: the XY offset between
+  tiles (x, y)->(x+1, y) / (x, y)->(x, y+1), the latter tile moving. inf
+  marks failed estimates, NaN missing tiles.
+  """
+  tiles = {k: placement.place(v, device) for k, v in tile_map.items()}
+  masks = None
+  if mask_map is not None:  # each on its tile's device
+    masks = {k: placement.place(v, tiles[k].device) != 0
+             for k, v in mask_map.items() if k in tiles}
+
+  def tile_masks(key_a, key_b, axis):
+    if masks is None:
+      return None
+    width = max(overlaps_xy[axis])
+    return _overlap_crops(masks[key_a], masks[key_b], width, axis)
+
+  conn_x = np.full((2, 1, yx_shape[0], yx_shape[1]), np.nan)
+  for x in range(yx_shape[1] - 1):
+    for y in range(yx_shape[0]):
+      if (x, y) not in tiles or (x + 1, y) not in tiles:
+        continue
+      conn_x[:, 0, y, x] = _find_offset(
+          tiles[(x, y)], tiles[(x + 1, y)], overlaps_xy[0], min_range,
+          min_overlap, max(overlaps_xy[1]), 0, filter_size,
+          tile_masks((x, y), (x + 1, y), 0))
+
+  conn_y = np.full((2, 1, yx_shape[0], yx_shape[1]), np.nan)
+  for y in range(yx_shape[0] - 1):
+    for x in range(yx_shape[1]):
+      if (x, y) not in tiles or (x, y + 1) not in tiles:
+        continue
+      conn_y[:, 0, y, x] = _find_offset(
+          tiles[(x, y)], tiles[(x, y + 1)], overlaps_xy[1], min_range,
+          min_overlap, max(overlaps_xy[0]), 1, filter_size,
+          tile_masks((x, y), (x, y + 1), 1))
+
+  return conn_x, conn_y
 
 
 def interpolate_missing_offsets(conn: np.ndarray, axis: int,
@@ -286,6 +387,21 @@ def elastic_tile_mesh(x: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
       (1, -2, cy[1]),  # y spacing of vertical neighbours
       (0, -2, cy[0]),  # x shear of vertical neighbours
       (1, -1, cx[1]),  # y shear of horizontal neighbours
+  ]
+  return _offset_springs(x, combos)
+
+
+def elastic_tile_mesh_3d(x: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+                         k=None, stride=None, prefer_orig_order=False,
+                         links=None) -> torch.Tensor:
+  """3d variant of `elastic_tile_mesh`: [3, z, y, x] nodes, XYZ offsets,
+  with the z coordinates of horizontal and vertical neighbours coupled
+  too."""
+  del k, stride, prefer_orig_order, links
+  combos = [
+      (0, -1, cx[0]), (1, -2, cy[1]),
+      (0, -2, cy[0]), (1, -1, cx[1]),
+      (2, -1, cx[2]), (2, -2, cy[2]),  # z coupling
   ]
   return _offset_springs(x, combos)
 

@@ -1,10 +1,11 @@
-"""Axis-aligned bounding boxes in XYZ order (subset).
+"""Axis-aligned bounding boxes in XYZ order.
 
 Twin of sofima_tpu/utils/bounding_box.py, kept as the port's own numpy
-copy of what tile stitching, map_utils and warp use (`start`, `size`,
-`end`, `rank`, equality, `translate`, `adjusted_by`, `intersection`,
-`to_slice_tuple`, `to_slice3d`, `to_slice4d`). Boxes store integer (or
-float) `start` and `size` vectors in XYZ order; `end` is exclusive.
+copy: `BoundingBox` (`start`, `size`, `end`, `rank`, equality,
+`translate`, `adjusted_by`, `scale`, `intersection`, `hull`, `contains`,
+`to_slice_tuple`, `to_slice3d`, `to_slice4d`), `intersections` and
+`containing`. Boxes store integer (or float) `start` and `size` vectors
+in XYZ order; `end` is exclusive.
 """
 
 from __future__ import annotations
@@ -79,12 +80,29 @@ class BoundingBox:
       new_end = new_end + _as_array(end)
     return BoundingBox(new_start, new_end - new_start)
 
+  def scale(self, factor) -> 'BoundingBox':
+    """The box with its start floored and its size ceiled after scaling
+    by `factor` (a scalar or one per axis)."""
+    factor = np.asarray(factor)
+    return BoundingBox(np.floor(self.start * factor).astype(np.int64),
+                       np.ceil(self.size * factor).astype(np.int64))
+
   def intersection(self, other: 'BoundingBox') -> 'BoundingBox | None':
     start = np.maximum(self.start, other.start)
     end = np.minimum(self.end, other.end)
     if np.any(end <= start):
       return None
     return BoundingBox(start, end - start)
+
+  def hull(self, other: 'BoundingBox') -> 'BoundingBox':
+    """The smallest box containing both boxes."""
+    start = np.minimum(self.start, other.start)
+    end = np.maximum(self.end, other.end)
+    return BoundingBox(start, end - start)
+
+  def contains(self, point: ArrayLike) -> bool:
+    p = _as_array(point)
+    return bool(np.all(p >= self.start) and np.all(p < self.end))
 
   def to_slice_tuple(self) -> tuple[slice, ...]:
     """Slices in reverse (...ZYX) axis order for array indexing."""
@@ -99,3 +117,25 @@ class BoundingBox:
   def to_slice4d(self) -> tuple[slice, ...]:
     """(channel, z, y, x) slice with a full-channel selector prepended."""
     return (slice(None),) + self.to_slice_tuple()
+
+
+def intersections(boxes1: Sequence[BoundingBox],
+                  boxes2: Sequence[BoundingBox]) -> list[BoundingBox]:
+  """The non-empty intersections of every pair from two box sequences."""
+  out = []
+  for a in boxes1:
+    for b in boxes2:
+      isec = a.intersection(b)
+      if isec is not None:
+        out.append(isec)
+  return out
+
+
+def containing(*boxes: BoundingBox) -> BoundingBox:
+  """The smallest box containing all given boxes."""
+  if not boxes:
+    raise ValueError('At least one box required.')
+  ret = boxes[0]
+  for b in boxes[1:]:
+    ret = ret.hull(b)
+  return ret

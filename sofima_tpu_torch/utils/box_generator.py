@@ -3,11 +3,12 @@
 Twin of sofima_tpu/utils/box_generator.py, kept as the port's own copy
 of `BoxGenerator` (warp.ndimage_warp's work boxes): overlapping boxes
 with `back_shift_small_boxes` semantics and half-overlap cropped output
-boxes for seam-free assembly.
+boxes for seam-free assembly; `grid_boxes` and `iter_grid`.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Sequence
 
 import numpy as np
@@ -46,6 +47,18 @@ class BoxGenerator:
   def num_boxes(self) -> int:
     return int(np.prod(self._grid_shape))
 
+  @property
+  def grid_shape(self) -> np.ndarray:
+    return self._grid_shape.copy()
+
+  @property
+  def box_size(self) -> np.ndarray:
+    return self._box_size.copy()
+
+  @property
+  def overlap(self) -> np.ndarray:
+    return self._overlap.copy()
+
   def _index_to_grid(self, index: int) -> np.ndarray:
     coords = []
     for n in self._grid_shape:
@@ -82,3 +95,25 @@ class BoxGenerator:
     start = box.start + lo_crop
     end = box.end - hi_crop
     return BoundingBox(start, end - start)
+
+  def __iter__(self):
+    for i in range(self.num_boxes):
+      yield self.generate(i)[1]
+
+  def boxes(self) -> list[BoundingBox]:
+    return [self.generate(i)[1] for i in range(self.num_boxes)]
+
+  def cropped_boxes(self) -> list[BoundingBox]:
+    return [self.index_to_cropped_box(i) for i in range(self.num_boxes)]
+
+
+def grid_boxes(outer_box: BoundingBox, box_size: Sequence[int],
+               overlap: Sequence[int] | None = None) -> list[BoundingBox]:
+  """Every box of a back-shifted `BoxGenerator` over `outer_box`."""
+  return BoxGenerator(outer_box, box_size, overlap,
+                      back_shift_small_boxes=True).boxes()
+
+
+def iter_grid(shape: Sequence[int]):
+  """All coordinates of a grid, in C order."""
+  return itertools.product(*[range(int(s)) for s in shape])

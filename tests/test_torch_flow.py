@@ -6,9 +6,11 @@ interpret mode, as the JAX tests run them) and the port:
     strip path flow_field._dense_flow_strips (the JAX CPU coarse path);
   * K2 (dense_flow_peaks_targeted) with clipped offsets, peak_crop 32 and
     None, vs pallas_flow.dense_flow_peaks_targeted;
-  * dense_flow_field's signature: the reference's defaults raise
-    (circular=False is not ported), and circular=True with batch_size
-    passed by position matches flow_field.dense_flow_field;
+  * dense_flow_field's signature: the reference's defaults
+    (circular=False, the linear correlation), a post_patch_size equal
+    to the patch and bf16=True (accepted, computed in float32) match
+    flow_field.dense_flow_field, and circular=True with batch_size
+    passed by position does too;
   * coarse_to_fine_flow (flow and overflow flag; with a mask and with a
     prior too), the peak contract, clean_flow_device and the median
     filter.
@@ -117,29 +119,34 @@ class TestDenseFlowPeaks:
 
 
 class TestDenseFlowFieldSignature:
-  """dense_flow_field takes the reference's parameters, order and defaults;
-  what the port does not implement raises instead of running another
-  algorithm."""
+  """dense_flow_field takes the reference's parameters, order and defaults,
+  and computes what the reference computes with them."""
 
   def _pair(self):
     pre = _texture(128, seed=6)
     return pre, np.roll(pre, (3, -5), (0, 1))
 
   def test_reference_defaults_raise(self):
+    # Once a raise (circular=False was not ported); now the reference's
+    # default, the linear correlation, computes the reference's flow.
     pre, post = self._pair()
     ref = np.asarray(jff.dense_flow_field(jnp.asarray(pre), jnp.asarray(post),
                                           (32, 32), (16, 16)))
     assert ref.shape == (4, 7, 7) and np.isfinite(ref[:2]).any()
-    with pytest.raises(NotImplementedError, match='circular'):
-      tff.dense_flow_field(_t(pre), _t(post), (32, 32), (16, 16))
+    got = tff.dense_flow_field(_t(pre), _t(post), (32, 32), (16, 16))
+    _assert_flow_equal(got.numpy(), ref)
 
   @pytest.mark.parametrize('kw', [dict(post_patch_size=(32, 32)),
                                   dict(bf16=True)])
   def test_unported_options_raise(self, kw):
+    # Once raises; both options now take the reference's meaning.
     pre, post = self._pair()
-    with pytest.raises(NotImplementedError):
-      tff.dense_flow_field(_t(pre), _t(post), (32, 32), (16, 16),
-                           circular=True, **kw)
+    ref = np.asarray(jff.dense_flow_field(jnp.asarray(pre), jnp.asarray(post),
+                                          (32, 32), (16, 16), circular=True,
+                                          **kw))
+    got = tff.dense_flow_field(_t(pre), _t(post), (32, 32), (16, 16),
+                               circular=True, **kw)
+    _assert_flow_equal(got.numpy(), ref)
 
   def test_circular_with_positional_batch_size(self):
     pre, post = self._pair()
@@ -197,9 +204,10 @@ class TestCoarseToFine:
   def test_unported_branches_raise(self):
     # Masks and warm-start priors now run and match the reference (here
     # at 400^2; in depth in test_torch_flow_masked.py and
-    # test_torch_warm_start.py), and the calculator's 2d padfield mode
-    # with its targeting fields in test_torch_flow_padfield.py. What stays
-    # unported is the calculator's 3d padfield mode.
+    # test_torch_warm_start.py), and the calculator's padfield mode with
+    # its targeting fields in test_torch_flow_padfield.py (2d) and
+    # test_torch_flow_padfield3d.py (3d). The calculator's 3d padfield
+    # mode, once the last raise here, now matches the reference too.
     pre = _texture(400, seed=6)
     post = np.roll(pre, (11, -14), (0, 1))
     mask = np.zeros((400, 400), bool)
@@ -221,8 +229,10 @@ class TestCoarseToFine:
                                                   nan=9e9))
     calc = tff.JAXMaskedXCorrWithStatsCalculator(device='cpu')
     vol = np.stack([pre[:40, :40]] * 8)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-      calc.flow_field(vol, vol, 8, 8)
+    got = calc.flow_field(vol, vol, 8, 8)
+    ref = jff.JAXMaskedXCorrWithStatsCalculator().flow_field(vol, vol, 8, 8)
+    assert got.shape == ref.shape == (5, 1, 5, 5)
+    np.testing.assert_array_equal(got[:3], np.asarray(ref)[:3])
 
 
 class TestCleanFlow:

@@ -9,7 +9,7 @@ twin of the same name (device='cpu'):
     batches must be the reference's); targeting fields on both sides;
     `post_patch_size` smaller than the patch (with the pre-patch clamp
     and its compensation at the border); `selection_mask` and
-    `progress_fn` streaming;
+    `progress_fn` streaming; a 3d run;
   * circular modes with rectangular patches: the strip path (stride
     divides the patch) and the start-list path (it does not), both on
     kernel K6's plain version, unmasked and masked.
@@ -163,7 +163,10 @@ def test_rectangular_circular_masked():
 
 
 def test_padfield_3d_raises():
-  vol = np.zeros((8, 40, 40), np.float32)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    tff.JAXMaskedXCorrWithStatsCalculator(device='cpu').flow_field(
-        vol, vol, 8, 8)
+  # Once a raise; the 3d padfield mode now computes the reference's flow
+  # (in depth in test_torch_flow_padfield3d.py).
+  pre = np.stack([_texture(40, seed=9 + z) for z in range(8)])
+  post = np.roll(pre, (1, -2), (1, 2))
+  got, ref = _both(pre, post, patch_size=8, step=8)
+  assert got.shape == (5, 1, 5, 5)
+  _same(got, ref)

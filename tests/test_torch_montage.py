@@ -185,9 +185,20 @@ def test_compute_flow_map(ref):
       np.testing.assert_array_equal(np.nan_to_num(g[:2], nan=9e9),
                                     np.nan_to_num(w[:2], nan=9e9))
       np.testing.assert_allclose(g[2:], w[2:], rtol=3e-4, atol=3e-4)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    tse.compute_flow_map(ref['tiles'], ref['cx'][:, 0], axis=0,
-                         flow_mode='padfield', device='cpu')
+  # The default 'padfield' mode, once a raise, gives the reference's
+  # padfield flows (in depth in test_torch_stitch_api.py).
+  tiles = {k: torch.from_numpy(np.ascontiguousarray(v))
+           for k, v in ref['tiles'].items()}
+  pf, pf_off = tse.compute_flow_map(tiles, ref['cx'][:, 0], axis=0,
+                                    patch_size=PATCH, stride=STRIDE,
+                                    batch_size=64)
+  want, want_off = jse.compute_flow_map(ref['tiles'], ref['cx'][:, 0],
+                                        axis=0, patch_size=PATCH,
+                                        stride=STRIDE, batch_size=64)
+  assert pf_off == want_off and pf.keys() == want.keys()
+  for k in want:
+    np.testing.assert_array_equal(np.nan_to_num(pf[k][:2].numpy(), nan=9e9),
+                                  np.nan_to_num(want[k][:2], nan=9e9))
   with pytest.raises(ValueError, match='unknown flow mode'):
     tse.compute_flow_map(ref['tiles'], ref['cx'][:, 0], axis=0,
                          flow_mode='circular_bf16', device='cpu')
@@ -317,5 +328,9 @@ def test_config_from_jax():
 
 
 def test_unported_branches_raise():
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    tsr.compute_coarse_offsets((2, 2), {})
+  # The sequential search, once a raise, runs (in depth in
+  # test_torch_stitch_api.py); with no tiles every pair is missing.
+  got = tsr.compute_coarse_offsets((2, 2), {})
+  want = jsr.compute_coarse_offsets((2, 2), {})
+  for g, w in zip(got, want):
+    assert g.shape == w.shape == (2, 1, 2, 2) and np.isnan(g).all()

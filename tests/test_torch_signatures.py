@@ -3,7 +3,12 @@
 The reference's own calls must work on the port. Each function below
 takes the reference's parameters in the reference's order, with its
 names and defaults; the port may only add parameters at the end
-(`device`, `timings`). Then the calls that once raised or shifted:
+(`device`, `timings`). `test_public_surface_matches_reference` walks
+every module of the port that has a counterpart in sofima_tpu: each
+public function, class and class method of the reference's module must
+exist in the port's with the same parameter names, order and defaults,
+apart from the exceptions listed in `SURFACE_EXCEPTIONS` with their
+reasons. Then the calls that once raised or shifted:
   * masked_xcorr(..., use_jax=True, dim=2, per_item=True), as
     sofima_tpu/stitch_rigid.py calls it, and a dim=3 call over a batch,
     each against the reference within atol 1e-4 (test_torch_montage.py's
@@ -13,7 +18,11 @@ names and defaults; the port may only add parameters at the end
     sizes its own launches) and to the reference's float32 flow.
 """
 
+import dataclasses
+import importlib
 import inspect
+import math
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +63,136 @@ def test_signature_matches_reference(name):
     else:
       assert d_port == d_ref, (n, d_port, d_ref)
   assert tuple(n for n, _ in port[len(ref):]) == extra
+
+
+# Parameters the port adds after the reference's, on any function.
+EXTRA_PARAMS = ('device', 'timings')
+
+# (module, name) -> why the port differs there on purpose.
+SURFACE_EXCEPTIONS = {
+    **{('ops.shift_warp', name): 'a TPU shift-lattice planner or its '
+       'caller; the port gathers every tap and needs none of them '
+       '(ROADMAP.md, "Deliberately not queued")'
+       for name in ('shift_warp_2d', 'displacement_bounds',
+                    'displacement_bounds_from_disp', 'tiled_shift_plan',
+                    'shift_warp_2d_tiled', 'warp_sections_shift_tiled',
+                    'shift_warp_3d', 'shift_path_profitable',
+                    'warp_sections_shift')},
+    **{('ops.fill', name): 'takes a trailing `dim` (the grid rank, '
+       'default 2): the port fills a batch of fields at once where the '
+       'reference vmaps over them, so the grid rank cannot come from '
+       '`valid.ndim`'
+       for name in ('nearest_fill', 'span_hull', 'harmonic_fill',
+                    'fill_invalid')},
+}
+
+
+def _port_modules():
+  root = os.path.dirname(os.path.abspath(tff.__file__))
+  names = []
+  for folder, _, files in os.walk(root):
+    for f in files:
+      if f.endswith('.py') and f != '__init__.py':
+        rel = os.path.relpath(os.path.join(folder, f), root)[:-3]
+        names.append(rel.replace(os.sep, '.'))
+  return sorted(n for n in names
+                if importlib.util.find_spec('sofima_tpu.' + n) is not None)
+
+
+def _public(module):
+  """Public functions and classes defined in `module` (not imported)."""
+  out = {}
+  for name, obj in vars(module).items():
+    target = inspect.unwrap(obj) if callable(obj) else obj
+    if (not name.startswith('_')
+        and (inspect.isfunction(target) or inspect.isclass(target))
+        and getattr(target, '__module__', None) == module.__name__):
+      out[name] = obj
+  return out
+
+
+def _same_default(port, ref):
+  """Defaults agree: equal values, NaN and NaN, the counterpart function
+  of the module's own function, or equal fields of a config dataclass."""
+  if inspect.isfunction(ref) or inspect.isfunction(port):
+    if not (inspect.isfunction(ref) and inspect.isfunction(port)):
+      return False
+    ref_rel = ref.__module__.replace('sofima_tpu.', '', 1)
+    port_rel = port.__module__.replace('sofima_tpu_torch.', '', 1)
+    return (ref_rel, ref.__qualname__) == (port_rel, port.__qualname__)
+  if dataclasses.is_dataclass(ref) and dataclasses.is_dataclass(port):
+    return dataclasses.asdict(ref) == dataclasses.asdict(port)
+  if isinstance(ref, float) and isinstance(port, float):
+    return ref == port or (math.isnan(ref) and math.isnan(port))
+  return bool(port == ref)
+
+
+def _surface_diffs(module_name):
+  """[(name, what differs)] between the two modules' public surfaces."""
+  ref_mod = importlib.import_module('sofima_tpu.' + module_name)
+  port_mod = importlib.import_module('sofima_tpu_torch.' + module_name)
+  ref_pub, port_pub = _public(ref_mod), _public(port_mod)
+  diffs, pairs = [], []
+  for name, ref_obj in ref_pub.items():
+    if name not in port_pub:
+      diffs.append((name, 'missing'))
+      continue
+    pairs.append((name, ref_obj, port_pub[name]))
+    ref_cls = inspect.unwrap(ref_obj)
+    if not inspect.isclass(ref_cls):
+      continue
+    for attr, member in vars(ref_cls).items():
+      if attr.startswith('_') and attr != '__init__':
+        continue
+      if not isinstance(member, (property, staticmethod, classmethod)) and (
+          not inspect.isfunction(member)):
+        continue
+      if not hasattr(port_pub[name], attr):
+        diffs.append((f'{name}.{attr}', 'missing'))
+      elif not isinstance(member, property):
+        pairs.append((f'{name}.{attr}', getattr(ref_cls, attr),
+                      getattr(port_pub[name], attr)))
+  for name, ref_obj, port_obj in pairs:
+    ref = _params(ref_obj)
+    port = _params(port_obj)
+    names_ok = [n for n, _ in port[:len(ref)]] == [n for n, _ in ref]
+    extra = tuple(n for n, _ in port[len(ref):])
+    if not names_ok or any(n not in EXTRA_PARAMS for n in extra):
+      diffs.append((name, f'parameters {port} against {ref}'))
+      continue
+    for (n, d_port), (_, d_ref) in zip(port, ref):
+      if (d_ref is inspect.Parameter.empty) != (
+          d_port is inspect.Parameter.empty) or (
+              d_ref is not inspect.Parameter.empty
+              and not _same_default(d_port, d_ref)):
+        diffs.append((name, f'default of {n}: {d_port!r} against {d_ref!r}'))
+  return diffs
+
+
+@pytest.mark.parametrize('module_name', _port_modules())
+def test_public_surface_matches_reference(module_name):
+  diffs = _surface_diffs(module_name)
+  unexplained = [d for d in diffs
+                 if (module_name, d[0].split('.')[0]) not in SURFACE_EXCEPTIONS]
+  assert not unexplained, unexplained
+  # Every listed exception still differs, so the list stays true.
+  listed = {name for mod, name in SURFACE_EXCEPTIONS if mod == module_name}
+  assert listed == {d[0].split('.')[0] for d in diffs}, (listed, diffs)
+
+
+def test_surface_walk_covers_the_ported_modules():
+  names = _port_modules()
+  for must in ('flow_field', 'stitch_rigid', 'stitch_elastic', 'mesh',
+               'ops.interp', 'utils.bounding_box', 'utils.box_generator',
+               'utils.geom', 'ops.shift_warp', 'ops.fill'):
+    assert must in names
+  calc = _public(importlib.import_module('sofima_tpu_torch.flow_field'))
+  assert 'JAXMaskedXCorrWithStatsCalculator' in calc
+  assert _same_default(
+      inspect.signature(tff.JAXMaskedXCorrWithStatsCalculator.flow_field)
+      .parameters['progress_fn'].default,
+      inspect.signature(jff.JAXMaskedXCorrWithStatsCalculator.flow_field)
+      .parameters['progress_fn'].default)
 
 
 def _masked_pair(shape_prev, shape_curr, seed):
