@@ -76,7 +76,20 @@ call that computes the same function):
     phase times and the largest node move, and the whole chain against
     the same run with K4 and K8 swapped for their plain versions; then
     `compute_flow_map3d(flow_mode='padfield', mask_map=...)` on path
-    (a)'s x pair cut to 128 rows, on the card and on the CPU.
+    (a)'s x pair cut to 128 rows, on the card and on the CPU;
+  * the processor layer: the render processor StitchAndRender3dTiles on
+    path (a)'s tiles and solved meshes (an .npz in a temporary
+    directory, through `runner.process_volume`; path (a)'s gates, K13 on
+    its recorded renders against plain); K1, K2, K5 and K6 with
+    per-axis peak windows against their plain versions; and (h)
+    examples/e2e_pipeline.py's processor chain at the em_2d defaults on
+    4 x 4096^2 (EstimateFlow at 1x and 2x, ReconcileAndFilterFlows,
+    EstimateMissingFlow's device waves, the missing-flow reconcile,
+    RelaxMesh sequential in z, InvertMap, WarpByMap Lanczos), with
+    e2e_pipeline's gate, the chunked flow against one whole-section K1
+    call (no seams), section 2's hole refilled from Δz = 2, and K1, K8
+    and K4p against their plain versions on the inputs the path gave
+    them.
 
 K3 and K11 (the fused FIRE solvers) are also held without `prev` on a
 mesh whose sides are not a multiple of the tile, with a NaN row along a
@@ -250,6 +263,16 @@ ND_WORK, ND_OVERLAP = 2048, 64   # path (f)'s ndimage_warp work boxes
 # Path (f) against its plain kernels: integer renders may differ by one
 # gray level where the float value sits at .5, on at most this share.
 RENDER_FLIP_SHARE = 1e-3
+# Path (h), examples/e2e_pipeline.py's processor chain at the em_2d
+# defaults: PROC_Z sections of PROC_N^2 (section 0 a texture, z warped by
+# z x a smooth PROC_AMP px field), a PROC_BLANK^2 zeroed square in
+# section 1 (section 2's Δz = 1 flow loses it; Δz = 2 refills it), and
+# the share of the square's nodes that must be refilled.
+PROC_N, PROC_Z, PROC_AMP, PROC_BLANK = 4096, 4, 8.0, 512
+PROC_FILLED = 0.9
+# Per-axis peak windows held on K1, K2, K5 and K6: (min_distance,
+# peak_radius), one radius per surface axis (y, x).
+PER_AXIS = ((1, 3), (4, 2))
 
 # The least time the card could take for the same work: the
 # larger of bytes over HBM bandwidth and operations over the f32 peak
@@ -982,24 +1005,30 @@ def shift_warp_plain(images, coords, method='lanczos', counter=None):
 
 
 @contextlib.contextmanager
-def recorded_calls(calls: dict):
-  """Records a copy of the arguments of every K1, K4, K6 and K8 wrapper call
-  into `calls[name]` (K4's under its launch counter's name: 'warp_gather',
-  'warp_subvolume' or 'ndimage_warp'; the wrappers still launch and
-  count), so that each kernel can be held against its plain version at a
-  path's own shapes."""
+def recorded_calls(calls: dict, keep: dict | None = None):
+  """Records a copy of the arguments of every K1, K4, K6, K8 and K13
+  wrapper call into `calls[name]` (K4's under its launch counter's name:
+  'warp_gather', 'warp_subvolume' or 'ndimage_warp'; the wrappers still
+  launch and count), so that each kernel can be held against its plain
+  version at a path's own shapes. `keep[name] = k` bounds what is kept
+  of a name to its first k - 1 calls and its latest one."""
   from sofima_tpu_torch.ops import cuda_flow
   from sofima_tpu_torch.ops import cuda_mesh
   from sofima_tpu_torch.ops import cuda_warp
+  keep = keep or {}
   saved = [(mod, name, getattr(mod, name)) for mod, name in (
       (cuda_flow, 'dense_flow_peaks'), (cuda_flow, 'flow_peaks'),
-      (cuda_warp, 'shift_warp'), (cuda_mesh, 'force_2d'))]
+      (cuda_warp, 'shift_warp'), (cuda_mesh, 'force_2d'),
+      (cuda_warp, 'shift_warp_3d'))]
 
   def recorder(name, fn):
     def call(*args, **kwargs):
       key = kwargs.get('counter', 'warp_gather') if name == 'shift_warp' \
           else name
-      calls.setdefault(key, []).append(tuple(
+      kept = calls.setdefault(key, [])
+      if key in keep and len(kept) >= keep[key]:
+        kept.pop()
+      kept.append(tuple(
           a.clone() if isinstance(a, torch.Tensor) else a for a in args))
       return fn(*args, **kwargs)
     return call
@@ -1478,6 +1507,8 @@ def stitch_slice(dev, report, _build) -> dict:
   launches['warp_gather_3d'] = launches_a['warp_gather_3d']
   report['path_a'] = dict(wall_s=wall, mvox_s=mvox, solve_steps=steps,
                           rel_err=rel, coverage=cov, **timings)
+  stitch_render_phase(dev, report, _build, tiles, out, vol3, sel, stride3,
+                      cfg_s3.margin)
 
   # K9 at path (a)'s solve shape: the batched tile meshes [3, n, gz, gy,
   # gx] (batch and channel strides), moved off rest and with NaN nodes.
@@ -2743,6 +2774,377 @@ def stitch_api_slice(dev, report, _build) -> None:
   padfield3d_phase(dev, report)
 
 
+def proc_stack(dev):
+  """Path (h)'s [PROC_Z, PROC_N, PROC_N] float32 stack (numpy): the seeded
+  texture, then copies warped by z x e2e_pipeline.py's smooth field (a
+  linear resample, edge-clamped), section 1 zeroed in a central
+  PROC_BLANK^2 square (missing data: a patch inside it correlates to
+  exactly 0, a NaN row on the kernel and the plain version alike); and
+  the square's [y0, y1) x [x0, x1) bounds."""
+  from sofima_tpu_torch.ops import cuda_warp
+  n = PROC_N
+  tex = texture(n, dev)
+  r = torch.arange(n, dtype=torch.float32, device=dev)
+  y, x = r[:, None], r[None, :]
+  dx = PROC_AMP * torch.sin(2 * np.pi * y / n) * torch.cos(np.pi * x / n)
+  dy = PROC_AMP * torch.cos(2 * np.pi * x / n) * torch.sin(np.pi * y / n)
+  sections = [tex]
+  for z in range(1, PROC_Z):
+    coords = torch.stack([torch.clamp(y + z * dy, 0, n - 1),
+                          torch.clamp(x + z * dx, 0, n - 1)])[None]
+    sections.append(cuda_warp.shift_warp(tex[None], coords.contiguous(),
+                                         'linear')[0])
+  stack = torch.stack(sections).cpu().numpy()
+  b0 = (n - PROC_BLANK) // 2
+  stack[1, b0:b0 + PROC_BLANK, b0:b0 + PROC_BLANK] = 0.0
+  return stack, (b0, b0 + PROC_BLANK)
+
+
+def processor_chain(stack, dev, timings):
+  """examples/e2e_pipeline.py's chain through `runner.process_volume` with
+  the em_2d defaults (patch 160, stride 40, batch 1024), each processor on
+  work boxes of its own suggested size: EstimateFlow at 1x and on the 2x
+  area-downsampled stack, ReconcileAndFilterFlows fusing the 2x flow,
+  EstimateMissingFlow (device waves), ReconcileAndFilterFlows with
+  reconcile_missing_flows_config, RelaxMesh sequential in z (solved
+  sections kept in memory), InvertMap and WarpByMap (Lanczos). Returns
+  every stage's volume (numpy)."""
+  from sofima_tpu_torch.processor import flow as flow_proc
+  from sofima_tpu_torch.processor import maps as maps_proc
+  from sofima_tpu_torch.processor import mesh as mesh_proc
+  from sofima_tpu_torch.processor import runner
+  from sofima_tpu_torch.processor import warp as warp_proc
+  from sofima_tpu_torch.processor.defaults import em_2d
+  from sofima_tpu_torch.utils.bounding_box import BoundingBox
+  from sofima_tpu_torch.utils.subvolume import Subvolume
+  from sofima_tpu_torch.utils.volume import InMemoryVolume
+
+  def stage(name, fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    timings[name] = time.perf_counter() - t0
+    return out
+
+  image_vol = InMemoryVolume(stack[None], fill_value=0.0)
+  half = stack.reshape(PROC_Z, PROC_N // 2, 2, PROC_N // 2, 2).mean(
+      axis=(2, 4), dtype=np.float64).astype(np.float32)
+  half_vol = InMemoryVolume(half[None], pixel_size=(2, 2, 1), fill_value=0.0)
+  flow_cfg = em_2d.estimate_flow_config()
+  flow_1x = stage('flow_1x', lambda: runner.process_volume(
+      flow_proc.EstimateFlow(flow_cfg, device=dev), image_vol))
+  flow_2x = stage('flow_2x', lambda: runner.process_volume(
+      flow_proc.EstimateFlow(flow_cfg, device=dev), half_vol))
+  rec_cfg = dataclasses.replace(em_2d.reconcile_flows_config(),
+                                flow_volinfos=[flow_2x])
+  clean = stage('reconcile', lambda: runner.process_volume(
+      flow_proc.ReconcileAndFilterFlows(rec_cfg, flow_1x, device=dev),
+      flow_1x))
+  miss_cfg = dataclasses.replace(em_2d.estimate_missing_flow_config(),
+                                 image_volinfo=image_vol)
+  missing = stage('missing_flow', lambda: runner.process_volume(
+      flow_proc.EstimateMissingFlow(miss_cfg, device=dev), clean))
+  final = stage('reconcile_missing', lambda: runner.process_volume(
+      flow_proc.ReconcileAndFilterFlows(
+          em_2d.reconcile_missing_flows_config(), missing, device=dev),
+      missing))
+
+  gy, gx = final.data.shape[2:]
+  solved = {0: np.zeros((2, 1, gy, gx), np.float32)}
+
+  class MemRelax(mesh_proc.RelaxMesh):
+
+    def _load_stitched_tile(self, output_dir, box):
+      z = int(box.start[2])
+      return solved[z].copy() if z in solved else None
+
+  relax_cfg = dataclasses.replace(em_2d.relax_mesh_config({
+      'integration_config': {'stride': (STRIDE, STRIDE), 'k0': 0.1,
+                             'num_iters': 500},
+      'block_starts': [0]}), flows=[mesh_proc.FlowVolume(delta_z=1,
+                                                        volume=final)])
+
+  def relax():
+    proc = MemRelax(relax_cfg, device=dev)
+    for z in range(1, PROC_Z):
+      out = proc.process(Subvolume(np.zeros((2, 1, gy, gx), np.float32),
+                                   BoundingBox(start=(0, 0, z),
+                                               size=(gx, gy, 1))))
+      solved[z] = out.data.astype(np.float32)
+    return InMemoryVolume(np.concatenate([solved[z] for z in range(PROC_Z)],
+                                         axis=1))
+
+  solved_vol = stage('relax', relax)
+  inv_vol = stage('invert', lambda: runner.process_volume(
+      maps_proc.InvertMap(maps_proc.InvertMap.Config(
+          stride=float(STRIDE), crop_output=False, input_volume=solved_vol),
+                          device=dev), solved_vol))
+  warp_cfg = dataclasses.replace(
+      em_2d.warp_config({'stride': float(STRIDE),
+                         'interpolation': 'lanczos'}),
+      map_volinfo=inv_vol, data_volinfo=image_vol)
+  rendered = stage('warp', lambda: runner.process_volume(
+      warp_proc.WarpByMap(warp_cfg, device=dev), image_vol))
+  return dict(flow_1x=flow_1x.data, flow_2x=flow_2x.data, clean=clean.data,
+              missing=missing.data, final=final.data, solved=solved_vol.data,
+              inv=inv_vol.data, rendered=rendered.data[0])
+
+
+def processor_slice(dev, report, _build) -> dict:
+  """Path (h): the em_2d processor pipeline (examples/e2e_pipeline.py's
+  chain) on the card, its gates, and K1, K8 and K4p against their plain
+  versions on the inputs the path gave them.
+
+  Returns the kernels' launch counts from the path's run."""
+  from sofima_tpu_torch import flow_field
+  from sofima_tpu_torch.ops import cuda_flow
+  from sofima_tpu_torch.ops import cuda_warp
+
+  t_phase = time.perf_counter()
+  stack, (b0, b1) = proc_stack(dev)
+  print(f'path (h): the em_2d processor pipeline on {PROC_Z} x {PROC_N}^2 '
+        f'(sections warped by z x a {PROC_AMP:g} px field, a {PROC_BLANK}^2 '
+        f'zeroed square in section 1), patch 160, stride {STRIDE}')
+  calls, timings = {}, {}
+  _build.reset_launch_counts()
+  with recorded_calls(calls, keep={'force_2d': 2, 'warp_subvolume': 16,
+                                   'dense_flow_peaks': 24}):
+    t0 = time.perf_counter()
+    out = processor_chain(stack, dev, timings)
+    sync()
+    wall = time.perf_counter() - t0
+  launches_h = dict(_build.launch_counts)
+  print('  stage seconds: ' + ', '.join(f'{k} {v:.3f}'
+                                        for k, v in timings.items()))
+  print(f'  wall {wall:.3f} s; launches {launches_h}')
+  for k in ('dense_flow_peaks', 'force2d', 'warp_subvolume'):
+    check(launches_h[k] > 0, f'kernel {k} was not launched on path (h)')
+
+  # e2e_pipeline.py's gate (section 1 against section 0 on the interior,
+  # a patch's margin); the later sections' residuals are printed beside.
+  rendered, sel = out['rendered'], np.s_[160:-160, 160:-160]
+  res = []
+  for z in range(1, PROC_Z):
+    before = float(np.abs(stack[z] - stack[0])[sel].mean())
+    after = float(np.abs(rendered[z] - stack[0])[sel].mean())
+    res.append((before, after))
+  print('  residual against section 0 before / after: ' + ', '.join(
+      f'z={z} {b:.2f} / {a:.2f}' for z, (b, a) in enumerate(res, 1)))
+  check(res[0][1] < 0.5 * res[0][0], f'path (h): residual {res[0][1]} '
+        f'against {res[0][0]} before (e2e_pipeline.py\'s gate)')
+
+  # The chunked flow against one whole-section call (no seams): node i of
+  # the whole call is the processor's node i + 2 (its patch centred at
+  # i * 40 + 80). The runner back-shifts the last work box of a row to
+  # end at the volume's edge (+ context), as the reference's runner does;
+  # where PROC_N + 160 - 1280 is not a multiple of the stride, that box
+  # starts off the node grid and writes its patches (centred up to a
+  # stride away) from node `aligned` on (ROADMAP.md Queue 3, records on
+  # the reference side), so the comparison covers the nodes before it.
+  flow = out['flow_1x']
+  box = 160 * 8
+  last = PROC_N + 160 - box  # the back-shifted box's output start, px
+  aligned = last // STRIDE if last % STRIDE else flow.shape[-1]
+  pre_t = torch.from_numpy(stack).to(dev)
+  whole = torch.stack([flow_field.dense_flow_field(
+      pre_t[z - 1], pre_t[z], (160, 160), (STRIDE, STRIDE), circular=True)
+                       for z in range(1, PROC_Z)])
+  g = min(whole.shape[-1], aligned - 2)
+  whole = whole[..., :g, :g]
+  chunked = torch.from_numpy(flow[:, 1:, 2:2 + g, 2:2 + g].copy()).to(dev)
+  seams = compare_flow(chunked.reshape(4, -1, g),
+                       whole.permute(1, 0, 2, 3).reshape(4, -1, g),
+                       f'chunked EstimateFlow against whole-section K1 '
+                       f'({PROC_Z - 1} x {g}^2 nodes before the off-grid '
+                       f'last box at node {aligned})')
+  del pre_t, whole, chunked
+
+  # Section 2's hole: the nodes whose patch lies inside section 1's blank
+  # square and that are NaN after reconcile (the 2x flow refills some),
+  # then refilled from Δz = 2 by EstimateMissingFlow.
+  half = 160 // 2
+  i0, i1 = -(-(b0 + half) // STRIDE), (b1 - half) // STRIDE + 1
+  hole = np.isnan(out['clean'][0, 2, i0:i1, i0:i1])
+  miss = out['missing'][:, 2, i0:i1, i0:i1]
+  filled = (np.isfinite(miss[0]) & (miss[2] == 2))[hole]
+  share = float(filled.mean()) if hole.any() else 0.0
+  print(f'  section 2\'s hole: {int(hole.sum())} of {hole.size} nodes inside '
+        f'the blank NaN after reconcile; refilled from Δz = 2: {share:.3f} '
+        f'(gate {PROC_FILLED}); final flow valid '
+        f'{float(np.isfinite(out["final"][0, 1:]).mean()):.3f}')
+  check(int(hole.sum()) >= 4, 'path (h): section 2\'s hole was not invalid')
+  check(share >= PROC_FILLED,
+        'path (h): section 2\'s hole was not refilled from Δz = 2')
+  check(bool(np.isfinite(out['solved']).all()), 'path (h): meshes not finite')
+
+  # K1, K8 and K4p against their plain versions on the inputs path (h)
+  # gave them: K1 on the first work items' section pairs, K8 on the last
+  # section's first and last solve positions, K4p on the first renders
+  # (and the last).
+  k1_in = calls['dense_flow_peaks']
+  k1h = compare_flow(
+      torch.cat([cuda_flow.dense_flow_peaks(*a).reshape(4, -1)
+                 for a in k1_in], 1),
+      torch.cat([dense_flow_peaks_plain(*a).reshape(4, -1) for a in k1_in],
+                1), f'K1 on {len(k1_in)} of path (h)\'s section pairs '
+      f'({list(k1_in[0][0].shape)}, ...)')
+  k8h = k8_against_plain(calls['force_2d'], np.random.RandomState(SEED + 21),
+                         'path (h)\'s last solve')
+  k4h = max(float((cuda_warp.shift_warp(*a) - shift_warp_plain(*a))
+                  .abs().max()) for a in calls['warp_subvolume'])
+  print(f'  K4p on {len(calls["warp_subvolume"])} of path (h)\'s renders '
+        f'({list(calls["warp_subvolume"][0][1].shape)}, ...): max |diff| '
+        f'{k4h:.3g} gray levels (bar {RENDER_TOL})')
+  check(k4h < RENDER_TOL, f'K4p differs from the plain render by {k4h}')
+  del calls, k1_in
+  report['K1']['max_abs_err_path_h'] = k1h['err']
+  report['K1']['stat_frac_path_h'] = k1h['stat_frac']
+  report['K1']['launches_path_h'] = launches_h['dense_flow_peaks']
+  report['K8']['max_abs_err_path_h'] = k8h
+  report['K8']['launches_path_h'] = launches_h['force2d']
+  report['K4p']['max_abs_err_path_h'] = k4h
+  report['K4p']['launches_path_h'] = launches_h['warp_subvolume']
+  report['path_h'] = dict(
+      wall_s=wall, residual_before_after=res, seams_stat_frac=seams[
+          'stat_frac'], seams_nodes=3 * g * g, off_grid_node=aligned,
+      hole_nodes=int(hole.sum()), hole_refilled=share,
+      k1_launches=launches_h['dense_flow_peaks'],
+      k8_launches=launches_h['force2d'],
+      k4p_launches=launches_h['warp_subvolume'], **timings)
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+  return launches_h
+
+
+def stitch_render_phase(dev, report, _build, tiles, out, vol3, sel,
+                        stride3, margin) -> None:
+  """StitchAndRender3dTiles (the LICONN notebook's render processor) on
+  path (a)'s tiles and solved meshes, written to an .npz in a temporary
+  directory, through `runner.process_volume`: path (a)'s rel_err and
+  coverage gates, and K13 against its plain version on recorded inputs."""
+  import tempfile
+  from sofima_tpu_torch.ops import cuda_warp
+  from sofima_tpu_torch.processor import runner
+  from sofima_tpu_torch.processor import warp as warp_proc
+  from sofima_tpu_torch.utils.volume import InMemoryVolume
+  zdim, ny, nx = vol3.shape
+  key_to_idx = out['key_to_idx']
+  ids = {key: i for i, key in enumerate(sorted(key_to_idx))}
+  grid_x = max(tx for tx, _ in ids) + 1
+  grid_y = max(ty for _, ty in ids) + 1
+  tile_map = [[ids[(tx, ty)] for tx in range(grid_x)]
+              for ty in range(grid_y)]
+  by_id = {ids[key]: t.cpu().numpy() for key, t in tiles.items()}
+
+  class Tiles(warp_proc.StitchAndRender3dTiles):
+
+    def _open_tile_volume(self, tile_id):
+      return by_id[tile_id]
+
+  calls = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'meshes.npz')
+    np.savez(path, x=out['solved'].cpu().numpy(),
+             key_to_idx=np.array(dict(key_to_idx)))
+    Tiles.reset_caches()
+    proc = Tiles(tile_map=tile_map, tile_mesh_path=path, stride=stride3,
+                 margin=margin, work_size=(nx // 4, ny // 4, zdim),
+                 device=dev)
+    canvas = InMemoryVolume(np.zeros((1, zdim, ny, nx), np.float32))
+    _build.reset_launch_counts()
+    with recorded_calls(calls, keep={'shift_warp_3d': 8}):
+      t0 = time.perf_counter()
+      img = runner.process_volume(proc, canvas,
+                                  subvolume_size=(nx // 2, ny // 2, zdim))
+      sync()
+      wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    Tiles.reset_caches()
+  render = torch.from_numpy(img.data[0]).to(dev)[sel]
+  truth = vol3[sel]
+  m = render != 0
+  cnt = int(m.sum())
+  rel = float(torch.where(m, (render - truth).abs(),
+                          torch.zeros_like(truth)).sum()
+              / max(cnt, 1) / truth.std(correction=0))
+  cov = cnt / truth.numel()
+  k13 = max(float((cuda_warp.shift_warp_3d(*a) - cuda_warp.shift_warp_3d_plain(
+      a[0], a[1], a[2], a[3:9], a[9:12])).abs().max())
+            for a in calls['shift_warp_3d'])
+  print(f'3d render processor (StitchAndRender3dTiles) on path (a)\'s tiles '
+        f'and meshes: {wall:.3f} s, rel_err {rel:.4f} (gate '
+        f'{STITCH_REL_ERR}), coverage {cov:.4f} (gate {STITCH_COVERAGE}); '
+        f'K13 on {len(calls["shift_warp_3d"])} recorded renders: max |diff| '
+        f'{k13:.3g} (bar {RENDER_TOL}); launches {launches}')
+  check(launches['warp_gather_3d'] > 0,
+        'K13 was not launched by StitchAndRender3dTiles')
+  check(rel <= STITCH_REL_ERR, f'3d render processor rel_err {rel}')
+  check(cov >= STITCH_COVERAGE, f'3d render processor coverage {cov}')
+  check(k13 < RENDER_TOL, f'K13 differs from plain by {k13} (processor)')
+  report['K13']['max_abs_err_processor'] = k13
+  report['K13']['launches_processor'] = launches['warp_gather_3d']
+  report['render3d_processor'] = dict(
+      wall_s=wall, rel_err=rel, coverage=cov,
+      k13_launches=launches['warp_gather_3d'])
+
+
+def per_axis_phase(dev) -> None:
+  """K1, K2, K5 and K6 with per-axis peak windows (PER_AXIS) against their
+  plain versions, and a sequence of equal entries repeating the scalar
+  call bit for bit (the kernels take the windows; nothing routes a
+  sequence to the plain version)."""
+  from sofima_tpu_torch.ops import cuda_flow
+  md, pr = PER_AXIS
+  n = 2048
+  pre = texture(n, dev)
+  post = torch.roll(pre, (5, -7), (0, 1)).contiguous()
+  valid = (~bench_mask(n, dev)).to(torch.float32)
+  gm = (n - (160 - 40)) // 40
+  geo = cuda_flow.targeted_geometry((n, n), (80, 80), (40, 40))
+  offs = torch.zeros((geo['nrsteps'], geo['ngroups'], 2), dtype=torch.int32)
+  offs += torch.tensor([5, -7], dtype=torch.int32)
+  rng = np.random.RandomState(SEED + 22)
+  ys = torch.from_numpy(rng.randint(8, n - 168, 512)).to(dev)
+  xs = torch.from_numpy(rng.randint(8, n - 88, 512)).to(dev)
+  a1 = torch.arange(160, device=dev)[None, :, None]
+  a2 = torch.arange(80, device=dev)[None, None, :]
+
+  def cut(dy, dx):
+    return pre[ys[:, None, None] + dy + a1,
+               xs[:, None, None] + dx + a2].contiguous()
+
+  pa, pb = cut(0, 0), cut(-5, 7)
+  k2 = lambda a, b, o, **w: cuda_flow.dense_flow_peaks_targeted(
+      a, b, o, (80, 80), (40, 40), max_offset=16, peak_crop=32, **w)
+  cases = {  # kernel, plain version (on the card; K2's on the CPU)
+      'K1': (lambda **w: cuda_flow.dense_flow_peaks(pre, post, (160, 160),
+                                                    (40, 40), **w),
+             lambda **w: dense_flow_peaks_plain(pre, post, (160, 160),
+                                                (40, 40), **w)),
+      'K2': (lambda **w: k2(pre, post, offs.to(dev), **w),
+             lambda **w: k2(pre.cpu(), post.cpu(), offs, **w).to(dev)),
+      'K5': (lambda **w: cuda_flow.masked_dense_flow_peaks(
+          pre, post, valid, valid, (160, 160), (40, 40), **w),
+             lambda min_distance=2, peak_radius=5: (
+                 cuda_flow.masked_flow_peaks_plain(
+                     pre, post, valid, valid, (gm, gm), 160, (40, 40), None,
+                     min_distance, 0.5, peak_radius))),
+      'K6': (lambda **w: cuda_flow.flow_peaks(pa, pb, **w).T,
+             lambda **w: cuda_flow.patch_flow_peaks_plain(pa, pb, **w).T),
+  }
+  print(f'per-axis peak windows min_distance={md}, peak_radius={pr}: K1, K2, '
+        'K5, K6 against their plain versions')
+  for name, (kernel, plain) in cases.items():
+    compare_flow(kernel(min_distance=md, peak_radius=pr),
+                 plain(min_distance=md, peak_radius=pr), f'{name} per-axis',
+                 STAT_FRACTION_MASKED if name in ('K5', 'K6')
+                 else STAT_FRACTION)
+    check(same_bits(kernel(), kernel(min_distance=(2, 2),
+                                     peak_radius=(5, 5))),
+          f'{name}: (2, 2) / (5, 5) windows differ from the scalar call')
+  del pre, post, valid, pa, pb
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2782,6 +3184,10 @@ def main() -> int:
   launches.update(library_slice(dev, report, _build))
   torch.cuda.empty_cache()
   stitch_api_slice(dev, report, _build)
+  torch.cuda.empty_cache()
+  per_axis_phase(dev)
+  torch.cuda.empty_cache()
+  processor_slice(dev, report, _build)
   print(f'total {time.perf_counter() - t_start:.1f} s')
 
   kernels = []
@@ -2829,7 +3235,8 @@ def main() -> int:
                                    'refresh', 'path_a', 'path_b', 'path_c',
                                    'path_d', 'path_e', 'montage_small',
                                    'drift_removal', 'path_f', 'path_g',
-                                   'padfield3d')}
+                                   'padfield3d', 'path_h',
+                                   'render3d_processor')}
   print(json.dumps({'paths': paths}))
   print(smi())
   print(json.dumps({'kernels': kernels}))

@@ -67,8 +67,8 @@ flow_peaks_kernel(const float* __restrict__ pre, const float* __restrict__ post,
                   int h, int w, const int* __restrict__ offsets, int gy, int gx,
                   int p, int sy, int sx, const float* __restrict__ ctab,
                   const float* __restrict__ stab, int crop, int subtract_mean,
-                  float mean_value, int min_distance, float threshold_rel,
-                  int peak_radius, float* __restrict__ scratch,
+                  float mean_value, int min_y, int min_x, float threshold_rel,
+                  int rad_y, int rad_x, float* __restrict__ scratch,
                   int64_t per_block, int64_t region0, float* __restrict__ out) {
   extern __shared__ float smem[];
   __shared__ float redf[32], redf2[32];
@@ -198,7 +198,7 @@ flow_peaks_kernel(const float* __restrict__ pre, const float* __restrict__ post,
     __syncthreads();
 
     // 6. Peak chain on the [crop, crop] surface (flow_peaks.cuh).
-    peak_chain(corr, n1, n1, min_distance, threshold_rel, peak_radius, out,
+    peak_chain(corr, n1, n1, min_y, min_x, threshold_rel, rad_y, rad_x, out,
                plane, pidx, redf, redi, redf2);
     __syncthreads();
   }
@@ -232,7 +232,7 @@ flow_fft_kernel(const float* __restrict__ pre, const float* __restrict__ post,
                 int sy, int sx, fftsm::Axis axis,
                 const float2* __restrict__ tabs, const int* __restrict__ idx,
                 int crop, int subtract_mean, float mean_value, float scale,
-                int min_distance, float threshold_rel, int peak_radius,
+                int min_y, int min_x, float threshold_rel, int rad_y, int rad_x,
                 float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   __shared__ fftsm::Axis ax;
@@ -354,7 +354,7 @@ flow_fft_kernel(const float* __restrict__ pre, const float* __restrict__ post,
     }
     __syncthreads();
     // 5. Peak chain (flow_peaks.cuh) on the core.
-    peak_chain(corr, crop, crop, min_distance, threshold_rel, peak_radius,
+    peak_chain(corr, crop, crop, min_y, min_x, threshold_rel, rad_y, rad_x,
                out, plane, pidx, redf, redi, redf2);
     __syncthreads();
   }
@@ -380,7 +380,7 @@ int launch_fft(const float* pre, const float* post, int h, int w,
                const int* offsets, int gy, int gx, int sy, int sx,
                const fftsm::Axis& axis, const float* tabs, const int* idx,
                int crop, int subtract_mean, float mean_value, float scale,
-               int min_distance, float threshold_rel, int peak_radius,
+               int min_y, int min_x, float threshold_rel, int rad_y, int rad_x,
                float* out, size_t smem, int sms, cudaStream_t stream) {
   int occ = 0;
   const int err = fft_occupancy<NT>(smem, &occ);
@@ -391,7 +391,7 @@ int launch_fft(const float* pre, const float* post, int h, int w,
   flow_fft_kernel<NT><<<grid, NT, smem, stream>>>(
       pre, post, h, w, offsets, gy, gx, sy, sx, axis,
       reinterpret_cast<const float2*>(tabs), idx, crop, subtract_mean,
-      mean_value, scale, min_distance, threshold_rel, peak_radius, out);
+      mean_value, scale, min_y, min_x, threshold_rel, rad_y, rad_x, out);
   return (int)cudaGetLastError();
 }
 
@@ -418,8 +418,8 @@ int64_t flow_peaks_per_block(int p, int crop) {
 int flow_peaks_launch(const float* pre, const float* post, int h, int w,
                       const int* offsets, int gy, int gx, int p, int sy, int sx,
                       const float* ctab, const float* stab, int crop,
-                      int subtract_mean, float mean_value, int min_distance,
-                      float threshold_rel, int peak_radius, float* scratch,
+                      int subtract_mean, float mean_value, int min_y, int min_x,
+                      float threshold_rel, int rad_y, int rad_x, float* scratch,
                       int nblocks, float* out, void* stream) {
   const int64_t per_block = flow_peaks_per_block(p, crop);
   const int64_t region0 = flow_peaks_region0(p, crop);
@@ -433,7 +433,7 @@ int flow_peaks_launch(const float* pre, const float* post, int h, int w,
   }
   flow_peaks_kernel<<<nblocks, kThreads, smem, (cudaStream_t)stream>>>(
       pre, post, h, w, offsets, gy, gx, p, sy, sx, ctab, stab, crop,
-      subtract_mean, mean_value, min_distance, threshold_rel, peak_radius,
+      subtract_mean, mean_value, min_y, min_x, threshold_rel, rad_y, rad_x,
       scratch, per_block, region0, out);
   return (int)cudaGetLastError();
 }
@@ -487,8 +487,8 @@ int flow_fft_launch(const float* pre, const float* post, int h, int w,
                     const int* offsets, int gy, int gx, int p, int sy, int sx,
                     const int* radices, const float* tabs, const int* idx,
                     int crop, int subtract_mean, float mean_value,
-                    int min_distance, float threshold_rel, int peak_radius,
-                    float* out, void* stream) {
+                    int min_y, int min_x, float threshold_rel, int rad_y,
+                    int rad_x, float* out, void* stream) {
   fftsm::Axis axis;
   const int64_t bytes = flow_fft_smem_bytes(p, crop);
   if (bytes < 0 || !fftsm::make_axis(&axis, p, radices[0], radices + 1))
@@ -506,17 +506,17 @@ int flow_fft_launch(const float* pre, const float* post, int h, int w,
     case 256:
       return launch_fft<256>(pre, post, h, w, offsets, gy, gx, sy, sx, axis,
                              tabs, idx, crop, subtract_mean, mean_value, scale,
-                             min_distance, threshold_rel, peak_radius, out,
+                             min_y, min_x, threshold_rel, rad_y, rad_x, out,
                              smem, sms, s);
     case 512:
       return launch_fft<512>(pre, post, h, w, offsets, gy, gx, sy, sx, axis,
                              tabs, idx, crop, subtract_mean, mean_value, scale,
-                             min_distance, threshold_rel, peak_radius, out,
+                             min_y, min_x, threshold_rel, rad_y, rad_x, out,
                              smem, sms, s);
     default:
       return launch_fft<1024>(pre, post, h, w, offsets, gy, gx, sy, sx, axis,
                               tabs, idx, crop, subtract_mean, mean_value,
-                              scale, min_distance, threshold_rel, peak_radius,
+                              scale, min_y, min_x, threshold_rel, rad_y, rad_x,
                               out, smem, sms, s);
   }
 }

@@ -5,10 +5,12 @@
 // flow_field._batched_peaks.
 //
 // Numerics follow the reference exactly where it matters: a local max over
-// the clipped (2 min_distance + 1)^2 window, threshold_rel * max, first
-// peak at the smallest linear index, sharpness over the clamped
-// (2 peak_radius + 1)^2 window, ratio 0 without a second peak, and a NaN
-// row without a peak (or with a NaN anywhere on the surface).
+// the clipped (2 min_y + 1) x (2 min_x + 1) window, threshold_rel * max,
+// first peak at the smallest linear index, sharpness over the clamped
+// (2 rad_y + 1) x (2 rad_x + 1) window, ratio 0 without a second peak, and
+// a NaN row without a peak (or with a NaN anywhere on the surface). Both
+// windows take a radius per axis, as flow_field._batched_peaks takes an int
+// or a per-axis sequence for min_distance and peak_radius.
 
 #pragma once
 
@@ -98,10 +100,10 @@ __device__ __forceinline__ void write_row(float* __restrict__ out,
 // Peak statistics of the [n1, n2] surface `corr` whose zero shift sits at
 // (n1/2, n2/2). Every thread of the block calls it; thread 0 writes.
 // The threshold is tested before the local-max window, so a value at or
-// below it (or NaN) costs one read instead of (2 min_distance + 1)^2.
-__device__ void peak_chain(const float* corr, int n1, int n2, int min_distance,
-                           float threshold_rel, int peak_radius,
-                           float* __restrict__ out, int64_t plane,
+// below it (or NaN) costs one read instead of the whole window.
+__device__ void peak_chain(const float* corr, int n1, int n2, int min_y,
+                           int min_x, float threshold_rel, int rad_y,
+                           int rad_x, float* __restrict__ out, int64_t plane,
                            int64_t pidx, float* redf, int* redi,
                            float* redf2) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -122,10 +124,10 @@ __device__ void peak_chain(const float* corr, int n1, int n2, int min_distance,
     const float v = corr[e];
     if (!(v > thr)) continue;
     float m = -INFINITY;
-    for (int dy = -min_distance; dy <= min_distance; ++dy) {
+    for (int dy = -min_y; dy <= min_y; ++dy) {
       const int rr = r + dy;
       if (rr < 0 || rr >= n1) continue;
-      for (int dx = -min_distance; dx <= min_distance; ++dx) {
+      for (int dx = -min_x; dx <= min_x; ++dx) {
         const int cc = c + dx;
         if (cc < 0 || cc >= n2) continue;
         m = fmaxf(m, corr[rr * n2 + cc]);
@@ -139,18 +141,18 @@ __device__ void peak_chain(const float* corr, int n1, int n2, int min_distance,
   }
   t = block_top2(t, redf, redi, redf2);
   const bool no_peak = any_nan != 0.0f || t.v1 == -INFINITY;
-  const int size = 2 * peak_radius + 1;
+  const int size_y = 2 * rad_y + 1, size_x = 2 * rad_x + 1;
   int py = 0, px = 0, wy0 = 0, wx0 = 0;
   if (!no_peak) {
     py = t.i1 / n2;
     px = t.i1 - py * n2;
-    wy0 = min(max(py - peak_radius, 0), n1 - size);
-    wx0 = min(max(px - peak_radius, 0), n2 - size);
+    wy0 = min(max(py - rad_y, 0), n1 - size_y);
+    wx0 = min(max(px - rad_x, 0), n2 - size_x);
   }
   float lmin = INFINITY;
   if (!no_peak) {
-    for (int e = tid; e < size * size; e += nt) {
-      const int yy = wy0 + e / size, xx = wx0 + e % size;
+    for (int e = tid; e < size_y * size_x; e += nt) {
+      const int yy = wy0 + e / size_x, xx = wx0 + e % size_x;
       if (yy >= 0 && yy < n1 && xx >= 0 && xx < n2)
         lmin = fminf(lmin, corr[yy * n2 + xx]);
     }

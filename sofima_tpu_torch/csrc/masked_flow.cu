@@ -203,8 +203,8 @@ masked_flow_kernel(const float* __restrict__ pre,
                    const int* __restrict__ list, int n, int gx, int p, int sy,
                    int sx, const float* __restrict__ ctab,
                    const float* __restrict__ stab, int subtract_mean,
-                   float mean_value, float cut, int min_distance,
-                   float threshold_rel, int peak_radius,
+                   float mean_value, float cut, int min_y, int min_x,
+                   float threshold_rel, int rad_y, int rad_x,
                    float* __restrict__ scratch, int64_t per_block,
                    int64_t plane, float* __restrict__ out) {
   extern __shared__ float smem[];
@@ -324,8 +324,8 @@ masked_flow_kernel(const float* __restrict__ pre,
     }
 
     // 3. Peak chain on the centered [p, p] surface (flow_peaks.cuh).
-    peak_chain(corr, p, p, min_distance, threshold_rel, peak_radius, out, plane,
-               pidx, redf, redi, redf2);
+    peak_chain(corr, p, p, min_y, min_x, threshold_rel, rad_y, rad_x, out,
+               plane, pidx, redf, redi, redf2);
     __syncthreads();
   }
 }
@@ -340,8 +340,8 @@ masked_pure_kernel(const float* __restrict__ pre,
                    const int* __restrict__ list, int n, int gx, int sy, int sx,
                    fftsm::Axis axis, const float2* __restrict__ tabs,
                    const int* __restrict__ idx, int subtract_mean,
-                   float mean_value, float scale, int min_distance,
-                   float threshold_rel, int peak_radius, int64_t plane,
+                   float mean_value, float scale, int min_y, int min_x,
+                   float threshold_rel, int rad_y, int rad_x, int64_t plane,
                    float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   __shared__ fftsm::Axis ax;
@@ -453,8 +453,8 @@ masked_pure_kernel(const float* __restrict__ pre,
     }
     __syncthreads();
     // 5. Peak chain (flow_peaks.cuh).
-    peak_chain(corr, p, p, min_distance, threshold_rel, peak_radius, out, plane,
-               pidx, redf, redi, redf2);
+    peak_chain(corr, p, p, min_y, min_x, threshold_rel, rad_y, rad_x, out,
+               plane, pidx, redf, redi, redf2);
     __syncthreads();
   }
 }
@@ -485,8 +485,8 @@ int masked_flow_launch(const float* pre, const float* post, const float* vpre,
                        const float* vpost, int w, const int* list, int n,
                        int gx, int p, int sy, int sx, const float* ctab,
                        const float* stab, int subtract_mean, float mean_value,
-                       float cut, int min_distance, float threshold_rel,
-                       int peak_radius, float* scratch, int nblocks,
+                       float cut, int min_y, int min_x, float threshold_rel,
+                       int rad_y, int rad_x, float* scratch, int nblocks,
                        int64_t plane, float* out, void* stream) {
   if (n <= 0) return 0;
   const int64_t per_block = masked_flow_per_block(p);
@@ -500,8 +500,8 @@ int masked_flow_launch(const float* pre, const float* post, const float* vpre,
   }
   masked_flow_kernel<<<nblocks, kThreads, smem, (cudaStream_t)stream>>>(
       pre, post, vpre, vpost, w, list, n, gx, p, sy, sx, ctab, stab,
-      subtract_mean, mean_value, cut, min_distance, threshold_rel,
-      peak_radius, scratch, per_block, plane, out);
+      subtract_mean, mean_value, cut, min_y, min_x, threshold_rel,
+      rad_y, rad_x, scratch, per_block, plane, out);
   return (int)cudaGetLastError();
 }
 
@@ -513,8 +513,9 @@ int masked_flow_launch(const float* pre, const float* post, const float* vpre,
 int masked_pure_launch(const float* pre, const float* post, int w,
                        const int* list, int n, int gx, int p, int sy, int sx,
                        const int* radices, const float* tabs, const int* idx,
-                       int subtract_mean, float mean_value, int min_distance,
-                       float threshold_rel, int peak_radius, int64_t plane,
+                       int subtract_mean, float mean_value, int min_y,
+                       int min_x, float threshold_rel, int rad_y, int rad_x,
+                       int64_t plane,
                        float* out, void* stream) {
   fftsm::Axis axis;
   const int64_t bytes = masked_pure_smem_bytes(p);
@@ -538,7 +539,7 @@ int masked_pure_launch(const float* pre, const float* post, int w,
   masked_pure_kernel<<<grid, kFftThreads, smem, (cudaStream_t)stream>>>(
       pre, post, w, list, n, gx, sy, sx, axis,
       reinterpret_cast<const float2*>(tabs), idx, subtract_mean, mean_value,
-      scale, min_distance, threshold_rel, peak_radius, plane, out);
+      scale, min_y, min_x, threshold_rel, rad_y, rad_x, plane, out);
   return (int)cudaGetLastError();
 }
 

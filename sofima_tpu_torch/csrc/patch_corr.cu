@@ -60,8 +60,8 @@ patch_corr_kernel(const float* __restrict__ pre, const float* __restrict__ post,
                   const float* __restrict__ tab1s,
                   const float* __restrict__ tab2c,
                   const float* __restrict__ tab2s, int subtract_mean,
-                  float mean_value, int min_distance, float threshold_rel,
-                  int peak_radius, float* __restrict__ scratch,
+                  float mean_value, int min_y, int min_x, float threshold_rel,
+                  int rad_y, int rad_x, float* __restrict__ scratch,
                   int64_t per_block, int64_t region0, float* __restrict__ out) {
   extern __shared__ float smem[];
   __shared__ float redf[32], redf2[32];
@@ -185,7 +185,7 @@ patch_corr_kernel(const float* __restrict__ pre, const float* __restrict__ post,
     __syncthreads();
 
     // 6. The peak chain on the centred surface (flow_peaks.cuh).
-    peak_chain(corr, p1, p2, min_distance, threshold_rel, peak_radius, out,
+    peak_chain(corr, p1, p2, min_y, min_x, threshold_rel, rad_y, rad_x, out,
                (int64_t)n, pidx, redf, redi, redf2);
     __syncthreads();
   }
@@ -205,8 +205,8 @@ patch_fft_kernel(const float* __restrict__ pre, const float* __restrict__ post,
                  int n, fftsm::Axis axis1, fftsm::Axis axis2,
                  const float2* __restrict__ tabs, const int* __restrict__ idx,
                  int subtract_mean, float mean_value, float scale,
-                 int min_distance, float threshold_rel, int peak_radius,
-                 float* __restrict__ out) {
+                 int min_y, int min_x, float threshold_rel, int rad_y,
+                 int rad_x, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   __shared__ fftsm::Axis ax[2];
   __shared__ float redf[32], redf2[32];
@@ -318,7 +318,7 @@ patch_fft_kernel(const float* __restrict__ pre, const float* __restrict__ post,
     }
     __syncthreads();
     // 5. Peak chain (flow_peaks.cuh) on the surface.
-    peak_chain(corr, p1, p2, min_distance, threshold_rel, peak_radius, out,
+    peak_chain(corr, p1, p2, min_y, min_x, threshold_rel, rad_y, rad_x, out,
                plane, pidx, redf, redi, redf2);
     __syncthreads();
   }
@@ -343,17 +343,17 @@ template <int NT>
 int launch_fft(const float* pre, const float* post, int n,
                const fftsm::Axis& ax1, const fftsm::Axis& ax2,
                const float* tabs, const int* idx, int subtract_mean,
-               float mean_value, float scale, int min_distance,
-               float threshold_rel, int peak_radius, float* out, size_t smem,
-               int sms, cudaStream_t stream) {
+               float mean_value, float scale, int min_y, int min_x,
+               float threshold_rel, int rad_y, int rad_x, float* out,
+               size_t smem, int sms, cudaStream_t stream) {
   int occ = 0;
   const int err = fft_occupancy<NT>(smem, &occ);
   if (err) return err;
   const int grid = n < sms * occ ? n : sms * occ;
   patch_fft_kernel<NT><<<grid, NT, smem, stream>>>(
       pre, post, n, ax1, ax2, reinterpret_cast<const float2*>(tabs), idx,
-      subtract_mean, mean_value, scale, min_distance, threshold_rel,
-      peak_radius, out);
+      subtract_mean, mean_value, scale, min_y, min_x, threshold_rel,
+      rad_y, rad_x, out);
   return (int)cudaGetLastError();
 }
 
@@ -381,8 +381,8 @@ int64_t patch_corr_per_block(int p1, int p2) {
 int patch_corr_launch(const float* pre, const float* post, int n, int p1,
                       int p2, const float* tab1c, const float* tab1s,
                       const float* tab2c, const float* tab2s,
-                      int subtract_mean, float mean_value, int min_distance,
-                      float threshold_rel, int peak_radius, float* scratch,
+                      int subtract_mean, float mean_value, int min_y, int min_x,
+                      float threshold_rel, int rad_y, int rad_x, float* scratch,
                       int nblocks, float* out, void* stream) {
   const int64_t per_block = patch_corr_per_block(p1, p2);
   const int64_t region0 = patch_corr_region0(p1, p2);
@@ -396,7 +396,7 @@ int patch_corr_launch(const float* pre, const float* post, int n, int p1,
   }
   kernel<<<nblocks, kThreads, smem, (cudaStream_t)stream>>>(
       pre, post, n, p1, p2, tab1c, tab1s, tab2c, tab2s, subtract_mean,
-      mean_value, min_distance, threshold_rel, peak_radius, scratch, per_block,
+      mean_value, min_y, min_x, threshold_rel, rad_y, rad_x, scratch, per_block,
       region0, out);
   return (int)cudaGetLastError();
 }
@@ -449,7 +449,8 @@ int patch_fft_config(int p1, int p2, int* threads, int* blocks_per_sm) {
 int patch_fft_launch(const float* pre, const float* post, int n, int p1,
                      int p2, const int* radices, const float* tabs,
                      const int* idx, int subtract_mean, float mean_value,
-                     int min_distance, float threshold_rel, int peak_radius,
+                     int min_y, int min_x, float threshold_rel, int rad_y,
+                     int rad_x,
                      float* out, void* stream) {
   fftsm::Axis ax1, ax2;
   const int64_t bytes = patch_fft_smem_bytes(p1, p2);
@@ -469,16 +470,16 @@ int patch_fft_launch(const float* pre, const float* post, int n, int p1,
   switch (patch_fft_threads(p1, p2, smem_sm)) {
     case 256:
       return launch_fft<256>(pre, post, n, ax1, ax2, tabs, idx, subtract_mean,
-                             mean_value, scale, min_distance, threshold_rel,
-                             peak_radius, out, smem, sms, s);
+                             mean_value, scale, min_y, min_x, threshold_rel,
+                             rad_y, rad_x, out, smem, sms, s);
     case 512:
       return launch_fft<512>(pre, post, n, ax1, ax2, tabs, idx, subtract_mean,
-                             mean_value, scale, min_distance, threshold_rel,
-                             peak_radius, out, smem, sms, s);
+                             mean_value, scale, min_y, min_x, threshold_rel,
+                             rad_y, rad_x, out, smem, sms, s);
     default:
       return launch_fft<1024>(pre, post, n, ax1, ax2, tabs, idx,
-                              subtract_mean, mean_value, scale, min_distance,
-                              threshold_rel, peak_radius, out, smem, sms, s);
+                              subtract_mean, mean_value, scale, min_y, min_x,
+                              threshold_rel, rad_y, rad_x, out, smem, sms, s);
   }
 }
 

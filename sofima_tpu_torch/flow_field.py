@@ -53,6 +53,8 @@ from sofima_tpu_torch.ops import interp as interp_ops
 from sofima_tpu_torch.ops import shift_warp
 from sofima_tpu_torch.utils import geom
 
+Radius = cuda_flow.Radius
+
 _batched_peaks = cuda_flow.batched_peaks
 
 
@@ -203,9 +205,9 @@ def _masked_xcorr_circular_fft(pre_b: torch.Tensor, post_b: torch.Tensor,
 
 
 def _circular_peaks_fft(a: torch.Tensor, b: torch.Tensor, va, vb,
-                        mean: float | None, min_distance: int,
+                        mean: float | None, min_distance: Radius,
                         threshold_rel: float,
-                        peak_radius: int) -> torch.Tensor:
+                        peak_radius: Radius) -> torch.Tensor:
   """Peak rows of one batch of patch pairs on the patch-periodic torus.
 
   Dim-generic (torch.fft): the mean over valid voxels (or `mean`)
@@ -237,8 +239,8 @@ def _circular_peaks_fft(a: torch.Tensor, b: torch.Tensor, va, vb,
 
 def _dense_flow_strips_3d(pre_image: torch.Tensor, post_image: torch.Tensor,
                           patch_size, step, mean: float | None,
-                          min_distance: int, threshold_rel: float,
-                          peak_radius: int, pre_mask=None,
+                          min_distance: Radius, threshold_rel: float,
+                          peak_radius: Radius, pre_mask=None,
                           post_mask=None) -> torch.Tensor:
   """Dense circular 3d flow over grid z-rows -> [5, gz, gy, gx].
 
@@ -304,8 +306,8 @@ def _masked_xcorr_circular(pre_b: torch.Tensor, post_b: torch.Tensor,
 
 
 def _circular_peaks(pre_b: torch.Tensor, post_b: torch.Tensor, pre_valid,
-                    post_valid, mean, min_distance: int,
-                    threshold_rel: float, peak_radius: int) -> torch.Tensor:
+                    post_valid, mean, min_distance: Radius,
+                    threshold_rel: float, peak_radius: Radius) -> torch.Tensor:
   """Peak rows [b, dim + 2] of one dispatch batch of patch pairs.
 
   2d unmasked: kernel K6 (mean removal, circular correlation, peaks).
@@ -343,8 +345,8 @@ def _valid_patches(mask, cut):
 
 def _dense_flow_strips(pre_image: torch.Tensor, post_image: torch.Tensor,
                        patch_size, step, mean: float | None,
-                       min_distance: int, threshold_rel: float,
-                       peak_radius: int, rows_per_step: int = 2,
+                       min_distance: Radius, threshold_rel: float,
+                       peak_radius: Radius, rows_per_step: int = 2,
                        pre_mask=None, post_mask=None) -> torch.Tensor:
   """Dense circular 2d flow over strips of grid rows -> [4, gy, gx].
 
@@ -383,8 +385,8 @@ def _dense_flow_strips(pre_image: torch.Tensor, post_image: torch.Tensor,
 
 def _dense_flow_starts(pre_image: torch.Tensor, post_image: torch.Tensor,
                        patch_size, post_patch_size, step, mean: float | None,
-                       min_distance: int, threshold_rel: float,
-                       peak_radius: int, batch_size: int, circular: bool,
+                       min_distance: Radius, threshold_rel: float,
+                       peak_radius: Radius, batch_size: int, circular: bool,
                        pre_mask=None, post_mask=None) -> torch.Tensor:
   """Dense flow from the grid's start list -> [dim + 2, *grid].
 
@@ -437,8 +439,8 @@ def _dense_flow_starts(pre_image: torch.Tensor, post_image: torch.Tensor,
 
 def dense_flow_field(pre_image: torch.Tensor, post_image: torch.Tensor,
                      patch_size, step, batch_size: int = 1024,
-                     mean: float | None = None, min_distance: int = 2,
-                     threshold_rel: float = 0.5, peak_radius: int = 5,
+                     mean: float | None = None, min_distance: Radius = 2,
+                     threshold_rel: float = 0.5, peak_radius: Radius = 5,
                      post_patch_size=None, circular: bool = False,
                      dft_matmul: bool = False, bf16: bool = False,
                      pre_mask=None, post_mask=None) -> torch.Tensor:
@@ -520,8 +522,8 @@ def coarse_to_fine_flow(pre_image: torch.Tensor, post_image: torch.Tensor,
                         coarse_step=None, fine_patch=None,
                         batch_size: int = 256, bf16: bool = True,
                         max_displacement: int = 96, residual: int = 8,
-                        pre_mask=None, post_mask=None, min_distance: int = 2,
-                        threshold_rel: float = 0.5, peak_radius: int = 5,
+                        pre_mask=None, post_mask=None, min_distance: Radius = 2,
+                        threshold_rel: float = 0.5, peak_radius: Radius = 5,
                         return_overflow: bool = False,
                         peak_crop: int | None = None, prior=None,
                         prior_step=None, prior_origin=None):
@@ -723,8 +725,8 @@ def _gather_patches(image: torch.Tensor, starts: torch.Tensor,
 
 def batched_xcorr_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
                         pre_mask, post_mask, patch_size, starts: torch.Tensor,
-                        mean: float | None, min_distance: int = 2,
-                        threshold_rel: float = 0.5, peak_radius: int = 5,
+                        mean: float | None, min_distance: Radius = 2,
+                        threshold_rel: float = 0.5, peak_radius: Radius = 5,
                         post_patch_size=None,
                         post_starts: torch.Tensor | None = None
                         ) -> torch.Tensor:
@@ -888,8 +890,8 @@ class JAXMaskedXCorrWithStatsCalculator:
     out = dense_flow_field(
         placement.place(pre_image, dev, torch.float32),
         placement.place(post_image, dev, torch.float32), patch_t, step_t,
-        mean=self._mean, min_distance=int(self._min_distance),
-        peak_radius=int(self._peak_radius), circular=True,
+        mean=self._mean, min_distance=self._min_distance,
+        peak_radius=self._peak_radius, circular=True,
         pre_mask=masks[0], post_mask=masks[1], batch_size=batch_size)
     result = out.cpu().numpy().copy()
     result[:, ~keep] = np.nan
@@ -984,8 +986,8 @@ class JAXMaskedXCorrWithStatsCalculator:
     def one_batch(i):
       return batched_xcorr_peaks(
           pre_t, post_t, pre_m, post_m, patch_size, ps[i], self._mean,
-          min_distance=int(self._min_distance), threshold_rel=0.5,
-          peak_radius=int(self._peak_radius),
+          min_distance=self._min_distance, threshold_rel=0.5,
+          peak_radius=self._peak_radius,
           post_patch_size=post_patch_size, post_starts=qs[i])
 
     if progress_fn is _silent_fn:

@@ -44,7 +44,8 @@ build_seconds: float | None = None
 build_log: str = ''
 
 # Launches per kernel entry, incremented by each wrapper exactly where it
-# launches its kernel (never on the CPU path).
+# launches its kernel (never on the CPU path), through `count`: the
+# processor runner launches from several threads at once.
 launch_counts: dict[str, int] = {
     'dense_flow_peaks': 0,      # K1: coarse pass
     'targeted_flow_peaks': 0,   # K2: fine pass
@@ -71,9 +72,19 @@ launch_counts: dict[str, int] = {
 }
 
 
+_count_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+  """Adds one launch of `name`; exact when several threads launch."""
+  with _count_lock:
+    launch_counts[name] += 1
+
+
 def reset_launch_counts() -> None:
-  for k in launch_counts:
-    launch_counts[k] = 0
+  with _count_lock:
+    for k in launch_counts:
+      launch_counts[k] = 0
 
 
 def _build_root() -> pathlib.Path:

@@ -43,6 +43,7 @@ transforms, FFT or DFT, run in f32 outside the tensor cores).
 
 from __future__ import annotations
 
+import collections.abc
 import ctypes
 import functools
 
@@ -50,6 +51,9 @@ import numpy as np
 import torch
 
 from sofima_tpu_torch.ops import _build
+
+# A peak window's radius: one int, or one per surface axis ([z,] y, x).
+Radius = int | collections.abc.Sequence[int]
 
 # Patches per chunk in the plain version (bounds its memory).
 _PLAIN_CHUNK = 512
@@ -282,23 +286,36 @@ def _overlap_cut(area: int) -> float:
   return float(np.float32(0.3 * area))
 
 
-def batched_peaks(img: torch.Tensor, center, min_distance: int = 2,
+def per_axis(value, dim: int) -> tuple[int, ...]:
+  """An int or a per-axis sequence -> `dim` ints, one per surface axis
+  ([z,] y, x), as flow_field._batched_peaks reads `min_distance` and
+  `peak_radius`."""
+  if isinstance(value, collections.abc.Sequence):
+    if len(value) != dim:
+      raise ValueError(f'{dim} per-axis values expected, got {value!r}')
+    return tuple(int(v) for v in value)
+  return (int(value),) * dim
+
+
+def batched_peaks(img: torch.Tensor, center,
+                  min_distance: Radius = 2,
                   threshold_rel: float = 0.5,
-                  peak_radius: int = 5) -> torch.Tensor:
+                  peak_radius: Radius = 5) -> torch.Tensor:
   """Top-2 local maxima + stats of [b, n1, n2(, n3)] surfaces.
 
   Twin of flow_field._batched_peaks (2d or 3d): rows [b, dim + 2] of
   (x, y[, z] offset from `center`, sharpness, peak ratio), ratio 0 with
-  one peak, NaN rows with none.
+  one peak, NaN rows with none. `min_distance` and `peak_radius` are an
+  int or one radius per surface axis.
   """
   b = img.shape[0]
   spatial = img.shape[1:]
   dim = len(spatial)
   pool = {2: torch.nn.functional.max_pool2d,
           3: torch.nn.functional.max_pool3d}[dim]
-  size = 2 * int(min_distance) + 1
-  img_max = pool(img[:, None], size, stride=1,
-                 padding=int(min_distance))[:, 0]
+  md = per_axis(min_distance, dim)
+  img_max = pool(img[:, None], tuple(2 * m + 1 for m in md), stride=1,
+                 padding=md)[:, 0]
   axes = tuple(range(1, dim + 1))
   thr = threshold_rel * img.amax(dim=axes, keepdim=True)
   mask = (img == img_max) & (img > thr)
@@ -311,14 +328,15 @@ def batched_peaks(img: torch.Tensor, center, min_distance: int = 2,
                       torch.full_like(flat, float('-inf')), flat)
   val2 = flat2.amax(dim=-1)
 
-  r = int(peak_radius)
-  wsize = 2 * r + 1
+  rad = per_axis(peak_radius, dim)
+  wsize = tuple(2 * r + 1 for r in rad)
   minf = -pool(-img[:, None], wsize, stride=1)[:, 0]
   inds, rem = [], idx1
   for n in reversed(spatial):  # unravel, last axis first
     inds.insert(0, rem % n)
     rem = rem // n
-  starts = [torch.clamp(i - r, 0, n - wsize) for i, n in zip(inds, spatial)]
+  starts = [torch.clamp(i - r, 0, n - w)
+            for i, r, w, n in zip(inds, rad, wsize, spatial)]
   wmin = minf[(torch.arange(b, device=img.device), *starts)]
   sharp = val1 / wmin
   ratio = torch.where(torch.isinf(val2), torch.zeros_like(val1), val1 / val2)
@@ -326,6 +344,18 @@ def batched_peaks(img: torch.Tensor, center, min_distance: int = 2,
   rows = torch.stack(centered[::-1] + [sharp, ratio], dim=-1)
   return torch.where(torch.isinf(val1)[:, None],
                      torch.full_like(rows, float('nan')), rows)
+
+
+# The peak chain's window arguments in the kernels' C signatures:
+# min_y, min_x, threshold_rel, rad_y, rad_x (csrc/flow_peaks.cuh).
+_WINDOW_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                    ctypes.c_int]
+
+
+def _window_args(min_distance, threshold_rel, peak_radius) -> tuple:
+  """(min_y, min_x, threshold_rel, rad_y, rad_x) of 2d surfaces."""
+  return (*per_axis(min_distance, 2), float(threshold_rel),
+          *per_axis(peak_radius, 2))
 
 
 def _patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
@@ -373,8 +403,8 @@ def flow_surfaces_plain(pre: torch.Tensor, post: torch.Tensor,
 def flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
                      offsets: torch.Tensor | None, grid: tuple[int, int],
                      patch: int, step: tuple[int, int], crop: int,
-                     mean: float | None, min_distance: int,
-                     threshold_rel: float, peak_radius: int) -> torch.Tensor:
+                     mean: float | None, min_distance: Radius,
+                     threshold_rel: float, peak_radius: Radius) -> torch.Tensor:
   """Plain PyTorch version of the flow-peaks kernel -> [4, gy, gx]."""
   gy, gx = grid
   n = gy * gx
@@ -419,8 +449,8 @@ def masked_flow_peaks_plain(pre: torch.Tensor, post: torch.Tensor,
                             pre_valid: torch.Tensor, post_valid: torch.Tensor,
                             grid: tuple[int, int], patch: int,
                             step: tuple[int, int], mean: float | None,
-                            min_distance: int, threshold_rel: float,
-                            peak_radius: int,
+                            min_distance: Radius, threshold_rel: float,
+                            peak_radius: Radius,
                             pairs: torch.Tensor | None = None) -> torch.Tensor:
   """Plain PyTorch version of K5 -> [4, gy, gx].
 
@@ -526,17 +556,17 @@ def _launch_flow_fft(lib, pre, post, offsets, grid, patch, step, crop, mean,
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                   + _WINDOW_ARGTYPES + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
   radices, tabs, idx = _fft_tables(patch, patch, str(pre.device))
   h, w = pre.shape
   return fn(pre.data_ptr(), post.data_ptr(), h, w, _build.ptr(offsets),
             grid[0], grid[1], patch, step[0], step[1], radices.ctypes.data,
             tabs.data_ptr(), idx.data_ptr(), crop, int(mean is None),
-            float(mean or 0.0), int(min_distance), float(threshold_rel),
-            int(peak_radius), out.data_ptr(), _build.stream_of(pre))
+            float(mean or 0.0),
+            *_window_args(min_distance, threshold_rel, peak_radius),
+            out.data_ptr(), _build.stream_of(pre))
 
 
 def _launch_flow_dft(lib, pre, post, offsets, grid, patch, step, crop, mean,
@@ -548,9 +578,9 @@ def _launch_flow_dft(lib, pre, post, offsets, grid, patch, step, crop, mean,
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_float] + _WINDOW_ARGTYPES
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
   gy, gx = grid
   dev = pre.device
@@ -569,10 +599,10 @@ def _launch_flow_dft(lib, pre, post, offsets, grid, patch, step, crop, mean,
   h, w = pre.shape
   rc = fn(pre.data_ptr(), post.data_ptr(), h, w, _build.ptr(offsets), gy, gx,
           patch, step[0], step[1], ctab.data_ptr(), stab.data_ptr(), crop,
-          int(mean is None), float(mean or 0.0), int(min_distance),
-          float(threshold_rel), int(peak_radius), _build.ptr(scratch),
-          nblocks, out.data_ptr(), _build.stream_of(pre))
-  _build.launch_counts['flow_peaks_dft'] += 1
+          int(mean is None), float(mean or 0.0),
+          *_window_args(min_distance, threshold_rel, peak_radius),
+          _build.ptr(scratch), nblocks, out.data_ptr(), _build.stream_of(pre))
+  _build.count('flow_peaks_dft')
   return rc
 
 
@@ -593,7 +623,7 @@ def _launch(pre, post, offsets, grid, patch, step, crop, mean, min_distance,
            else _launch_flow_dft)
   rc = route(lib, pre, post, offsets, grid, patch, step, crop, mean,
              min_distance, threshold_rel, peak_radius, out)
-  _build.launch_counts[counter] += 1
+  _build.count(counter)
   _build.check(rc, 'flow_peaks')
   return out
 
@@ -606,9 +636,9 @@ def _check_square(patch_size):
 
 def dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
                      patch_size=(160, 160), step=(40, 40),
-                     mean: float | None = None, min_distance: int = 2,
+                     mean: float | None = None, min_distance: Radius = 2,
                      threshold_rel: float = 0.5,
-                     peak_radius: int = 5) -> torch.Tensor:
+                     peak_radius: Radius = 5) -> torch.Tensor:
   """K1: flow peaks over the full dense grid -> [4, gy, gx]."""
   p = _check_square(patch_size)
   sy, sx = step
@@ -629,8 +659,9 @@ def dense_flow_peaks_targeted(pre_image: torch.Tensor,
                               patch_size=(160, 160), step=(40, 40),
                               max_offset: int = 96, mean: float | None = None,
                               group: int | None = None, rows: int | None = None,
-                              min_distance: int = 2, threshold_rel: float = 0.5,
-                              peak_radius: int = 5,
+                              min_distance: Radius = 2,
+                              threshold_rel: float = 0.5,
+                              peak_radius: Radius = 5,
                               peak_crop: int | None = None) -> torch.Tensor:
   """K2: dense grid flow with per-block integer post-window offsets.
 
@@ -692,18 +723,17 @@ def _launch_masked_pure(lib, pre, post, pairs, gx, p, step, mean,
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_int64,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_float] + _WINDOW_ARGTYPES
+                   + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
   radices, tabs, idx = _fft_tables(p, p, str(pre.device))
   rc = fn(pre.data_ptr(), post.data_ptr(), pre.shape[1], pairs.data_ptr(),
           pairs.numel(), gx, p, step[0], step[1], radices.ctypes.data,
           tabs.data_ptr(), idx.data_ptr(), int(mean is None),
-          float(mean or 0.0), int(min_distance), float(threshold_rel),
-          int(peak_radius), out[0].numel(), out.data_ptr(),
-          _build.stream_of(pre))
-  _build.launch_counts['masked_flow_pure'] += 1
+          float(mean or 0.0),
+          *_window_args(min_distance, threshold_rel, peak_radius),
+          out[0].numel(), out.data_ptr(), _build.stream_of(pre))
+  _build.count('masked_flow_pure')
   _build.check(rc, 'masked_flow_peaks (pure route)')
 
 
@@ -715,9 +745,9 @@ def _launch_masked_dense(lib, pre, post, va, vb, pairs, gx, p, step, mean,
     lib.masked_flow_per_block.restype = ctypes.c_int64
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
+                   + _WINDOW_ARGTYPES
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
   dev = pre.device
@@ -735,10 +765,11 @@ def _launch_masked_dense(lib, pre, post, va, vb, pairs, gx, p, step, mean,
   rc = fn(pre.data_ptr(), post.data_ptr(), va.data_ptr(), vb.data_ptr(),
           pre.shape[1], pairs.data_ptr(), n, gx, p, step[0], step[1],
           ctab.data_ptr(), stab.data_ptr(), int(mean is None),
-          float(mean or 0.0), _overlap_cut(p * p), int(min_distance),
-          float(threshold_rel), int(peak_radius), _build.ptr(scratch),
-          nblocks, out[0].numel(), out.data_ptr(), _build.stream_of(pre))
-  _build.launch_counts['masked_flow_peaks'] += 1
+          float(mean or 0.0), _overlap_cut(p * p),
+          *_window_args(min_distance, threshold_rel, peak_radius),
+          _build.ptr(scratch), nblocks, out[0].numel(), out.data_ptr(),
+          _build.stream_of(pre))
+  _build.count('masked_flow_peaks')
   _build.check(rc, 'masked_flow_peaks (dense route)')
 
 
@@ -746,9 +777,9 @@ def masked_dense_flow_peaks(pre_image: torch.Tensor, post_image: torch.Tensor,
                             pre_valid: torch.Tensor | None,
                             post_valid: torch.Tensor | None,
                             patch_size=(160, 160), step=(40, 40),
-                            mean: float | None = None, min_distance: int = 2,
+                            mean: float | None = None, min_distance: Radius = 2,
                             threshold_rel: float = 0.5,
-                            peak_radius: int = 5) -> torch.Tensor:
+                            peak_radius: Radius = 5) -> torch.Tensor:
   """K5: masked flow peaks over the full dense grid -> [4, gy, gx].
 
   `pre_valid` / `post_valid`: planes of the images' shape, > 0 where a
@@ -835,9 +866,9 @@ def corr_patches_plain(pre_b: torch.Tensor, post_b: torch.Tensor,
 
 
 def patch_flow_peaks_plain(pre_b: torch.Tensor, post_b: torch.Tensor,
-                           mean: float | None = None, min_distance: int = 2,
+                           mean: float | None = None, min_distance: Radius = 2,
                            threshold_rel: float = 0.5,
-                           peak_radius: int = 5) -> torch.Tensor:
+                           peak_radius: Radius = 5) -> torch.Tensor:
   """Plain PyTorch version of K6 -> [n, 4]."""
   pre, post = _patch_batches(pre_b, post_b)
   p1, p2 = pre.shape[1:]
@@ -876,17 +907,17 @@ def _launch_patch_fft(lib, pre, post, mean, min_distance, threshold_rel,
   if fn.argtypes is None:  # once per library: ctypes keeps the object
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_float] + _WINDOW_ARGTYPES
+                   + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
   n, p1, p2 = pre.shape
   radices, tabs, idx = _fft_tables(p1, p2, str(pre.device))
   rc = fn(pre.data_ptr(), post.data_ptr(), n, p1, p2, radices.ctypes.data,
           tabs.data_ptr(), idx.data_ptr(), int(mean is None),
-          float(mean or 0.0), int(min_distance), float(threshold_rel),
-          int(peak_radius), out.data_ptr(), _build.stream_of(pre))
-  _build.launch_counts['patch_flow_peaks'] += 1
+          float(mean or 0.0),
+          *_window_args(min_distance, threshold_rel, peak_radius),
+          out.data_ptr(), _build.stream_of(pre))
+  _build.count('patch_flow_peaks')
   _build.check(rc, 'patch_flow_peaks (FFT route)')
 
 
@@ -898,9 +929,9 @@ def _launch_patch_dft(lib, pre, post, mean, min_distance, threshold_rel,
     lib.patch_corr_per_block.restype = ctypes.c_int64
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_float] + _WINDOW_ARGTYPES
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
   n, p1, p2 = pre.shape
   dev = pre.device
@@ -917,10 +948,10 @@ def _launch_patch_dft(lib, pre, post, mean, min_distance, threshold_rel,
                           device=dev)
   rc = fn(pre.data_ptr(), post.data_ptr(), n, p1, p2, t1c.data_ptr(),
           t1s.data_ptr(), t2c.data_ptr(), t2s.data_ptr(),
-          int(mean is None), float(mean or 0.0), int(min_distance),
-          float(threshold_rel), int(peak_radius), _build.ptr(scratch),
-          nblocks, out.data_ptr(), _build.stream_of(pre))
-  _build.launch_counts['patch_flow_peaks_dft'] += 1
+          int(mean is None), float(mean or 0.0),
+          *_window_args(min_distance, threshold_rel, peak_radius),
+          _build.ptr(scratch), nblocks, out.data_ptr(), _build.stream_of(pre))
+  _build.count('patch_flow_peaks_dft')
   _build.check(rc, 'patch_flow_peaks (dense route)')
 
 
@@ -941,9 +972,9 @@ def _launch_patch_peaks(pre, post, mean, min_distance, threshold_rel,
 
 
 def flow_peaks(pre_b: torch.Tensor, post_b: torch.Tensor,
-               mean: float | None = None, min_distance: int = 2,
+               mean: float | None = None, min_distance: Radius = 2,
                threshold_rel: float = 0.5,
-               peak_radius: int = 5) -> torch.Tensor:
+               peak_radius: Radius = 5) -> torch.Tensor:
   """K6: peak statistics of pre-cut patch pairs -> [n, 4].
 
   `pre_b` / `post_b`: [n, p1, p2] batches (rectangular allowed). Per
@@ -1007,6 +1038,6 @@ def corr_patches(pre_b: torch.Tensor, post_b: torch.Tensor,
             radices.ctypes.data, tabs.data_ptr(), idx.data_ptr(),
             int(mean is None), float(mean or 0.0), _build.ptr(scratch),
             out[c].data_ptr(), _build.stream_of(pre))
-    _build.launch_counts['corr_patches'] += 1
+    _build.count('corr_patches')
     _build.check(rc, 'corr_patches')
   return out

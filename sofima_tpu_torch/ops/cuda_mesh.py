@@ -122,7 +122,7 @@ def force_2d(x: torch.Tensor, k: float, stride,
   rc = fn(x.data_ptr(), out.data_ptr(), nb, ny, nx, float(k),
           float(k / np.sqrt(2.0)), float(stride[0]), float(stride[1]),
           int(prefer_orig_order), _build.stream_of(x))
-  _build.launch_counts['force2d'] += 1
+  _build.count('force2d')
   _build.check(rc, 'force2d')
   return out
 
@@ -223,7 +223,7 @@ def force_3d(x: torch.Tensor, k: float, stride,
   rc = fn(x.data_ptr(), out.data_ptr(), math.prod(shape[1:-3]), shape[-3],
           shape[-2], shape[-1], table, n_links, int(prefer_orig_order),
           _build.stream_of(x))
-  _build.launch_counts['force3d'] += 1
+  _build.count('force3d')
   _build.check(rc, 'force3d')
   return out
 
@@ -487,8 +487,8 @@ def _launch(x, prev, config, counter):
         dim, out.data_ptr(), _build.ptr(prev), v.data_ptr(), a.data_ptr(),
         part.data_ptr(), ehist.data_ptr(), steps.data_ptr(), nz, gy, gx,
         nblocks, *_fire_scalars(config), table_ptr, _build.stream_of(x))
-    _build.launch_counts[counter] += 1
-    _build.launch_counts['fused_fire_grid'] += 1
+    _build.count(counter)
+    _build.count('fused_fire_grid')
     _build.check(rc, counter)
     return out, ehist, steps[0]
   out = torch.empty_like(x)
@@ -506,7 +506,7 @@ def _launch(x, prev, config, counter):
       nz, gy, gx, tz, ty.bit_length() - 1, tx.bit_length() - 1, *plan.tiles,
       plan.smem_bytes, *_fire_scalars(config), table_ptr,
       _build.stream_of(x))
-  _build.launch_counts[counter] += 1
+  _build.count(counter)
   _build.check(rc, counter)
   return out, ehist, words[-1]
 

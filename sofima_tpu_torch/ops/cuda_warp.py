@@ -136,7 +136,7 @@ def shift_warp(images: torch.Tensor, coords: torch.Tensor,
   rc = fn(images.data_ptr(), coords.data_ptr(), out.data_ptr(), nz, h, w,
           oy, ox, _METHODS[method], _build.ptr(tile_stats),
           _build.stream_of(images))
-  _build.launch_counts[counter] += 1
+  _build.count(counter)
   _build.check(rc, 'warp_gather')
   return out
 
@@ -252,6 +252,6 @@ def shift_warp_3d(volume: torch.Tensor, coords: torch.Tensor, method: str,
   rc = fn(volume.data_ptr(), coords.data_ptr(), out.data_ptr(), d, h, w, oz,
           oy, ox, *origin, s0z, s1z, s0y, s1y, s0x, s1x, _METHODS[method],
           _build.ptr(tile_stats), _build.stream_of(volume))
-  _build.launch_counts['warp_gather_3d'] += 1
+  _build.count('warp_gather_3d')
   _build.check(rc, 'warp_gather_3d')
   return out

@@ -791,3 +791,78 @@ def test_warp_subvolume_matches_cpu(dev):
                           device='cpu')
   d = np.abs(got.astype(int) - ref.astype(int))
   assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+
+
+# Per-axis peak windows (min_distance=(1, 3), peak_radius=(4, 2)): K1 on
+# both routes, K2, K5 on both routes and K6 on both routes against their
+# plain versions (the kernels take the windows; nothing routes a sequence
+# to the plain version: each call counts its launch), and a sequence of
+# equal entries repeating the scalar call bit for bit on the card.
+@pytest.mark.parametrize('kernel', ['K1', 'K1-dft', 'K2', 'K5', 'K5-pure',
+                                    'K6', 'K6-dft'])
+def test_per_axis_windows(dev, kernel):
+  win = dict(min_distance=(1, 3), peak_radius=(4, 2))
+  same = dict(min_distance=(2, 2), peak_radius=(5, 5))
+  pre = torch.from_numpy(_texture(600, seed=12))
+  post = torch.roll(pre, (5, -7), (0, 1)).contiguous()
+  valid = ~_bench_like_mask(600)
+  if kernel in ('K1', 'K1-dft'):
+    p = 160 if kernel == 'K1' else 192
+    entry = 'dense_flow_peaks'
+    call = lambda a, b, **kw: cuda_flow.dense_flow_peaks(a, b, (p, p),
+                                                         (20, 20), **kw)
+  elif kernel == 'K2':
+    entry = 'targeted_flow_peaks'
+    geo = cuda_flow.targeted_geometry((600, 600), (80, 80), (20, 20))
+    offs = torch.full((geo['nrsteps'], geo['ngroups'], 2), 0,
+                      dtype=torch.int32) + torch.tensor([5, -7],
+                                                        dtype=torch.int32)
+    call = lambda a, b, **kw: cuda_flow.dense_flow_peaks_targeted(
+        a, b, offs.to(a.device), (80, 80), (20, 20), max_offset=16,
+        peak_crop=32, **kw)
+  elif kernel in ('K5', 'K5-pure'):
+    entry = 'masked_flow_peaks' if kernel == 'K5' else 'masked_flow_pure'
+    v = valid if kernel == 'K5' else torch.ones_like(valid)
+    call = lambda a, b, **kw: cuda_flow.masked_dense_flow_peaks(
+        a, b, v.to(a.device), v.to(a.device), (80, 80), (40, 40), **kw)
+  else:
+    shape = (64, 160, 80) if kernel == 'K6' else (4, 256, 256)
+    entry = 'patch_flow_peaks' if kernel == 'K6' else 'patch_flow_peaks_dft'
+    pre, post = _patch_batch(shape, seed=13)
+    call = lambda a, b, **kw: cuda_flow.flow_peaks(a, b, **kw).T
+  before = _build.launch_counts[entry]
+  got = call(pre.to(dev), post.to(dev), **win)
+  assert _build.launch_counts[entry] == before + 1
+  ref = call(pre, post, **win)
+  (_flow_close if kernel[:2] in ('K1', 'K2') else _masked_equal)(got.cpu(),
+                                                                 ref)
+  assert torch.isfinite(ref[:2]).any()
+  scalar = call(pre.to(dev), post.to(dev))
+  equal = call(pre.to(dev), post.to(dev), **same)
+  assert torch.equal(scalar.view(torch.int32), equal.view(torch.int32))
+
+
+# The processor runner with four threads: every work item launches K1
+# once per section pair, and the counts of a threaded run equal a
+# sequential run's (ops._build.count is exact under threads); the flows
+# are equal bit for bit.
+def test_runner_threads_count_launches(dev):
+  from sofima_tpu_torch.processor import flow as flow_proc
+  from sofima_tpu_torch.processor import runner
+  from sofima_tpu_torch.processor.defaults import em_2d
+  from sofima_tpu_torch.utils.volume import InMemoryVolume
+  tex = _texture(1200, seed=14)
+  stack = np.stack([np.roll(tex, (z, -2 * z), (0, 1)) for z in range(3)])
+  cfg = em_2d.estimate_flow_config({'patch_size': 80, 'stride': 40})
+  outs, counts = [], []
+  for parallelism in (1, 4):
+    vol = InMemoryVolume(stack[None].astype(np.float32), fill_value=0.0)
+    _build.reset_launch_counts()
+    outs.append(runner.process_volume(flow_proc.EstimateFlow(cfg, device=dev),
+                                      vol, subvolume_size=(320, 320, 3),
+                                      parallelism=parallelism).data)
+    counts.append(_build.launch_counts['dense_flow_peaks'])
+  boxes = counts[0] // 2
+  assert boxes >= 16 and counts == [2 * boxes, 2 * boxes]
+  np.testing.assert_array_equal(np.nan_to_num(outs[0], nan=9e9),
+                                np.nan_to_num(outs[1], nan=9e9))

@@ -19,6 +19,7 @@ reasons. Then the calls that once raised or shifted:
 """
 
 import dataclasses
+import enum
 import importlib
 import inspect
 import math
@@ -65,8 +66,18 @@ def test_signature_matches_reference(name):
   assert tuple(n for n, _ in port[len(ref):]) == extra
 
 
-# Parameters the port adds after the reference's, on any function.
+# Parameters the port adds after the reference's, on any function. The
+# processor layer's one difference is the trailing `device` of every
+# processor constructor (and of runner.process_volume).
 EXTRA_PARAMS = ('device', 'timings')
+
+# The processor layer and its volume foundation: 17 modules.
+PROCESSOR_LAYER = (
+    'utils.subvolume', 'utils.volume', 'utils.metrics', 'utils.config_utils',
+    'utils.mask', 'ops.edt', 'processor.base', 'processor.runner',
+    'processor.client_utils', 'processor.flow', 'processor.mesh',
+    'processor.maps', 'processor.warp', 'processor.defaults.em_2d',
+    'pipeline.flow_config', 'pipeline.mesh_config', 'pipeline.warp_config')
 
 # (module, name) -> why the port differs there on purpose.
 SURFACE_EXCEPTIONS = {
@@ -113,7 +124,8 @@ def _public(module):
 
 def _same_default(port, ref):
   """Defaults agree: equal values, NaN and NaN, the counterpart function
-  of the module's own function, or equal fields of a config dataclass."""
+  of the module's own function, equal fields of a config dataclass, or
+  the same member of the counterpart enum."""
   if inspect.isfunction(ref) or inspect.isfunction(port):
     if not (inspect.isfunction(ref) and inspect.isfunction(port)):
       return False
@@ -122,6 +134,9 @@ def _same_default(port, ref):
     return (ref_rel, ref.__qualname__) == (port_rel, port.__qualname__)
   if dataclasses.is_dataclass(ref) and dataclasses.is_dataclass(port):
     return dataclasses.asdict(ref) == dataclasses.asdict(port)
+  if isinstance(ref, enum.Enum) and isinstance(port, enum.Enum):
+    return ((type(ref).__qualname__, ref.name, ref.value)
+            == (type(port).__qualname__, port.name, port.value))
   if isinstance(ref, float) and isinstance(port, float):
     return ref == port or (math.isnan(ref) and math.isnan(port))
   return bool(port == ref)
@@ -184,7 +199,8 @@ def test_surface_walk_covers_the_ported_modules():
   names = _port_modules()
   for must in ('flow_field', 'stitch_rigid', 'stitch_elastic', 'mesh',
                'ops.interp', 'utils.bounding_box', 'utils.box_generator',
-               'utils.geom', 'ops.shift_warp', 'ops.fill'):
+               'utils.geom', 'ops.shift_warp', 'ops.fill',
+               *PROCESSOR_LAYER):
     assert must in names
   calc = _public(importlib.import_module('sofima_tpu_torch.flow_field'))
   assert 'JAXMaskedXCorrWithStatsCalculator' in calc

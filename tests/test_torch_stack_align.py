@@ -212,7 +212,17 @@ class TestStructure:
   def test_port_imports_no_jax(self):
     mods = ['sofima_tpu_torch.pipeline.stack_align', 'sofima_tpu_torch.convert',
             'sofima_tpu_torch.ops.cuda_flow', 'sofima_tpu_torch.ops.cuda_mesh',
-            'sofima_tpu_torch.ops.cuda_warp', 'sofima_tpu_torch.utils.geom']
+            'sofima_tpu_torch.ops.cuda_warp', 'sofima_tpu_torch.utils.geom',
+            'sofima_tpu_torch.processor.runner',
+            'sofima_tpu_torch.processor.flow',
+            'sofima_tpu_torch.processor.mesh',
+            'sofima_tpu_torch.processor.maps',
+            'sofima_tpu_torch.processor.warp',
+            'sofima_tpu_torch.processor.defaults.em_2d',
+            'sofima_tpu_torch.pipeline.flow_config',
+            'sofima_tpu_torch.pipeline.mesh_config',
+            'sofima_tpu_torch.pipeline.warp_config',
+            'sofima_tpu_torch.utils.mask', 'sofima_tpu_torch.ops.edt']
     code = ('import sys\n' + ''.join(f'import {m}\n' for m in mods)
             + "bad = [m for m in sys.modules if m == 'jax' or "
               "m.startswith(('jax.', 'sofima_tpu.'))]\n"

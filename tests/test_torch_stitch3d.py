@@ -304,7 +304,20 @@ def test_align_stack_places_host_stack():
 def test_new_modules_import_no_jax():
   mods = ['sofima_tpu_torch.pipeline.stitch3d',
           'sofima_tpu_torch.stitch_elastic', 'sofima_tpu_torch.warp',
-          'sofima_tpu_torch.utils.bounding_box', 'sofima_tpu_torch.placement']
+          'sofima_tpu_torch.utils.bounding_box', 'sofima_tpu_torch.placement',
+          'sofima_tpu_torch.utils.subvolume', 'sofima_tpu_torch.utils.volume',
+          'sofima_tpu_torch.utils.metrics',
+          'sofima_tpu_torch.utils.config_utils',
+          'sofima_tpu_torch.utils.mask', 'sofima_tpu_torch.ops.edt',
+          'sofima_tpu_torch.processor.base',
+          'sofima_tpu_torch.processor.runner',
+          'sofima_tpu_torch.processor.client_utils',
+          'sofima_tpu_torch.processor.flow', 'sofima_tpu_torch.processor.mesh',
+          'sofima_tpu_torch.processor.maps', 'sofima_tpu_torch.processor.warp',
+          'sofima_tpu_torch.processor.defaults.em_2d',
+          'sofima_tpu_torch.pipeline.flow_config',
+          'sofima_tpu_torch.pipeline.mesh_config',
+          'sofima_tpu_torch.pipeline.warp_config']
   code = ('import sys\n' + ''.join(f'import {m}\n' for m in mods)
           + "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sofima_tpu.'))]\n"
