@@ -89,7 +89,21 @@ call that computes the same function):
     e2e_pipeline's gate, the chunked flow against one whole-section K1
     call (no seams), section 2's hole refilled from Δz = 2, and K1, K8
     and K4p against their plain versions on the inputs the path gave
-    them.
+    them;
+  * the decorator layer: (i) the chunk functions of the TensorStore
+    decorators (what each decorator's read_fn computes; the card's
+    machine has no tensorstore) on path (h)'s sections 0 and 1 at the
+    em_2d defaults: OptimFlow padfield, circular (K1) and masked with
+    bench's mask (K5), each against the known field; CleanFlowFilter,
+    ReconcileFlowFilter, MeshRelaxFlowFilter (K8), MakeAffineCoordMap and
+    ComposeCoordMaps; WarpAffine (K12) on two known affines and ECC
+    (OptimAffineTransformSectionwise, affine and euclidean) recovering
+    them; OptimTranslationTransform on rolled copies; then on path (a)'s
+    tile volume moved by a smooth 3d field: the 3d padfield OptimFlow,
+    MeshRelaxFlowFilter 3d (K9), WarpAffine 3d (K13), WarpCoordMap and
+    the 3d translation; ECC and phase correlation against the CPU; the
+    checkpointing relaxer stopped at a snapshot and resumed, equal to
+    one run; and the kernel stages again under `plain_kernels`.
 
 K3 and K11 (the fused FIRE solvers) are also held without `prev` on a
 mesh whose sides are not a multiple of the tile, with a NaN row along a
@@ -270,6 +284,23 @@ RENDER_FLIP_SHARE = 1e-3
 # the share of the square's nodes that must be refilled.
 PROC_N, PROC_Z, PROC_AMP, PROC_BLANK = 4096, 4, 8.0, 512
 PROC_FILLED = 0.9
+# Path (i), the decorator layer's chunk functions: path (h)'s sections 0
+# and 1 at the em_2d defaults, path (a)'s tile volume; WarpAffine's known
+# affine (rotation in degrees, scale, xy shift in px; the euclidean pair
+# without the scale), the rolls that the translation transforms must
+# find exactly (y, x and z, y, x), ECC's margin (the crop of both
+# sections that the warp leaves full) and corner bar, the share of valid
+# flow nodes within DEC_FLOW_PX of the known field, the 3d field's
+# amplitude, the crop on which ECC is also run on the CPU, the
+# checkpoint's snapshot period (chunks) and the composition's bar.
+DEC_AFFINE = (0.3, 1.001, (6.4, -3.7))
+DEC_ROLL, DEC_ROLL3 = (37, -21), (5, -9, 13)
+DEC_MARGIN, DEC_CORNER_PX = 64, 0.05
+DEC_FLOW_SHARE, DEC_FLOW_PX = 0.95, 1.0
+DEC_3D, DEC_3D_AMP = (64, 576, 576), 3.0
+DEC_ECC_CROP = 1024
+DEC_SAVE_EVERY = 2
+DEC_COMPOSE_PX = 2e-3
 # Per-axis peak windows held on K1, K2, K5 and K6: (min_distance,
 # peak_radius), one radius per surface axis (y, x).
 PER_AXIS = ((1, 3), (4, 2))
@@ -1006,7 +1037,7 @@ def shift_warp_plain(images, coords, method='lanczos', counter=None):
 
 @contextlib.contextmanager
 def recorded_calls(calls: dict, keep: dict | None = None):
-  """Records a copy of the arguments of every K1, K4, K6, K8 and K13
+  """Records a copy of the arguments of every K1, K4, K6, K8, K9 and K13
   wrapper call into `calls[name]` (K4's under its launch counter's name:
   'warp_gather', 'warp_subvolume' or 'ndimage_warp'; the wrappers still
   launch and count), so that each kernel can be held against its plain
@@ -1019,7 +1050,7 @@ def recorded_calls(calls: dict, keep: dict | None = None):
   saved = [(mod, name, getattr(mod, name)) for mod, name in (
       (cuda_flow, 'dense_flow_peaks'), (cuda_flow, 'flow_peaks'),
       (cuda_warp, 'shift_warp'), (cuda_mesh, 'force_2d'),
-      (cuda_warp, 'shift_warp_3d'))]
+      (cuda_mesh, 'force_3d'), (cuda_warp, 'shift_warp_3d'))]
 
   def recorder(name, fn):
     def call(*args, **kwargs):
@@ -1044,8 +1075,8 @@ def recorded_calls(calls: dict, keep: dict | None = None):
 
 @contextlib.contextmanager
 def plain_kernels():
-  """Routes K1, K5, K6, K7, K4 and K8 to their plain versions on the
-  card's tensors, so that a path can be run once with its kernels and
+  """Routes K1, K5, K6, K7, K4, K8, K9 and K13 to their plain versions on
+  the card's tensors, so that a path can be run once with its kernels and
   once without."""
   from sofima_tpu_torch import mesh
   from sofima_tpu_torch.ops import cuda_flow
@@ -1054,6 +1085,7 @@ def plain_kernels():
   k1, k5 = cuda_flow.dense_flow_peaks, cuda_flow.masked_dense_flow_peaks
   k6, k7 = cuda_flow.flow_peaks, cuda_flow.corr_patches
   k4, k8 = cuda_warp.shift_warp, cuda_mesh.force_2d
+  k9, k13 = cuda_mesh.force_3d, cuda_warp.shift_warp_3d
 
   def k5_plain(pre, post, pre_valid, post_valid, patch_size, step,
                mean=None, min_distance=2, threshold_rel=0.5, peak_radius=5):
@@ -1071,14 +1103,23 @@ def plain_kernels():
   cuda_flow.masked_dense_flow_peaks = k5_plain
   cuda_flow.flow_peaks = cuda_flow.patch_flow_peaks_plain
   cuda_flow.corr_patches = cuda_flow.corr_patches_plain
+  def k13_plain(volume, coords, method, *bounds_origin, tile_stats=None):
+    del tile_stats
+    bo = list(bounds_origin) + [0] * (9 - len(bounds_origin))
+    return cuda_warp.shift_warp_3d_plain(volume, coords, method, bo[:6],
+                                         bo[6:])
+
   cuda_warp.shift_warp = shift_warp_plain
   cuda_mesh.force_2d = mesh.inplane_force_plain
+  cuda_mesh.force_3d = mesh.elastic_mesh_3d_plain
+  cuda_warp.shift_warp_3d = k13_plain
   try:
     yield
   finally:
     cuda_flow.dense_flow_peaks, cuda_flow.masked_dense_flow_peaks = k1, k5
     cuda_flow.flow_peaks, cuda_flow.corr_patches = k6, k7
     cuda_warp.shift_warp, cuda_mesh.force_2d = k4, k8
+    cuda_mesh.force_3d, cuda_warp.shift_warp_3d = k9, k13
 
 
 def masked_warm_slice(dev, report, _build, stack) -> dict:
@@ -3016,6 +3057,389 @@ def processor_slice(dev, report, _build) -> dict:
   return launches_h
 
 
+def dec_affine(scale: float | None = None) -> np.ndarray:
+  """Path (i)'s known affine as WarpAffine takes it: [2, 3], xy rows
+  (rotation about the origin, then the shift); `scale` overrides its
+  scale (1.0: the euclidean pair's)."""
+  deg, s, (tx, ty) = DEC_AFFINE
+  s = s if scale is None else scale
+  c, n = s * np.cos(np.deg2rad(deg)), s * np.sin(np.deg2rad(deg))
+  return np.array([[c, -n, tx], [n, c, ty]])
+
+
+def dec_field(pos):
+  """Path (h)'s smooth field (PROC_AMP px) at pixel positions `pos`
+  (tensors broadcasting to [y, x]) of a PROC_N^2 section: (dx, dy)."""
+  n = PROC_N
+  y, x = pos
+  return (PROC_AMP * torch.sin(2 * np.pi * y / n) * torch.cos(np.pi * x / n),
+          PROC_AMP * torch.cos(2 * np.pi * x / n) * torch.sin(np.pi * y / n))
+
+
+def dec_field3d(dev):
+  """Path (i)'s smooth 3d field (DEC_3D_AMP px) on DEC_3D's grid, as a
+  relative coordinate map [3, z, y, x] with (x, y, z) channels."""
+  d, h, w = DEC_3D
+  z, y, x = torch.meshgrid(*[torch.arange(k, dtype=torch.float32, device=dev)
+                             for k in DEC_3D], indexing='ij')
+  a = DEC_3D_AMP
+  return torch.stack([
+      a * torch.sin(2 * np.pi * y / h) * torch.cos(np.pi * z / d),
+      a * torch.cos(2 * np.pi * x / w) * torch.sin(np.pi * z / d),
+      0.5 * a * torch.sin(np.pi * x / w) * torch.sin(np.pi * y / h)])
+
+
+def dec_inputs(dev) -> dict:
+  """Path (i)'s inputs: path (h)'s sections 0 and 1 ([x, y] numpy, as the
+  decorators read them), bench's mask at their size, path (a)'s tile
+  volume (texture3d) and its copy moved by `dec_field3d` (the field's
+  linear resample, edge-clamped; [x, y, z] numpy), and rolled copies."""
+  from sofima_tpu_torch.ops import interp
+  stack, _ = proc_stack(dev)
+  vol = texture3d(DEC_3D, 9, dev)
+  field = dec_field3d(dev)
+  grid = torch.meshgrid(*[torch.arange(k, dtype=torch.float32, device=dev)
+                          for k in DEC_3D], indexing='ij')
+  coords = torch.stack([grid[0] + field[2], grid[1] + field[1],
+                        grid[2] + field[0]])
+  del grid
+  moved = interp.sample(vol, coords, 'linear', mode='nearest')
+  del coords
+  xyz = lambda t: t.permute(2, 1, 0).cpu().numpy()
+  out = dict(
+      sec0=stack[0].T.copy(), sec1=stack[1].T.copy(),
+      mask=bench_mask(PROC_N, dev).cpu().numpy().T.copy(),
+      rolled=np.roll(stack[0], DEC_ROLL, (0, 1)).T.copy(),
+      vol=xyz(vol), moved3=xyz(moved),
+      rolled3=xyz(torch.roll(vol, DEC_ROLL3, (0, 1, 2))),
+      field3=field.cpu().numpy())
+  del stack, vol, moved, field
+  torch.cuda.empty_cache()
+  return out
+
+
+def dec_flow_share(flow, field, sign: float) -> float:
+  """The share of the finite nodes of a padded flow ([c, ...] numpy) whose
+  x/y[/z] lie within DEC_FLOW_PX of `sign` x the known field at the
+  nodes (`field` [dim, ...])."""
+  dim = len(field)
+  ok = np.isfinite(flow[:dim]).all(0)
+  err = np.zeros(ok.shape, bool)
+  for c in range(dim):
+    err |= np.abs(np.nan_to_num(flow[c]) - sign * field[c]) > DEC_FLOW_PX
+  return float((ok & ~err).sum() / max(int(ok.sum()), 1))
+
+
+def dec_corner_px(got, truth, size) -> float:
+  """Largest distance between the images of the corners of a `size` (x, y)
+  image under two [2, 3] xy transforms."""
+  w, h = size
+  corners = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1],
+                      [w - 1, h - 1, 1]], np.float64).T
+  return float(np.linalg.norm((np.asarray(got) - truth) @ corners,
+                              axis=0).max())
+
+
+def timed(timings: dict, name: str, fn):
+  """`fn()`, its wall (device synchronized) into `timings[name]`."""
+  sync()
+  t0 = time.perf_counter()
+  out = fn()
+  sync()
+  timings[name] = time.perf_counter() - t0
+  return out
+
+
+def dec_kernel_chunks(dev, d, timings) -> dict:
+  """The chunk functions of path (i) that launch kernels on the card: the
+  circular OptimFlow (K1), the masked one (K5), MeshRelaxFlowFilter 2d
+  (K8) and 3d (K9), WarpAffine 2d on both known affines (K12) and 3d
+  (K13). Numpy out; each stage's wall into `timings`."""
+  from sofima_tpu_torch.decorators import flow as dflow
+  from sofima_tpu_torch.decorators import warp as dwarp
+
+  def stage(name, fn):
+    return timed(timings, name, fn)
+
+  flow_kw = dict(patch_zyx=(160, 160), step_zyx=(STRIDE, STRIDE),
+                 batch_size=1024, pad=True, device=dev, mode='circular_dft')
+  return dict(
+      circular=stage('flow_circular', lambda: dflow._optim_flow(
+          d['sec1'], d['sec0'], **flow_kw)),
+      masked=stage('flow_masked', lambda: dflow._optim_flow(
+          d['sec1'], d['sec0'], input_mask=d['mask'], fixed_mask=d['mask'],
+          **flow_kw)),
+      mesh2d=stage('relax_2d', lambda: dflow._mesh_relax_flow(
+          d['clean2d'], device=dev, **d['cfg2d'])),
+      warp_affine=stage('warp_affine_2d', lambda: dwarp._warp_affine(
+          d['sec0'], dec_affine(), device=dev)),
+      warp_euclid=stage('warp_euclid_2d', lambda: dwarp._warp_affine(
+          d['sec0'], dec_affine(1.0), device=dev)),
+      mesh3d=stage('relax_3d', lambda: dflow._mesh_relax_flow(
+          d['clean3d'], device=dev, **d['cfg3d'])),
+      warp3d=stage('warp_affine_3d', lambda: dwarp._warp_affine(
+          d['vol'], d['m3'], device=dev)))
+
+
+def decorator_slice(dev, report, _build) -> dict:
+  """Path (i): the decorator layer's chunk functions (what each decorator's
+  read_fn computes; the card has no tensorstore, so `decorate` itself is
+  not run) on path (h)'s sections and path (a)'s tile volume, the
+  registration ops against the CPU, the checkpointing relaxer's resume,
+  and the kernels of the path against their plain versions (the path run
+  again under `plain_kernels`).
+
+  Returns the kernels' launch counts from the path's run."""
+  import tempfile
+  from sofima_tpu_torch.decorators import affine as daffine
+  from sofima_tpu_torch.decorators import flow as dflow
+  from sofima_tpu_torch.decorators import maps as dmaps
+  from sofima_tpu_torch.decorators import warp as dwarp
+  from sofima_tpu_torch.ops import cuda_mesh
+  from sofima_tpu_torch.ops import registration
+  from sofima_tpu_torch.processor.defaults import em_2d
+  from sofima_tpu_torch.pipeline import stitch3d
+  from sofima_tpu_torch.utils import checkpoint
+
+  t_phase = time.perf_counter()
+  d = dec_inputs(dev)
+  print(f'path (i): the decorator layer\'s chunk functions on path (h)\'s '
+        f'sections 0 and 1 ({PROC_N}^2, patch 160, stride {STRIDE}, batch '
+        f'1024, padded) and path (a)\'s tile volume {DEC_3D} moved by a '
+        f'{DEC_3D_AMP:g} px field; {smi()}')
+  timings, gates = {}, {}
+
+  def stage(name, fn):
+    return timed(timings, name, fn)
+
+  def gate(name, value, ok, bar):
+    gates[name] = value
+    print(f'  {name}: {value:.6g} (bar {bar})')
+    check(ok, f'path (i): {name} {value} (bar {bar})')
+
+  cfg2d = dataclasses.asdict(em_2d.relax_mesh_config().integration_config)
+  cfg3d = dataclasses.asdict(stitch3d.Stitch3dConfig().mesh_cfg)
+  clean_kw = dict(min_peak_ratio=1.6, min_peak_sharpness=1.6,
+                  max_magnitude=40, max_deviation=10, device=dev)
+  rec_kw = dict(max_gradient=0, max_deviation=20, min_patch_size=400,
+                device=dev)
+  flow_kw = dict(patch_zyx=(160, 160), step_zyx=(STRIDE, STRIDE),
+                 batch_size=1024, pad=True, device=dev)
+  th = np.deg2rad(0.5)
+  d['m3'] = np.array([[np.cos(th), -np.sin(th), 0, 2.5],
+                      [np.sin(th), np.cos(th), 0, -1.25], [0, 0, 1, 0.75]])
+
+  _build.reset_launch_counts()
+  t0 = time.perf_counter()
+  # The flows: padfield (the default; torch.fft, no kernel), then cleaned
+  # and reconciled at the em_2d defaults; the 3d padfield flow, cleaned.
+  flow_pf = stage('flow_padfield', lambda: dflow._optim_flow(
+      d['sec1'], d['sec0'], **flow_kw))
+  # The reconcile filter squeezes singleton dims, as the reference's does,
+  # so a single section cannot pass it: it takes the cleaned padfield flow
+  # with a second section, the cleaned padfield flow at 2x the stride
+  # (every other node, upsampled by repetition), and section 0 goes on.
+  clean = stage('clean', lambda: dflow._clean_flow(flow_pf, **clean_kw))
+  coarse = np.repeat(np.repeat(clean[:, :, ::2, ::2], 2, 2), 2, 3)[
+      :, :, :clean.shape[2], :clean.shape[3]]
+  d['clean2d'] = stage('reconcile', lambda: dflow._reconcile_flow(
+      np.concatenate([clean, coarse], 1), **rec_kw))[:, :1].copy()
+  flow3 = stage('flow_padfield_3d', lambda: dflow._optim_flow(
+      d['moved3'], d['vol'], (32, 32, 32), (16, 16, 16), 64, True,
+      device=dev))
+  d['clean3d'] = dflow._clean_flow(flow3, **clean_kw)
+  d['cfg2d'], d['cfg3d'] = cfg2d, cfg3d
+  out = dec_kernel_chunks(dev, d, timings)
+  mesh2d = out['mesh2d']
+  # The maps: a translation's dense map (MakeAffineCoordMap's chunk) and
+  # ComposeCoordMaps' chunk of the solved mesh with it.
+  shift = np.array([[1, 0, 0, 2.5], [0, 1, 0, -1.5], [0, 0, 1, 0]])
+  g = mesh2d.shape[-1]
+  aff_map = stage('make_affine_map', lambda: dmaps.map_utils.make_affine_map(
+      shift, dmaps.BoundingBox(start=(0, 0, 0), size=(g, g, 1)), (1, 1, 1)))
+  composed = stage('compose_maps', lambda: dmaps._compose_coord_maps(
+      mesh2d, aff_map[:2].astype(np.float32), device=dev,
+      start1=(0, 0, 0), start2=(0, 0, 0), stride1=float(STRIDE),
+      stride2=float(STRIDE)))
+  # ECC on the known affines (the crop both sections fill), the
+  # translations of rolled copies, WarpCoordMap by the 3d field.
+  m = DEC_MARGIN
+  crop = np.s_[m:-m, m:-m]
+  fix_c = d['sec0'][crop]
+  shift_m = np.eye(3)
+  shift_m[:2, 2] = m
+  ecc = {}
+  for motion, warped, scale in (('affine', out['warp_affine'], None),
+                                ('euclidean', out['warp_euclid'], 1.0)):
+    truth = (np.linalg.inv(shift_m) @ np.vstack([dec_affine(scale),
+                                                 [0, 0, 1]]) @ shift_m)[:2]
+    got = stage(f'ecc_{motion}', lambda: daffine._optim_affine_sections(
+        [(fix_c, warped[crop])], motion=motion, device=dev)[..., 0])
+    ecc[motion] = (got, truth, warped[crop])
+    gate(f'ecc_{motion}_corner_px', dec_corner_px(got, truth, fix_c.shape),
+         dec_corner_px(got, truth, fix_c.shape) < DEC_CORNER_PX,
+         DEC_CORNER_PX)
+  t2 = stage('translation_2d', lambda: daffine._optim_translation(
+      d['sec0'], d['rolled'], device=dev))
+  t3 = stage('translation_3d', lambda: daffine._optim_translation(
+      d['vol'], d['rolled3'], device=dev))
+  want2 = -np.asarray(DEC_ROLL[::-1], np.float64)
+  want3 = -np.asarray(DEC_ROLL3[::-1], np.float64)
+  check(np.array_equal(t2[:, 2], want2) and np.array_equal(t2[:, :2],
+                                                          np.eye(2)),
+        f'path (i): 2d translation {t2[:, 2]}, want {want2}')
+  check(np.array_equal(t3[:, 3], want3) and np.array_equal(t3[:, :3],
+                                                          np.eye(3)),
+        f'path (i): 3d translation {t3[:, 3]}, want {want3}')
+  print(f'  translations exact: 2d {t2[:, 2].tolist()}, 3d '
+        f'{t3[:, 3].tolist()}')
+  warped3 = stage('warp_coord_map_3d', lambda: dwarp._warp_coord_map(
+      d['vol'], d['field3'], device=dev))
+  # Checkpoint: one run to convergence, one stopped at a snapshot and
+  # resumed; K8 must repeat its bits for the resume to.
+  x_in = torch.from_numpy(np.ascontiguousarray(d['clean2d'])).to(dev)
+  f_a = cuda_mesh.force_2d(x_in, 0.1, (STRIDE, STRIDE))
+  k8_bits = same_bits(f_a, cuda_mesh.force_2d(x_in, 0.1, (STRIDE, STRIDE)))
+  # Path (h)'s relax settings (e2e_pipeline's k0 and chunk).
+  cfg_ck = dataclasses.replace(em_2d.relax_mesh_config().integration_config,
+                               k0=0.1, num_iters=500)
+  x0 = np.zeros_like(d['clean2d'])
+  prev2d = d['clean2d']
+
+  def relax(path, cfg):
+    return checkpoint.CheckpointingRelaxer(
+        path, cfg, save_every=DEC_SAVE_EVERY, device=dev).run(x0, prev2d)
+
+  with tempfile.TemporaryDirectory() as tmp:
+    whole, steps = stage('checkpoint_whole', lambda: relax(
+        os.path.join(tmp, 'a.npz'), cfg_ck))
+    per_save = DEC_SAVE_EVERY * cfg_ck.num_iters
+    stop = max(per_save, (steps // 2) // per_save * per_save)
+    path = os.path.join(tmp, 'b.npz')
+    stage('checkpoint_stopped', lambda: relax(
+        path, dataclasses.replace(cfg_ck, max_iters=stop)))
+    snap_step = int(checkpoint.load_solver_state(path)['step'])
+    resumed, steps_r = stage('checkpoint_resumed', lambda: relax(path,
+                                                                  cfg_ck))
+  wall = time.perf_counter() - t0
+  launches = dict(_build.launch_counts)
+  names = {'K1': 'dense_flow_peaks', 'K5': 'masked_flow_peaks',
+           'K8': 'force2d', 'K9': 'force3d', 'K12': 'ndimage_warp',
+           'K13': 'warp_gather_3d'}
+  counts = {k: launches[v] for k, v in names.items()}
+  counts['K5'] += launches['masked_flow_pure']
+  print(f'  wall {wall:.3f} s; stage seconds: ' + ', '.join(
+      f'{k} {v:.3f}' for k, v in timings.items()))
+  print(f'  launches on path (i): {counts} (K5 dense route '
+        f'{launches["masked_flow_peaks"]}, pure route '
+        f'{launches["masked_flow_pure"]})')
+  for k, n in counts.items():
+    check(n > 0, f'kernel {k} was not launched on path (i)')
+
+  # Gates on what came out.
+  n = PROC_N
+  k_nodes = flow_pf.shape[-1]
+  pos = torch.arange(k_nodes, dtype=torch.float32) * STRIDE
+  fx, fy = dec_field((pos[:, None], pos[None, :]))
+  field2 = np.stack([fx.numpy(), fy.numpy()])
+  for name, f in (('padfield', flow_pf), ('circular', out['circular']),
+                  ('masked', out['masked'])):
+    share = dec_flow_share(f[:, 0], field2, -1.0)
+    gate(f'flow_{name}_share', share, share >= DEC_FLOW_SHARE,
+         DEC_FLOW_SHARE)
+  pos3 = [torch.arange(k, dtype=torch.float32) * 16 for k in flow3.shape[1:]]
+  f3 = dec_field3d('cpu')
+  idx = np.ix_(*[np.minimum(p.long().numpy(), s - 1)
+                 for p, s in zip(pos3, DEC_3D)])
+  field3 = np.stack([f3[c].numpy()[idx] for c in range(3)])
+  share3 = dec_flow_share(flow3, field3, -1.0)
+  print(f'  3d padfield flow {list(flow3.shape)}: {share3:.4f} of the finite '
+        f'nodes within {DEC_FLOW_PX} px of the field (not gated)')
+  # Composed with a translation's map, the mesh moves by the translation
+  # wherever it stays on the grid (compose_maps_fast clamps at the edge:
+  # the inner nodes, the mesh moving less than a stride), up to the f32
+  # rounding of absolute coordinates of up to PROC_N px (DEC_COMPOSE_PX).
+  inner2 = np.s_[:, :, 1:-1, 1:-1]
+  valid = (np.isfinite(composed[inner2]).all(0)
+           & np.isfinite(mesh2d[inner2]).all(0))
+  comp_err = float(np.abs(composed[inner2] - mesh2d[inner2] - np.array(
+      [2.5, -1.5])[:, None, None, None])[:, valid].max())
+  gate('compose_translation_err', comp_err, comp_err < DEC_COMPOSE_PX,
+       DEC_COMPOSE_PX)
+  inner = np.s_[5:-5, 5:-5, 5:-5]
+  wcm = float(np.abs(warped3 - d['moved3'])[inner].max())
+  gate('warp_coord_map_3d_err', wcm, wcm < 1e-2, 1e-2)
+  check(bool(np.isfinite(mesh2d).all() and np.isfinite(out['mesh3d']).all()),
+        'path (i): meshes not finite')
+  print(f'  K8 repeats its bits: {k8_bits}; checkpoint: {steps} steps whole, '
+        f'stopped at {snap_step}, resumed to {steps_r}')
+  check(snap_step == stop and steps_r == steps,
+        f'path (i): checkpoint steps {snap_step} / {steps_r}, want {stop} / '
+        f'{steps}')
+  ck_err = float((whole - resumed).abs().max())
+  if k8_bits:
+    check(same_bits(whole, resumed), 'path (i): the resumed relaxation '
+          'differs from the whole one')
+  gate('checkpoint_resume_px', ck_err, ck_err < 1e-5, 1e-5)
+
+  # Registration on the card against the CPU: ECC on a centre crop,
+  # both translations.
+  c0 = (fix_c.shape[0] - DEC_ECC_CROP) // 2
+  sub = np.s_[c0:c0 + DEC_ECC_CROP, c0:c0 + DEC_ECC_CROP]
+  ecc_cpu = 0.0
+  for motion, (_, _, mov_c) in ecc.items():
+    got = registration.optim_transform(fix_c[sub], mov_c[sub], motion=motion,
+                                       device=dev)[1]
+    ref = registration.optim_transform(fix_c[sub], mov_c[sub], motion=motion,
+                                       device='cpu')[1]
+    ecc_cpu = max(ecc_cpu, float(np.abs(got - ref).max()))
+  gate('ecc_card_vs_cpu', ecc_cpu, ecc_cpu < 1e-3, 1e-3)
+  for name, (fix, mov, got) in (('2d', (d['sec0'], d['rolled'], t2)),
+                                ('3d', (d['vol'], d['rolled3'], t3))):
+    ref = daffine._optim_translation(fix, mov, device='cpu')
+    check(np.array_equal(got, ref), f'path (i): {name} translation differs '
+          f'from the CPU')
+  print('  translations equal on the card and the CPU')
+
+  # The kernels against their plain versions: the path's kernel chunks
+  # again with every kernel swapped (nothing may launch), on the same
+  # inputs.
+  plain_t = {}
+  before = dict(_build.launch_counts)
+  with plain_kernels():
+    plain = dec_kernel_chunks(dev, d, plain_t)
+  check(dict(_build.launch_counts) == before,
+        'path (i): a kernel launched under plain_kernels')
+  errs = {}
+  for name, key in (('K1', 'circular'), ('K5', 'masked')):
+    r = compare_flow(torch.from_numpy(out[key][:, 0]).reshape(4, -1),
+                     torch.from_numpy(plain[key][:, 0]).reshape(4, -1),
+                     f'{name} (OptimFlow {key}) against plain')
+    errs[name] = r
+  for name, key in (('K8', 'mesh2d'), ('K9', 'mesh3d')):
+    e = float(np.abs(out[key] - plain[key]).max())
+    errs[name] = dict(err=e)
+    gate(f'{name}_mesh_vs_plain_px', e, e < VERLET_TOL, VERLET_TOL)
+  for name, keys in (('K12', ('warp_affine', 'warp_euclid')),
+                     ('K13', ('warp3d',))):
+    e = max(float(np.abs(out[k] - plain[k]).max()) for k in keys)
+    errs[name] = dict(err=e)
+    gate(f'{name}_render_vs_plain', e, e < 1e-3 * 255, 1e-3 * 255)
+  print(f'  plain run stage seconds: ' + ', '.join(
+      f'{k} {v:.3f}' for k, v in plain_t.items()))
+  for key, r in errs.items():
+    report[key]['max_abs_err_path_i'] = r['err']
+    report[key]['launches_path_i'] = counts[key]
+  report['path_i'] = dict(
+      wall_s=wall, plain_s=sum(plain_t.values()), launches=counts,
+      checkpoint_steps=steps, checkpoint_stop=stop, k8_same_bits=k8_bits,
+      **gates, **timings)
+  del d, out, plain
+  torch.cuda.empty_cache()
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+  return launches
+
+
 def stitch_render_phase(dev, report, _build, tiles, out, vol3, sel,
                         stride3, margin) -> None:
   """StitchAndRender3dTiles (the LICONN notebook's render processor) on
@@ -3188,6 +3612,8 @@ def main() -> int:
   per_axis_phase(dev)
   torch.cuda.empty_cache()
   processor_slice(dev, report, _build)
+  torch.cuda.empty_cache()
+  decorator_slice(dev, report, _build)
   print(f'total {time.perf_counter() - t_start:.1f} s')
 
   kernels = []
@@ -3236,7 +3662,7 @@ def main() -> int:
                                    'path_d', 'path_e', 'montage_small',
                                    'drift_removal', 'path_f', 'path_g',
                                    'padfield3d', 'path_h',
-                                   'render3d_processor')}
+                                   'render3d_processor', 'path_i')}
   print(json.dumps({'paths': paths}))
   print(smi())
   print(json.dumps({'kernels': kernels}))

@@ -666,12 +666,24 @@ def mask_irregular(coord_map: np.ndarray, stride: Sequence[float],
 
 def make_affine_map(matrix: np.ndarray, box: BoundingBox,
                     stride) -> np.ndarray:
-  """Relative coordinate map of an affine transform ([3, 4], xyz rows)."""
-  coord_map = np.array(_identity_map_absolute(
-      tuple(int(s) for s in box.size[::-1]), stride)[::-1])
-  coord_map[0, ...] += box.start[0]
-  coord_map[1, ...] += box.start[1]
-  coord_map[2, ...] += box.start[2]
-  affine_absolute = (np.dot(matrix[:3, :3], coord_map.reshape((3, -1)))
-                     + matrix[:, 3][:, np.newaxis]).reshape(coord_map.shape)
-  return affine_absolute - coord_map
+  """Relative coordinate map of an affine transform ([3, 4], xyz rows).
+
+  float64 [3, z, y, x] (x, y, z channels), as the reference's. Channel r
+  is sum_c (matrix[r, c] - [r == c]) p_c + matrix[r, 3], with p_c the
+  absolute positions along axis c: formed on each axis and broadcast
+  over the grid, so that no [3, n] identity map is built and multiplied.
+  """
+  size_zyx = tuple(int(s) for s in box.size[::-1])
+  stride_zyx = _as_vec(stride, 3)
+  pos = []  # absolute positions along x, y and z, [z, y, x]-shaped
+  for c in range(3):
+    view = [1, 1, 1]
+    view[2 - c] = size_zyx[2 - c]
+    pos.append((np.arange(size_zyx[2 - c]) * stride_zyx[2 - c]
+                + box.start[c]).reshape(view))
+  out = np.empty((3,) + size_zyx)
+  for r in range(3):
+    coef = [float(matrix[r, c]) - (r == c) for c in range(3)]
+    np.add(coef[0] * pos[0], coef[1] * pos[1], out=out[r])
+    out[r] += coef[2] * pos[2] + float(matrix[r, 3])
+  return out

@@ -253,15 +253,32 @@ def maybe_cache(vol: BaseVolume, cache_bytes: int,
 def decorate_volume(vol: BaseVolume, decorator_specs) -> BaseVolume:
   """Applies TensorStore decorator specs to a volume.
 
-  The reference applies each spec (`{'decorator': <registered name>,
-  **kwargs}` or `(name, kwargs)`) in order through its decorator
-  registry. The port has no decorators yet (ROADMAP.md, Queue 1 item 4:
-  `decorators/*` with `ops/registration.py`): empty specs return the
-  volume as it is, any other spec raises NotImplementedError.
+  Each spec names a registered decorator (sofima_tpu_torch.decorators)
+  plus its constructor kwargs, as a `{'decorator': <name>, **kwargs}`
+  dict or a `(name, kwargs)` tuple; the decorators are applied in order
+  to the underlying TensorStore (WarpByMap's `map_decorator_specs` /
+  `data_decorator_specs`). In-memory volumes are adapted through the
+  TensorStore array driver. Empty specs return the volume itself; an
+  unknown name raises KeyError.
   """
   if not decorator_specs:
     return vol
-  raise NotImplementedError(
-      'decorate_volume: the decorators are not ported yet (ROADMAP.md, '
-      'Queue 1 item 4: decorators/* with ops/registration.py); got '
-      f'{list(decorator_specs)!r}')
+  import tensorstore as ts
+  from sofima_tpu_torch.decorators import base as decorators_base
+
+  if isinstance(vol, TensorStoreVolume):
+    store = vol._ts
+  elif isinstance(vol, InMemoryVolume):
+    store = ts.array(vol.data)
+  else:
+    raise TypeError(f'Cannot decorate volume of type {type(vol)!r}')
+
+  for spec in decorator_specs:
+    if isinstance(spec, dict):
+      kwargs = dict(spec)
+      name = kwargs.pop('decorator')
+    else:
+      name, kwargs = spec
+    dec = decorators_base.build(name, **(kwargs or {}))
+    store = dec.decorate(store)
+  return TensorStoreVolume(store, pixel_size=vol.meta.pixel_size)

@@ -25,7 +25,13 @@ order moves it there, with every clean-gate decision equal),
 1e-3 of the pixels of the CPU's; the small 3d stitch, the
 small 2d montage and the drift-removal stack step on the card within
 0.01 * stride of the CPU plain path (the montage canvas within 0.01 gray
-levels in the mean and 0.05 at most where both masks are set).
+levels in the mean and 0.05 at most where both masks are set). The
+decorator layer's chunk functions against the same functions under
+chip_smoke's `plain_kernels` (flows as K1's bar, meshes within 1e-2 px,
+renders within 1e-3 of the gray range), ECC and phase correlation on the
+card against the CPU (matrices within 1e-3, shifts exact), ECC's loop
+under CUDA's sync debug mode (no call waits for the card) and a
+checkpointed relaxation stopped, resumed and equal to one run.
 """
 
 import dataclasses
@@ -866,3 +872,168 @@ def test_runner_threads_count_launches(dev):
   assert boxes >= 16 and counts == [2 * boxes, 2 * boxes]
   np.testing.assert_array_equal(np.nan_to_num(outs[0], nan=9e9),
                                 np.nan_to_num(outs[1], nan=9e9))
+
+
+# -- The decorator layer (path (i)): each chunk function on the card
+# against the same function under chip_smoke.plain_kernels() (every kernel
+# swapped for its plain version on the card's tensors): flows as K1's bar,
+# meshes within 1e-2 px, renders within 1e-3 of the gray range.
+
+
+def _plain_kernels():
+  import chip_smoke  # the repository root, where the tests are run from
+  return chip_smoke.plain_kernels()
+
+
+def _warped_pair(n, amp=4.0, seed=15):
+  """[x, y] texture and its copy moved by a smooth `amp` px field."""
+  from sofima_tpu_torch.ops import interp
+  tex = torch.from_numpy(_texture(n, seed)).float()
+  r = torch.arange(n, dtype=torch.float32)
+  y, x = r[:, None], r[None, :]
+  coords = torch.stack([
+      y + amp * torch.cos(2 * np.pi * x / n) * torch.sin(np.pi * y / n),
+      x + amp * torch.sin(2 * np.pi * y / n) * torch.cos(np.pi * x / n)])
+  moved = interp.sample(tex, coords, 'linear', mode='nearest')
+  return tex.numpy().T.copy(), moved.numpy().T.copy()
+
+
+def _chunk(name, dev):
+  """Runs path (i)'s chunk `name` on `dev` -> (numpy result, launch
+  counter that it must advance)."""
+  from sofima_tpu_torch.decorators import flow as dflow
+  from sofima_tpu_torch.decorators import warp as dwarp
+  if name in ('flow_circular', 'flow_masked'):
+    # 1280^2: 32^2 nodes, enough for the statistics' share bar to allow
+    # the few that summation order moves (at 640^2, 16^2 nodes, one
+    # statistic of ~340 outside 3e-4 already fails it).
+    fix, mov = _warped_pair(1280)
+    kw = dict(patch_zyx=(160, 160), step_zyx=(40, 40), batch_size=256,
+              mode='circular_dft', device=dev)
+    if name == 'flow_masked':
+      m = np.zeros(fix.shape, bool)
+      m[100:260, 300:380] = True
+      m[700:900, 500:1100] = True
+      kw.update(input_mask=m, fixed_mask=m[::-1].copy())
+    return dflow._optim_flow(mov, fix, **kw), (
+        'dense_flow_peaks' if name == 'flow_circular' else 'masked_flow_pure')
+  if name in ('relax_2d', 'relax_3d'):
+    rng = np.random.RandomState(16)
+    shape = (2, 1, 24, 28) if name == 'relax_2d' else (3, 5, 12, 14)
+    prev = (3 * rng.randn(*shape)).astype(np.float32)
+    prev[:, 0, 3, 4] = np.nan
+    dim = shape[0]
+    cfg = dict(dt=0.001, gamma=0.0, k0=0.05, k=0.1, stride=(40.0,) * dim,
+               num_iters=200, max_iters=4000, stop_v_max=0.005, dt_max=100.0)
+    return dflow._mesh_relax_flow(prev, device=dev, **cfg), (
+        'force2d' if dim == 2 else 'force3d')
+  fix, mov = _warped_pair(640)
+  if name == 'warp_2d':
+    th = np.deg2rad(0.7)
+    m = np.array([[np.cos(th), -np.sin(th), 3.4], [np.sin(th), np.cos(th),
+                                                   -2.2]])
+    return dwarp._warp_affine(fix, m, device=dev), 'ndimage_warp'
+  vol = np.stack([_texture(96, seed=17 + z)[:80] for z in range(24)], -1)
+  m = np.array([[1.0, 0.01, 0, 1.5], [-0.01, 1.0, 0, -0.75], [0, 0, 1, 0.5]])
+  return dwarp._warp_affine(vol.transpose(1, 0, 2).copy(), m,
+                            device=dev), 'warp_gather_3d'
+
+
+@pytest.mark.parametrize('name', ['flow_circular', 'flow_masked', 'relax_2d',
+                                  'relax_3d', 'warp_2d', 'warp_3d'])
+def test_decorator_chunks_against_plain(dev, name):
+  before = _build.launch_counts.copy()
+  got, counter = _chunk(name, dev)
+  assert _build.launch_counts[counter] > before[counter]
+  with _plain_kernels():
+    after = _build.launch_counts.copy()
+    ref, _ = _chunk(name, dev)
+    assert _build.launch_counts == after
+  if name.startswith('flow'):
+    assert np.isfinite(got[0]).mean() > 0.5
+    _flow_close(torch.from_numpy(got[:, 0]).reshape(4, -1),
+                torch.from_numpy(ref[:, 0]).reshape(4, -1))
+  elif name.startswith('relax'):
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)
+    assert np.isfinite(got).all()
+  else:
+    np.testing.assert_allclose(got, ref, atol=1e-3 * 255, rtol=0)
+
+
+@pytest.mark.parametrize('motion', ['translation', 'euclidean', 'affine'])
+def test_ecc_card_against_cpu(dev, motion):
+  from scipy import ndimage
+  from sofima_tpu_torch.ops import registration
+  fix = _texture(320, seed=18).T
+  th = np.deg2rad(1.0)
+  m = np.array([[np.cos(th), -np.sin(th), 2.5], [np.sin(th), np.cos(th),
+                                                 -1.5], [0, 0, 1]])
+  inv = np.linalg.inv(m)
+  mov = ndimage.affine_transform(fix, inv[:2, :2], inv[:2, 2], order=1,
+                                 mode='nearest').astype(np.float32)
+  cc, got = registration.optim_transform(fix, mov, motion=motion,
+                                         device=dev)
+  cc_cpu, ref = registration.optim_transform(fix, mov, motion=motion,
+                                             device='cpu')
+  np.testing.assert_allclose(got, ref, atol=1e-3)
+  assert abs(cc - cc_cpu) < 1e-4
+
+
+@pytest.mark.parametrize('motion', ['translation', 'euclidean', 'affine'])
+def test_ecc_loop_never_waits_for_the_card(dev, motion):
+  # CUDA's sync debug mode raises on any call that makes the host wait
+  # for the device: `_ecc_core` (its set-up and its Gauss-Newton loop)
+  # must make none.
+  from sofima_tpu_torch.ops import registration
+  img = torch.from_numpy(_texture(256, seed=21)).to(dev)
+  mov = torch.roll(img, (2, -3), (0, 1))
+  init = torch.eye(2, 3, device=dev)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    out = registration._ecc_core(img, mov, init, 5, motion)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  assert out.shape == (2, 3) and out.is_cuda
+
+
+@pytest.mark.parametrize('shape, roll', [((300, 260), (17, -9)),
+                                         ((24, 64, 48), (3, -5, 11))])
+def test_phase_correlation_card_against_cpu(dev, shape, roll):
+  from sofima_tpu_torch.ops import registration
+  img = np.random.RandomState(19).rand(*shape).astype(np.float32)
+  mov = np.roll(img, roll, tuple(range(len(shape))))
+  for norm in ('phase', None):
+    got = registration.phase_cross_correlation(img, mov, normalization=norm,
+                                               device=dev)
+    ref = registration.phase_cross_correlation(img, mov, normalization=norm,
+                                               device='cpu')
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[0], -np.asarray(roll, np.float32))
+    assert abs(got[1] - ref[1]) <= 1e-5 * max(1.0, abs(ref[1]))
+
+
+def test_checkpoint_resume_on_card(dev, tmp_path):
+  from sofima_tpu_torch.utils import checkpoint
+  cfg = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.05, k=0.1, stride=(40, 40), num_iters=50,
+      max_iters=10000, stop_v_max=0.001, dt_max=100.0, start_cap=0.5,
+      final_cap=10.0, cap_upscale_every=20)
+  prev = (3 * np.random.RandomState(20).randn(2, 1, 30, 34)).astype(
+      np.float32)
+  x0 = np.zeros_like(prev)
+  before = _build.launch_counts['force2d']
+  whole, steps = checkpoint.CheckpointingRelaxer(
+      str(tmp_path / 'a.npz'), cfg, save_every=2, device=dev).run(x0, prev)
+  assert whole.is_cuda and _build.launch_counts['force2d'] > before
+  path = str(tmp_path / 'b.npz')
+  stop = (steps // 2) // 100 * 100
+  assert stop >= 100
+  checkpoint.CheckpointingRelaxer(
+      path, dataclasses.replace(cfg, max_iters=stop), save_every=2,
+      device=dev).run(x0, prev)
+  assert int(checkpoint.load_solver_state(path)['step']) == stop
+  resumed, steps_r = checkpoint.CheckpointingRelaxer(
+      path, cfg, save_every=2, device=dev).run(x0, prev)
+  assert steps_r == steps
+  torch.testing.assert_close(resumed, whole, rtol=0, atol=1e-5)

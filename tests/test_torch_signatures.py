@@ -79,6 +79,13 @@ PROCESSOR_LAYER = (
     'processor.maps', 'processor.warp', 'processor.defaults.em_2d',
     'pipeline.flow_config', 'pipeline.mesh_config', 'pipeline.warp_config')
 
+# The decorator layer with its registration primitives and the solver
+# checkpoint: 7 modules.
+DECORATOR_LAYER = (
+    'decorators.base', 'decorators.flow', 'decorators.maps',
+    'decorators.warp', 'decorators.affine', 'ops.registration',
+    'utils.checkpoint')
+
 # (module, name) -> why the port differs there on purpose.
 SURFACE_EXCEPTIONS = {
     **{('ops.shift_warp', name): 'a TPU shift-lattice planner or its '
@@ -200,7 +207,7 @@ def test_surface_walk_covers_the_ported_modules():
   for must in ('flow_field', 'stitch_rigid', 'stitch_elastic', 'mesh',
                'ops.interp', 'utils.bounding_box', 'utils.box_generator',
                'utils.geom', 'ops.shift_warp', 'ops.fill',
-               *PROCESSOR_LAYER):
+               *PROCESSOR_LAYER, *DECORATOR_LAYER):
     assert must in names
   calc = _public(importlib.import_module('sofima_tpu_torch.flow_field'))
   assert 'JAXMaskedXCorrWithStatsCalculator' in calc

@@ -2,9 +2,9 @@
 
 Twins of the subvolume, config_utils, caching-volume, mask-config and
 processor-cache cases of tests/test_foundation.py and
-tests/test_caching_and_masks.py (the decorator-spec cases are left out:
-the port's `decorate_volume` raises until the decorators are ported),
-plus the metrics registry, `open_volume` / `maybe_cache`, the
+tests/test_caching_and_masks.py (its decorator-spec cases are twinned in
+test_torch_decorators.py), `decorate_volume`'s spec forms, plus the
+metrics registry, `open_volume` / `maybe_cache`, the
 TensorStore volume (skipped where tensorstore is not installed) and the
 exact EDT (`ops.edt`) against scipy. Each case runs the same seeded
 inputs through both packages and holds the outputs equal: volumes,
@@ -207,11 +207,34 @@ def test_open_volume():
 
 
 def test_decorate_volume_needs_the_decorators():
-  vol = t_vol.InMemoryVolume(np.zeros((1, 1, 4, 4), np.float32))
-  assert t_vol.decorate_volume(vol, None) is vol
-  assert t_vol.decorate_volume(vol, []) is vol
-  with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-    t_vol.decorate_volume(vol, [{'decorator': 'ClipValues', 'lo': 0}])
+  """Dict and tuple specs apply in order, None and [] return the volume
+  itself, and an unknown name raises KeyError, as in the reference."""
+  pytest.importorskip('tensorstore')
+  data = 3 * np.random.RandomState(2).rand(2, 2, 5, 6).astype(np.float32)
+  outs = []
+  for _, _, vol_mod, _ in BOTH:
+    vol = vol_mod.InMemoryVolume(data, pixel_size=(4.0, 4.0, 30.0))
+    assert vol_mod.decorate_volume(vol, None) is vol
+    assert vol_mod.decorate_volume(vol, []) is vol
+    with pytest.raises(KeyError, match='ClipValues'):
+      vol_mod.decorate_volume(vol, [{'decorator': 'ClipValues', 'lo': 0}])
+    # Two filters that do not commute: the order shows in the result.
+    dev = {'device': 'cpu'} if vol_mod is t_vol else {}
+    grad = dict(max_gradient=1.5, max_deviation=0, min_patch_size=0, **dev)
+    small = dict(max_gradient=0, max_deviation=0, min_patch_size=4, **dev)
+    box = (slice(None), slice(0, 2), slice(0, 5), slice(0, 6))
+    dec = vol_mod.decorate_volume(vol, [
+        ('ReconcileFlowFilter', grad),
+        {'decorator': 'ReconcileFlowFilter', **small}])
+    assert dec.meta.pixel_size == (4.0, 4.0, 30.0)
+    back = vol_mod.decorate_volume(vol, [
+        {'decorator': 'ReconcileFlowFilter', **small},
+        ('ReconcileFlowFilter', grad)])
+    outs.append((dec[box], back[box]))
+  for got, ref in zip(outs[1], outs[0]):
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(ref))
+  assert not np.array_equal(np.isnan(outs[1][0]), np.isnan(outs[1][1]))
 
 
 def test_tensorstore_volume(tmp_path):
