@@ -103,7 +103,22 @@ call that computes the same function):
     MeshRelaxFlowFilter 3d (K9), WarpAffine 3d (K13), WarpCoordMap and
     the 3d translation; ECC and phase correlation against the CPU; the
     checkpointing relaxer stopped at a snapshot and resumed, equal to
-    one run; and the kernel stages again under `plain_kernels`.
+    one run; and the kernel stages again under `plain_kernels`;
+  * the parallel package: (j) jobs of child-process ranks
+    (sofima_tpu_torch.parallel.launch; this process never joins a
+    process group), one rank (no process group: `initialize` on NCCL,
+    the default backend, is a no-op for one process) and then two gloo
+    ranks sharing the card: `relax_mesh_sharded` on bench.py's `mesh` stage (K8; a y
+    split, a 1 x 2 grid, and the mesh with NaN rows and drift removal)
+    and on path (b)'s 3d mesh (K9; y split, 1 x 2 grid), each within
+    MESH_TOL of the one-rank `mesh.relax_mesh_fused` with equal steps
+    and NaN pattern; `dense_flow_field_sharded` on the stack path's
+    first pair (K1; K5 with bench's mask; the pair cut to an unaligned
+    height) and `sharded_flow_step`, exact against the one-rank flow;
+    and `process_volume_distributed` with path (h)'s EstimateFlow, the
+    union of the ranks' work boxes equal to path (h)'s output. Every
+    rank must return the same result; the ranks' launches join K1, K5,
+    K8 and K9's rows.
 
 K3 and K11 (the fused FIRE solvers) are also held without `prev` on a
 mesh whose sides are not a multiple of the tile, with a NaN row along a
@@ -304,6 +319,23 @@ DEC_COMPOSE_PX = 2e-3
 # Per-axis peak windows held on K1, K2, K5 and K6: (min_distance,
 # peak_radius), one radius per surface axis (y, x).
 PER_AXIS = ((1, 3), (4, 2))
+# Path (j), the sharded solves, the sharded flow and the multi-process
+# runner, each job's ranks child processes (sofima_tpu_torch.parallel.
+# launch): one rank (no process group), then two gloo ranks sharing
+# the card. The 2d
+# solve takes bench.py's `mesh` stage (2048^2 nodes, 1000 steps, its
+# config) and the 3d solve path (b)'s (8 x 512 x 1024, 200 steps); the
+# drift-removal case adds SHARD_NAN_ROWS NaN rows to the 2d mesh, one
+# row more than a multiple of the ranks; the flows take the stack path's
+# first pair, once cut to SHARD_FLOW_ROWS rows; `sharded_flow_step`
+# takes SHARD_STEP_STARTS patch starts of that pair. A rank that fails
+# or outlives SHARD_TIMEOUT seconds fails the run.
+SHARD_NAN_ROWS, SHARD_FLOW_ROWS, SHARD_STEP_STARTS = 8, 9976, 1024
+SHARD_TIMEOUT = 300
+SHARD_ONE_RANK = ('solve2d_y', 'solve3d_y')
+SHARD_TWO_RANKS = ('solve2d_y', 'solve2d_grid', 'solve2d_pad_drift',
+                   'solve3d_y', 'solve3d_grid', 'flow_circular',
+                   'flow_masked', 'flow_cut', 'flow_step', 'runner')
 
 # The least time the card could take for the same work: the
 # larger of bytes over HBM bandwidth and operations over the f32 peak
@@ -2932,12 +2964,14 @@ def processor_chain(stack, dev, timings):
               inv=inv_vol.data, rendered=rendered.data[0])
 
 
-def processor_slice(dev, report, _build) -> dict:
+def processor_slice(dev, report, _build, keep=None) -> dict:
   """Path (h): the em_2d processor pipeline (examples/e2e_pipeline.py's
   chain) on the card, its gates, and K1, K8 and K4p against their plain
   versions on the inputs the path gave them.
 
-  Returns the kernels' launch counts from the path's run."""
+  Returns the kernels' launch counts from the path's run; `keep`, if
+  given, receives the stack and the 1x EstimateFlow output (path (j)'s
+  multi-process runner is held against them)."""
   from sofima_tpu_torch import flow_field
   from sofima_tpu_torch.ops import cuda_flow
   from sofima_tpu_torch.ops import cuda_warp
@@ -2956,6 +2990,8 @@ def processor_slice(dev, report, _build) -> dict:
     sync()
     wall = time.perf_counter() - t0
   launches_h = dict(_build.launch_counts)
+  if keep is not None:
+    keep.update(stack=stack, flow_1x=out['flow_1x'])
   print('  stage seconds: ' + ', '.join(f'{k} {v:.3f}'
                                         for k, v in timings.items()))
   print(f'  wall {wall:.3f} s; launches {launches_h}')
@@ -3569,6 +3605,297 @@ def per_axis_phase(dev) -> None:
   del pre, post, valid, pa, pb
 
 
+def shard_configs():
+  """Path (j)'s solver configs: bench.py's `mesh` stage (2d), the same
+  with drift removal, and path (b)'s (3d)."""
+  from sofima_tpu_torch import mesh
+  cfg2 = mesh.IntegrationConfig(
+      dt=0.001, gamma=0.0, k0=0.01, k=0.1, stride=(40.0, 40.0),
+      num_iters=1000, max_iters=1000, stop_v_max=0.0, dt_max=100.0)
+  cfg3 = dataclasses.replace(cfg2, stride=(40.0, 40.0, 40.0), num_iters=200,
+                             max_iters=200)
+  return cfg2, dataclasses.replace(cfg2, remove_drift=True), cfg3
+
+
+def shard_meshes() -> dict:
+  """Path (j)'s seeded meshes (numpy): the 2d mesh, the 2d mesh with
+  SHARD_NAN_ROWS NaN rows added (and its `prev`, 0.1 px from it) and the
+  3d mesh. Every rank and the smoke run make the same."""
+  rng = np.random.RandomState(SEED + 30)
+  x2 = rng.randn(2, 1, *MESH2D).astype(np.float32)
+  xd = rng.randn(2, 1, MESH2D[0] + 1, MESH2D[1]).astype(np.float32)
+  xd[:, :, -SHARD_NAN_ROWS:] = np.nan
+  prevd = xd + 0.1 * rng.randn(*xd.shape).astype(np.float32)
+  x3 = rng.randn(3, *MESH3D).astype(np.float32)
+  return dict(x2=x2, xd=xd, prevd=prevd, x3=x3)
+
+
+def shard_starts() -> np.ndarray:
+  """`sharded_flow_step`'s patch starts: a block of SHARD_STEP_STARTS
+  nodes of the p = 160, s = 40 grid in the middle of the pair."""
+  side = int(np.sqrt(SHARD_STEP_STARTS))
+  g = N // 2 + STRIDE * np.arange(side)
+  yy, xx = np.meshgrid(g, g, indexing='ij')
+  return np.stack([yy.ravel(), xx.ravel()], -1).astype(np.int64)
+
+
+def path_j_rank(workdir: str, cases) -> dict:
+  """One rank of a path (j) job, in a child process that
+  sofima_tpu_torch.parallel.launch started, the default group joined
+  through `distributed.initialize` (none for one rank): runs `cases` on the pair and the stack the smoke run saved in
+  `workdir`, each behind a barrier, timed and with its launches counted
+  on its own. Returns, per case, the wall, the launches, a digest of the
+  result and (rank 0) the result."""
+  import hashlib
+  from sofima_tpu_torch.ops import _build
+  from sofima_tpu_torch.parallel import distributed as pdist
+  from sofima_tpu_torch.parallel import mesh_sharding as ms
+  from sofima_tpu_torch.processor import flow as flow_proc
+  from sofima_tpu_torch.processor import runner
+  from sofima_tpu_torch.processor.defaults import em_2d
+  from sofima_tpu_torch.utils.volume import InMemoryVolume
+
+  _build.library()
+  dev = torch.device('cuda', torch.cuda.current_device())
+  world, rank = pdist.process_count(), pdist.process_index()
+  cfg2, cfg_drift, cfg3 = shard_configs()
+  meshes = shard_meshes()
+  pair = np.load(os.path.join(workdir, 'pair.npy'))
+
+  def on_card(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev, torch.float32)
+
+  pre, post = on_card(pair[0]), on_card(pair[1])
+  x2, x3 = on_card(meshes['x2']), on_card(meshes['x3'])
+  xd, prevd = on_card(meshes['xd']), on_card(meshes['prevd'])
+
+  def solve(x, prev, cfg, grid, dim):
+    dmesh = ms.make_mesh_2d(1, world) if grid else ms.make_mesh(world)
+    return lambda: ms.relax_mesh_sharded(
+        x, torch.zeros_like(x) if prev is None else prev, cfg, dmesh,
+        dim=dim)
+
+  def flow(rows, masked):
+    kw = {}
+    if masked:
+      mask = bench_mask(N, dev)
+      kw = dict(pre_mask=mask, post_mask=mask)
+    return lambda: ms.dense_flow_field_sharded(
+        ms.make_mesh(world), pre[:rows], post[:rows], (160, 160),
+        (STRIDE, STRIDE), circular=True, **kw)
+
+  def flow_step():
+    run = ms.sharded_flow_step(ms.make_mesh(world))
+    starts = torch.from_numpy(shard_starts()).to(dev)
+    return lambda: run(pre, post, starts, (160, 160))
+
+  def distributed_runner():
+    stack = np.load(os.path.join(workdir, 'proc_stack.npy'))
+    image_vol = InMemoryVolume(stack[None], fill_value=0.0)
+    proc = flow_proc.EstimateFlow(em_2d.estimate_flow_config(), device=dev)
+    size, channels = runner.output_geometry(proc, image_vol.meta)
+    writes = []
+
+    class Recording(InMemoryVolume):
+
+      def write(self, data, box):
+        writes.append((tuple(box.start), tuple(box.size), data.copy()))
+        super().write(data, box)
+
+    out = Recording(np.full((channels,) + size[::-1], np.nan, np.float32))
+
+    def run():
+      pdist.process_volume_distributed(proc, image_vol, output_volume=out)
+      return writes
+    return run
+
+  make = dict(
+      solve2d_y=lambda: solve(x2, None, cfg2, False, 2),
+      solve2d_grid=lambda: solve(x2, None, cfg2, True, 2),
+      solve2d_pad_drift=lambda: solve(xd, prevd, cfg_drift, False, 2),
+      solve3d_y=lambda: solve(x3, None, cfg3, False, 3),
+      solve3d_grid=lambda: solve(x3, None, cfg3, True, 3),
+      flow_circular=lambda: flow(N, False),
+      flow_masked=lambda: flow(N, True),
+      flow_cut=lambda: flow(SHARD_FLOW_ROWS, False),
+      flow_step=flow_step, runner=distributed_runner)
+  out = {}
+  for name in cases:
+    fn = make[name]()
+    pdist.barrier()
+    sync()
+    before = dict(_build.launch_counts)
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    row = dict(wall_s=wall, launches={
+        k: v - before[k] for k, v in _build.launch_counts.items()
+        if v != before[k]})
+    if isinstance(res, tuple):  # a solve: (x, e_kin history, steps)
+      row.update(steps=res[2], e_kin=float(res[1][-1]))
+      res = res[0]
+    if isinstance(res, torch.Tensor):
+      res = res.cpu().numpy()
+      row['digest'] = hashlib.sha1(res.tobytes()).hexdigest()
+    if rank == 0 or name == 'runner':
+      row['value'] = res
+    out[name] = row
+  return dict(rank=rank, world=world, cases=out)
+
+
+def sharded_slice(dev, report, pair, proc_stack, flow_1x) -> dict:
+  """Path (j): the sharded solves, the sharded flow and the multi-process
+  runner, as jobs of child processes (one rank, then two gloo ranks
+  sharing the card), held against the one-rank solvers and flow in this
+  process, and path (h)'s one-process EstimateFlow (`flow_1x`).
+
+  `pair` is the stack path's first section pair (uint8), `proc_stack`
+  path (h)'s stack. Returns the kernels' launch counts, summed over
+  every rank of both jobs."""
+  import tempfile
+  from sofima_tpu_torch import flow_field
+  from sofima_tpu_torch import mesh
+  from sofima_tpu_torch.parallel import launch
+  from sofima_tpu_torch.utils.bounding_box import BoundingBox
+  from sofima_tpu_torch.utils.volume import InMemoryVolume
+
+  t_phase = time.perf_counter()
+  print(f'path (j): relax_mesh_sharded (2d {list(MESH2D)}, 1000 steps; 3d '
+        f'{list(MESH3D)}, 200 steps), dense_flow_field_sharded and '
+        f'sharded_flow_step on the stack path\'s first {N}^2 pair, '
+        f'process_volume_distributed on path (h)\'s stack; 1 rank (no '
+        f'process group), then 2 gloo ranks sharing the card')
+  target = f'{os.path.abspath(__file__)}:path_j_rank'
+  jobs, job_walls = {}, {}
+  with tempfile.TemporaryDirectory(prefix='path_j') as workdir:
+    np.save(os.path.join(workdir, 'pair.npy'), pair)
+    np.save(os.path.join(workdir, 'proc_stack.npy'), proc_stack)
+    for world, backend, cases in ((1, 'nccl', SHARD_ONE_RANK),
+                                  (2, 'gloo', SHARD_TWO_RANKS)):
+      t0 = time.perf_counter()
+      jobs[world] = launch.run(target, world, backend, args=(workdir, cases),
+                               workdir=workdir, timeout=SHARD_TIMEOUT)
+      job_walls[world] = time.perf_counter() - t0
+      print(f'  {world} rank(s), {backend if world > 1 else "no group"}: '
+            f'job wall {job_walls[world]:.1f} s '
+            f'(start-up and input loading included)')
+      for name in cases:
+        walls = [r['cases'][name]['wall_s'] for r in jobs[world]]
+        steps = jobs[world][0]['cases'][name].get('steps')
+        print(f'    {name}: wall {max(walls):.3f} s'
+              + ('' if steps is None else f', {steps} steps, final e_kin '
+                 f'{jobs[world][0]["cases"][name]["e_kin"]:.6g}')
+              + f', launches {jobs[world][0]["cases"][name]["launches"]}')
+        digests = {r['cases'][name].get('digest') for r in jobs[world]}
+        check(len(digests) == 1,
+              f'path (j) {name}: the ranks returned different results')
+
+  # The one-rank references, in this process.
+  cfg2, cfg_drift, cfg3 = shard_configs()
+  meshes = {k: torch.from_numpy(v).to(dev) for k, v in shard_meshes().items()}
+  one, one_walls = {}, {}
+
+  def reference(name, fn):
+    sync()
+    t0 = time.perf_counter()
+    one[name] = fn()
+    sync()
+    one_walls[name] = time.perf_counter() - t0
+
+  x2, x3 = meshes['x2'], meshes['x3']
+  reference('solve2d', lambda: mesh.relax_mesh_fused(x2, torch.zeros_like(x2),
+                                                     cfg2))
+  reference('solve2d_pad_drift', lambda: mesh.relax_mesh_fused(
+      meshes['xd'], meshes['prevd'], cfg_drift))
+  reference('solve3d', lambda: mesh.relax_mesh_fused(
+      x3, torch.zeros_like(x3), cfg3, mesh_force=mesh.elastic_mesh_3d))
+  pre = torch.from_numpy(pair[0]).to(dev, torch.float32)
+  post = torch.from_numpy(pair[1]).to(dev, torch.float32)
+  mask = bench_mask(N, dev)
+  flow = lambda rows, **kw: flow_field.dense_flow_field(
+      pre[:rows], post[:rows], (160, 160), (STRIDE, STRIDE), circular=True,
+      **kw)
+  reference('flow_circular', lambda: flow(N))
+  reference('flow_masked', lambda: flow(N, pre_mask=mask, post_mask=mask))
+  reference('flow_cut', lambda: flow(SHARD_FLOW_ROWS))
+  reference('flow_step', lambda: flow_field.batched_xcorr_peaks(
+      pre, post, None, None, (160, 160),
+      torch.from_numpy(shard_starts()).to(dev), mean=None))
+  print('  one rank in this process: ' + ', '.join(
+      f'{k} {v:.3f} s' for k, v in one_walls.items()))
+
+  # Which kernel each case must launch, by launch counter.
+  needs = dict(solve2d='force2d', solve3d='force3d',
+               flow_circular='dense_flow_peaks', flow_cut='dense_flow_peaks',
+               flow_masked='masked_flow', runner='dense_flow_peaks')
+  errs, launches = {}, {}
+  for world, ranks in jobs.items():
+    for r in ranks:
+      for row in r['cases'].values():
+        for k, v in row['launches'].items():
+          launches[k] = launches.get(k, 0) + v
+    for name, row in ranks[0]['cases'].items():
+      label = f'path (j) {name}, {world} rank(s)'
+      need = next((v for k, v in needs.items() if name.startswith(k)), None)
+      if need == 'masked_flow':
+        n = sum(row['launches'].get(k, 0)
+                for k in ('masked_flow_peaks', 'masked_flow_pure'))
+      else:
+        n = row['launches'].get(need, 1 if need is None else 0)
+      check(n > 0, f'{label}: kernel {need} was not launched')
+      if name.startswith('solve'):
+        ref_name = 'solve2d_pad_drift' if 'drift' in name else name[:7]
+        ref_x, _, ref_steps = one[ref_name]
+        ref_x = ref_x.cpu().numpy()
+        val = row['value']
+        nan_same = bool((np.isnan(val) == np.isnan(ref_x)).all())
+        err = float(np.nanmax(np.abs(val - ref_x)))
+        print(f'  {label}: max |dx| {err:.3g} px against relax_mesh_fused '
+              f'(bar {MESH_TOL}), {row["steps"]} steps against {ref_steps}, '
+              f'NaN pattern equal: {nan_same}; wall {row["wall_s"]:.3f} s '
+              f'against {one_walls[ref_name]:.3f} s on one rank')
+        check(row['steps'] == ref_steps, f'{label}: steps differ')
+        check(nan_same, f'{label}: NaN pattern differs')
+        check(err < MESH_TOL, f'{label}: {err} px from relax_mesh_fused')
+        errs[f'{name}_{world}'] = err
+        continue
+      if name == 'runner':
+        # Every rank's writes replayed in the work boxes' global order
+        # (the round robin of partition_work) rebuild the one-process
+        # output.
+        merged = InMemoryVolume(np.full(flow_1x.shape, np.nan, np.float32))
+        writes = [r['cases'][name]['value'] for r in ranks]
+        for k in range(max(len(w) for w in writes)):
+          for w in writes:
+            if k < len(w):
+              start, size, data = w[k]
+              merged.write(data, BoundingBox(start=start, size=size))
+        print(f'  {label}: {[len(w) for w in writes]} work boxes by rank')
+        val = torch.from_numpy(merged.data)
+        ref = torch.from_numpy(np.ascontiguousarray(flow_1x))
+        val, ref = (t.reshape(t.shape[0], -1, t.shape[-1]).to(dev)
+                    for t in (val, ref))
+      else:
+        val = torch.from_numpy(row['value']).to(dev)
+        ref = one[name]
+        if name == 'flow_step':
+          val, ref = val.T.contiguous(), ref.T.contiguous()
+      against = 'path (h)' if name == 'runner' else 'one rank'
+      errs[f'{name}_{world}'] = compare_flow(
+          val, ref, f'{label} against {against}')['err']
+  report['path_j'] = dict(
+      job_walls_s=job_walls, one_rank_walls_s=one_walls, max_abs_err=errs,
+      case_walls_s={f'{name}_{world}': max(r['cases'][name]['wall_s']
+                                           for r in ranks)
+                    for world, ranks in jobs.items()
+                    for name in ranks[0]['cases']},
+      launches=launches)
+  print(f'  launches summed over the ranks: {launches}')
+  print(f'  phase {time.perf_counter() - t_phase:.1f} s')
+  return launches
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -3592,6 +3919,7 @@ def main() -> int:
       print(f'compiler report: {row}')
   report = {}
   launches, stack = stack_slice(dev, report, _build)
+  pair = stack[:2].cpu().numpy()  # path (j)'s sharded flow
   torch.cuda.empty_cache()
   masked = masked_warm_slice(dev, report, _build, stack)
   # K5's launches: both of its kernels, each route's count beside them.
@@ -3611,9 +3939,22 @@ def main() -> int:
   torch.cuda.empty_cache()
   per_axis_phase(dev)
   torch.cuda.empty_cache()
-  processor_slice(dev, report, _build)
+  path_h = {}
+  processor_slice(dev, report, _build, path_h)
   torch.cuda.empty_cache()
   decorator_slice(dev, report, _build)
+  torch.cuda.empty_cache()
+  launches_j = sharded_slice(dev, report, pair, path_h['stack'],
+                             path_h['flow_1x'])
+  del pair, path_h
+  # Path (j)'s launches, summed over its ranks, stand beside their
+  # kernels' rows (K5's both routes under its row); `launches` stays this
+  # process's own count.
+  for key, names in (('K1', ('dense_flow_peaks',)),
+                     ('K5', ('masked_flow_peaks', 'masked_flow_pure')),
+                     ('K8', ('force2d',)), ('K9', ('force3d',))):
+    report[key]['launches_path_j'] = sum(launches_j.get(k, 0)
+                                         for k in names)
   print(f'total {time.perf_counter() - t_start:.1f} s')
 
   kernels = []
@@ -3662,7 +4003,8 @@ def main() -> int:
                                    'path_d', 'path_e', 'montage_small',
                                    'drift_removal', 'path_f', 'path_g',
                                    'padfield3d', 'path_h',
-                                   'render3d_processor', 'path_i')}
+                                   'render3d_processor', 'path_i',
+                                   'path_j')}
   print(json.dumps({'paths': paths}))
   print(smi())
   print(json.dumps({'kernels': kernels}))

@@ -221,13 +221,21 @@ def _nanmean(v: torch.Tensor, dims) -> torch.Tensor:
   return s / ok.sum(dim=dims, keepdim=True)
 
 
-def _make_step_fns(config: IntegrationConfig, mesh_force, prev_fn=None):
+def _make_step_fns(config: IntegrationConfig, mesh_force, prev_fn=None,
+                   reduce_fn=None, mean_fn=None):
   """Builds the force, velocity-Verlet and FIRE step functions.
 
   FIRE state: (x, v, a, dt, alpha, n_pos, cap), scalars as 0-d tensors so
   a step never reads the device back. With `prev_fn`, the k0 springs pull
   toward `prev_fn(x)`, re-evaluated at every force evaluation.
+  `reduce_fn(v)` / `mean_fn(v, dims)` let the sharded solver replace the
+  global reductions (FIRE's power, the drift means) with collectives
+  over its ranks; the defaults are the identity and the NaN-aware mean.
   """
+  if reduce_fn is None:
+    reduce_fn = lambda v: v
+  if mean_fn is None:
+    mean_fn = _nanmean
 
   def force(x, prev, cap):
     a = mesh_force(x, config.k, config.stride, config.prefer_orig_order)
@@ -252,7 +260,7 @@ def _make_step_fns(config: IntegrationConfig, mesh_force, prev_fn=None):
     x, v, a = vv_step((x, v, a), dt, cap, prev)
     a_norm = torch.linalg.vector_norm(a, dim=0, keepdim=True) + 1e-6
     v_norm = torch.linalg.vector_norm(v, dim=0, keepdim=True)
-    power = torch.sum(a * v)
+    power = reduce_fn(torch.sum(a * v))
     v = v + alpha * (a / a_norm * v_norm - v)
 
     uphill = power < 0
@@ -273,9 +281,9 @@ def _make_step_fns(config: IntegrationConfig, mesh_force, prev_fn=None):
     if config.remove_drift:
       dims = tuple(range(1, x.ndim))
       present = torch.isfinite(x)
-      x = x - _nanmean(x, dims)
+      x = x - mean_fn(x, dims)
       v = torch.where(present,
-                      v - _nanmean(torch.where(present, v, torch.nan), dims),
+                      v - mean_fn(torch.where(present, v, torch.nan), dims),
                       torch.zeros_like(v))
     return x, v, a, dt, alpha, n_pos, cap
 

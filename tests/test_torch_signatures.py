@@ -68,8 +68,9 @@ def test_signature_matches_reference(name):
 
 # Parameters the port adds after the reference's, on any function. The
 # processor layer's one difference is the trailing `device` of every
-# processor constructor (and of runner.process_volume).
-EXTRA_PARAMS = ('device', 'timings')
+# processor constructor (and of runner.process_volume); the parallel
+# package's `initialize` takes the process group's `backend`.
+EXTRA_PARAMS = ('device', 'timings', 'backend')
 
 # The processor layer and its volume foundation: 17 modules.
 PROCESSOR_LAYER = (
@@ -207,6 +208,7 @@ def test_surface_walk_covers_the_ported_modules():
   for must in ('flow_field', 'stitch_rigid', 'stitch_elastic', 'mesh',
                'ops.interp', 'utils.bounding_box', 'utils.box_generator',
                'utils.geom', 'ops.shift_warp', 'ops.fill',
+               'parallel.mesh_sharding', 'parallel.distributed',
                *PROCESSOR_LAYER, *DECORATOR_LAYER):
     assert must in names
   calc = _public(importlib.import_module('sofima_tpu_torch.flow_field'))
