@@ -1,0 +1,16 @@
+"""Render wall per moving section: the render phase of the
+alignment entry's own phase clock (`timings=`, which synchronizes at
+each phase), summed over the calls made untraced before the traced
+window, over their moving sections."""
+
+LAYER = 'render'
+UNIT = 'ms'
+SOURCE = 'program_span'
+MOVES = 'mpix_per_s'
+
+
+def read(ctx):
+  t = ctx.timings.get('render')
+  if t is None or not ctx.timing_sections:
+    return None
+  return 1e3 * t / ctx.timing_sections
