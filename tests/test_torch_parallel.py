@@ -33,6 +33,8 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -257,7 +259,7 @@ def run_cases(workdir, solves, others=True):
   safe)."""
   with concurrent.futures.ThreadPoolExecutor(1) as pool:
     job = pool.submit(launch.run, f'{__file__}:_rank_cases', RANKS, 'gloo',
-                      args=(solves, others), workdir=workdir, timeout=600)
+                      args=(solves, others), workdir=workdir, timeout=240)
     ref = _reference_cases(solves, others)
     return job.result(), ref
 
@@ -493,20 +495,26 @@ def doubled(tmp_path_factory):
     s.bind(('localhost', 0))
     port = s.getsockname()[1]
   worker = os.path.join(os.path.dirname(__file__), 'distributed_worker.py')
+  logs = [tempfile.TemporaryFile('w+') for _ in range(2)]
   procs = [subprocess.Popen(
       [sys.executable, worker, f'localhost:{port}', '2', str(i),
-       str(ref_dir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-      text=True) for i in range(2)]
+       str(ref_dir)], stdout=log, stderr=subprocess.STDOUT)
+      for i, log in enumerate(logs)]
   try:
     ranks = launch.run(f'{__file__}:_rank_double', 2, 'gloo',
                        args=(str(workdir / 'out'),), workdir=workdir,
-                       timeout=300)
-    outs = [p.communicate(timeout=300)[0] for p in procs]
+                       timeout=120)
+    # The first worker to fail stops both: its peer would otherwise wait
+    # out its coordinator.
+    failure = launch._wait(procs, time.monotonic() + 120)
   finally:
-    for p in procs:
-      if p.poll() is None:
-        p.kill()
-  assert all(p.returncode == 0 for p in procs), outs
+    launch._stop(procs)
+  outs = []
+  for log in logs:
+    log.seek(0)
+    outs.append(log.read())
+    log.close()
+  assert failure is None, (failure, outs)
   assert 'DISTRIBUTED_OK' in outs[0], outs[0]
   from sofima_tpu.utils.volume import TensorStoreVolume as JTSVolume
   ref = JTSVolume.open(str(ref_dir / 'out'))[(slice(None),) * 4]
