@@ -21,7 +21,9 @@ call that computes the same function):
     the unmasked targeted path; bench's mask against the same path with
     K5 and K4 swapped for their plain versions), the warm-start stack
     path on the same stack, and a forced
-    stale-prior refresh at 640^2;
+    stale-prior refresh at 640^2; the invert layer (csrc/invert.cu) on the
+    stack path's solved meshes, `_invert_phase` for one section and a
+    block of 15, against the plain chain on a CPU copy of the inputs;
   * 3d tile stitching: K9 (3d force, both force forms; also held and
     timed on path (a)'s tile meshes, and held on a batch of odd meshes
     with NaN holes on its tile edges), K11 (fused 3d FIRE) and K13 (3d
@@ -193,6 +195,10 @@ MESH_TOL = 1e-3         # px, fused solver vs plain solver
 RENDER_TOL = 1e-2       # gray levels, render kernel vs plain render
 MAX_ERR = 3.5           # bench.py's pipeline ground-truth gate
 SMALL_MESH_TOL = 0.4    # px = 0.01 * stride, small-input parity
+INVERT_TOL = 1e-4       # px, the invert layer's kernels vs plain (NaNs exact)
+INVERT_BATCHES = (1, 15)  # sections a call of `_invert_phase`: the stream's
+                          # and a block's (bench.py's 16, less its anchor)
+INVERT_LAUNCHES = 24    # the layer's own launches a call, at most
 MESH3D = (8, 512, 1024)       # bench.py's mesh3d nodes (z, y, x)
 FUSED3D = (8, 128, 256)       # bench.py's mesh3d_fused nodes
 LICONN = (64, 576, 64)        # bench.py's stitch3d: depth, tile edge, overlap
@@ -364,6 +370,12 @@ FORCE3D_FLOPS_NODE = 13 * 24
 FORCE2D_FLOPS_NODE = 8 * 15
 FIRE2D_FLOPS_NODE_STEP = 8 * 15 + 60
 FIRE3D_FLOPS_NODE_STEP = FORCE3D_FLOPS_NODE + 80
+# The invert layer a node: 16 samples of the offset field (12 fixed-point
+# steps, 2 Newton steps, 2 residual gates) at 4 taps of ~12 and the 4
+# Jacobian planes' taps in each Newton step (~900), then the fill of its
+# two channels (16 Jacobi sweeps of ~6 over 4/3 of a level's nodes, 9
+# jump-flooding passes of 8 offsets of ~5: ~620 a channel).
+INVERT_FLOPS_NODE = 900 + 2 * 620
 
 
 def check(ok: bool, what: str) -> None:
@@ -1016,7 +1028,7 @@ def stack_slice(dev, report, _build) -> dict:
   check(max(errs) <= MAX_ERR, f'interior error {max(errs)} > {MAX_ERR}')
   check(not bool(overflow), 'envelope overflow on the main path')
   for k in ('dense_flow_peaks', 'targeted_flow_peaks', 'fused_fire',
-            'warp_gather'):
+            'warp_gather', 'invert_section', 'fill_invalid'):
     check(launches[k] > 0, f'kernel {k} was not launched on the stack path')
   check(launches['flow_peaks_dft'] == 0,
         'K1/K2 took the dense-DFT route on the stack path')
@@ -1029,6 +1041,7 @@ def stack_slice(dev, report, _build) -> dict:
                        launches_dft=launches['flow_peaks_dft'])
   report['stack_cold'] = dict(wall_s=wall, mpix_s=mpix, max_err=max(errs),
                               **timings)
+  invert_phase(report, solved, cfg, launches)
   del rendered, solved
 
   # Small input: the card's run against the plain versions on the CPU.
@@ -1044,6 +1057,82 @@ def stack_slice(dev, report, _build) -> dict:
   check(bool(o_gpu) == bool(o_cpu), 'small-input overflow flags differ')
   check(bool(torch.isfinite(r_gpu).all()), 'small-input render not finite')
   return launches, stack
+
+
+def invert_phase(report, solved, cfg, launches) -> None:
+  """The invert layer on the stack path's solved meshes: `_invert_phase`
+  for each of INVERT_BATCHES sections (the moving ones, in turn) against
+  the plain chain on a CPU copy of the same inputs (the plain version's
+  home: the card's plain chain rounds some positions of ~10^4 px a unit
+  in the last place, 1e-3 px, away from it), the inversion alone too (its
+  NaNs are the gate's); times by CUDA events, the plain chain's on the
+  card under `plain_kernels`."""
+  from sofima_tpu_torch import map_utils
+  from sofima_tpu_torch.ops import _build
+  from sofima_tpu_torch.ops import cuda_invert
+  from sofima_tpu_torch.pipeline import stack_align
+  g = solved.shape[-1]
+  names = ('invert_section', 'fill_invalid')
+  print(f'invert: _invert_phase on the stack path\'s solved meshes ({g}^2)')
+  rows = {}
+  for nb in INVERT_BATCHES:
+    idx = 1 + torch.arange(nb, device=solved.device) % (solved.shape[0] - 1)
+    x = solved[idx[0]] if nb == 1 else solved[idx]
+    calls, kernel = [], cuda_invert.invert_section
+
+    def record(*args, kernel=kernel, calls=calls):
+      out = kernel(*args)
+      calls.append((args, out.clone()))
+      return out
+
+    before = {k: _build.launch_counts[k] for k in names}
+    cuda_invert.invert_section = record
+    try:
+      rel, inv = stack_align._invert_phase(x, cfg)
+    finally:
+      cuda_invert.invert_section = kernel
+    own = sum(_build.launch_counts[k] - before[k] for k in names)
+    check(len(calls) == 1, f'invert: {len(calls)} kernel inversions a call')
+    args, inv_k = calls[0]
+    inv_p = map_utils._invert_section_plain(
+        *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    rel_p, _ = stack_align._invert_phase(x.cpu(), cfg)
+    # inv_abs is rel_inv + the node grid, the same add on both sides.
+    errs = []
+    for what, a, b in (('inversion', inv_k, inv_p), ('rel_inv', rel, rel_p)):
+      a = a.cpu()
+      check(bool(torch.equal(torch.isnan(a), torch.isnan(b))),
+            f'invert ({nb}): the {what} NaN pattern differs from plain')
+      errs.append(float(torch.nan_to_num((a - b).abs(), nan=0.0).max()))
+      check(errs[-1] <= INVERT_TOL,
+            f'invert ({nb}): the {what} differs from plain by {errs[-1]} px')
+    check(own <= INVERT_LAUNCHES, f'invert ({nb}): {own} launches a call')
+    with plain_kernels():
+      rel_c, _ = stack_align._invert_phase(x, cfg)
+    err_card = float(torch.nan_to_num((rel - rel_c).abs(), nan=0.0).max())
+    nan_share = float(torch.isnan(inv_k).any(dim=-3).float().mean())
+    ms = cuda_ms(lambda: stack_align._invert_phase(x, cfg), reps=20)
+    with plain_kernels():
+      plain = wall_ms(lambda: stack_align._invert_phase(x, cfg))
+    # Least traffic: the mesh in, the two maps out, float32.
+    rows[nb] = dict(err=max(errs), ms=ms, plain_ms=plain, launches_call=own,
+                    nan_share=nan_share, max_abs_err_card_plain=err_card,
+                    **least_time(3 * 2 * g * g * 4 * nb,
+                                 INVERT_FLOPS_NODE * g * g * nb))
+    print(f'  {nb} section(s): max |diff| vs plain (CPU) {max(errs):.3g} px '
+          f'(inversion {errs[0]:.3g}; bar {INVERT_TOL}), NaN patterns equal '
+          f'({nan_share:.3%} of the inversion NaN); rel_inv vs the card\'s '
+          f'plain chain {err_card:.3g} px; {own} launches a call (at most '
+          f'{INVERT_LAUNCHES}); kernels {ms:.3f} ms, plain (card) '
+          f'{plain:.3f} ms, bound {rows[nb]["bound_ms"]:.3g} ms '
+          f'({rows[nb]["bound_by"]})')
+  one, block = (rows[nb] for nb in INVERT_BATCHES)
+  report['INV'] = dict(
+      one, err=max(r['err'] for r in rows.values()), library_ms=None,
+      ms_block=block['ms'], plain_ms_block=block['plain_ms'],
+      bound_ms_block=block['bound_ms'], launches_call_block=block[
+          'launches_call'], block_sections=INVERT_BATCHES[1],
+      launches_fill_invalid=launches['fill_invalid'])
 
 
 def dense_flow_peaks_plain(pre, post, patch_size=(160, 160), step=(40, 40),
@@ -1107,17 +1196,23 @@ def recorded_calls(calls: dict, keep: dict | None = None):
 
 @contextlib.contextmanager
 def plain_kernels():
-  """Routes K1, K5, K6, K7, K4, K8, K9 and K13 to their plain versions on
-  the card's tensors, so that a path can be run once with its kernels and
+  """Routes K1, K5, K6, K7, K4, K8, K9, K13 and the invert layer's kernels
+  (2d inversion, hole and nearest fill) to their plain versions on the
+  card's tensors, so that a path can be run once with its kernels and
   once without."""
+  from sofima_tpu_torch import map_utils
   from sofima_tpu_torch import mesh
   from sofima_tpu_torch.ops import cuda_flow
+  from sofima_tpu_torch.ops import cuda_invert
   from sofima_tpu_torch.ops import cuda_mesh
   from sofima_tpu_torch.ops import cuda_warp
+  from sofima_tpu_torch.ops import fill
   k1, k5 = cuda_flow.dense_flow_peaks, cuda_flow.masked_dense_flow_peaks
   k6, k7 = cuda_flow.flow_peaks, cuda_flow.corr_patches
   k4, k8 = cuda_warp.shift_warp, cuda_mesh.force_2d
   k9, k13 = cuda_mesh.force_3d, cuda_warp.shift_warp_3d
+  inv = (cuda_invert.invert_section, cuda_invert.fill_invalid,
+         cuda_invert.nearest_fill)
 
   def k5_plain(pre, post, pre_valid, post_valid, patch_size, step,
                mean=None, min_distance=2, threshold_rel=0.5, peak_radius=5):
@@ -1145,9 +1240,14 @@ def plain_kernels():
   cuda_mesh.force_2d = mesh.inplane_force_plain
   cuda_mesh.force_3d = mesh.elastic_mesh_3d_plain
   cuda_warp.shift_warp_3d = k13_plain
+  cuda_invert.invert_section = map_utils._invert_section_plain
+  cuda_invert.fill_invalid = fill.fill_invalid_plain
+  cuda_invert.nearest_fill = fill.nearest_fill_plain
   try:
     yield
   finally:
+    (cuda_invert.invert_section, cuda_invert.fill_invalid,
+     cuda_invert.nearest_fill) = inv
     cuda_flow.dense_flow_peaks, cuda_flow.masked_dense_flow_peaks = k1, k5
     cuda_flow.flow_peaks, cuda_flow.corr_patches = k6, k7
     cuda_warp.shift_warp, cuda_mesh.force_2d = k4, k8
@@ -1817,7 +1917,8 @@ def montage_path(dev, report, _build, rng) -> dict:
   check(err_m <= MONTAGE_ERR, f'montage error {err_m}')
   check(cov >= MONTAGE_COVERAGE, f'montage coverage {cov}')
   check(not bool(out['overflow']), 'montage render envelope overflow')
-  for k in ('dense_flow_peaks', 'force2d', 'warp_gather'):
+  for k in ('dense_flow_peaks', 'force2d', 'warp_gather', 'invert_section',
+            'fill_invalid'):
     check(launches_e[k] > 0, f'kernel {k} was not launched on path (e)')
 
   # Path (e)'s kernels against their plain versions on the inputs this
@@ -2321,24 +2422,27 @@ def library_slice(dev, report, _build) -> dict:
   check(err < RENDER_TOL, f'K12 differs from the plain render by {err}')
   del calls, k12_in
 
-  # The invert and render phases again with K4 swapped for its plain
-  # version, from the same mesh. The flow and clean phases launch no
-  # kernel, and K3 was held above. `invert_map` launches none either:
-  # its maps must repeat exactly, so the render alone tells K4 apart.
+  # The invert and render phases again with K4 and the fill swapped for
+  # their plain versions, from the same mesh. The flow and clean phases
+  # launch no kernel, and K3 was held above. `invert_map` launches none;
+  # `fill_missing` the fill's kernels, so the inverse maps agree within
+  # INVERT_TOL (NaNs exact) and the render tells K4 apart.
   t0 = time.perf_counter()
   with plain_kernels():
     ref = library_render(solved, post_np, {})
   sync()
   wall_plain = time.perf_counter() - t0
   dm = float(np.nanmax(np.abs(out['inv'] - ref['inv'])))
+  nan_same = np.array_equal(np.isnan(out['inv']), np.isnan(ref['inv']))
   dr = np.abs(out['rendered'].astype(np.int16)
               - ref['rendered'].astype(np.int16))
   flips = float((dr > 0).mean())
   print(f'  against the plain render ({wall_plain:.1f} s): the inverse '
-        f'maps repeat (max |diff| {dm:.3g} px); render max |diff| '
+        f'maps max |diff| {dm:.3g} px (bar {INVERT_TOL}); render max |diff| '
         f'{int(dr.max())} gray level on {flips:.2e} of the pixels (bar 1 on '
         f'{RENDER_FLIP_SHARE})')
-  check(dm == 0.0, 'path (f) invert_map does not repeat its inverse map')
+  check(nan_same and dm <= INVERT_TOL,
+        'path (f) inverse maps differ from the plain fill')
   check(int(dr.max()) <= 1 and flips <= RENDER_FLIP_SHARE,
         'path (f) render differs from the plain run')
   report['path_f'] = dict(
@@ -3985,6 +4089,9 @@ def main() -> int:
        'sofima_tpu/ops/pallas_warp.py:60'),
       ('K4p', 'warp_subvolume', 'sofima_tpu_torch/csrc/warp.cu',
        'sofima_tpu/ops/pallas_warp.py:440'),
+      ('INV', 'invert_section', 'sofima_tpu_torch/csrc/invert.cu',
+       'sofima_tpu/map_utils.py _invert_section, sofima_tpu/ops/fill.py '
+       'fill_invalid (XLA; no Pallas kernel)'),
   ]
   main_keys = ('err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
   for key, name, src, rep in meta:

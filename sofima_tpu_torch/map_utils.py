@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from sofima_tpu_torch import placement
+from sofima_tpu_torch.ops import cuda_invert
 from sofima_tpu_torch.ops import fill as fill_ops
 from sofima_tpu_torch.ops import interp
 from sofima_tpu_torch.utils.bounding_box import BoundingBox
@@ -255,7 +256,8 @@ def _invert_section(abs_map_xy: torch.Tensor, src_start_yx: torch.Tensor,
   give NaN. Without `shift_bound`, one [2, y, x] or [3, z, y, x] map
   takes the general gather-sampled path (float64 maps stay float64).
   2d maps with the `shift_bound` contract may carry leading batch
-  dimensions (the reference vmaps this function over sections).
+  dimensions (the reference vmaps this function over sections); on the
+  card they take one kernel (ops/cuda_invert.invert_section).
 
   Args:
     abs_map_xy: [..., 2, gy, gx] or [3, gz, gy, gx] absolute maps
@@ -286,6 +288,18 @@ def _invert_section(abs_map_xy: torch.Tensor, src_start_yx: torch.Tensor,
                            num_iters, tol, newton_iters)[0]
   if abs_map_xy.shape[-3] != 2:
     raise ValueError('shift_bound is the 2d sampling contract')
+  invert = (cuda_invert.invert_section if abs_map_xy.is_cuda
+            else _invert_section_plain)
+  return invert(abs_map_xy, src_start_yx, query_xy, stride_yx, num_iters,
+                tol, newton_iters, shift_bound, shift_origin)
+
+
+def _invert_section_plain(abs_map_xy: torch.Tensor, src_start_yx,
+                          query_xy: torch.Tensor, stride_yx, num_iters: int,
+                          tol: float, newton_iters: int, shift_bound: int,
+                          shift_origin=(0, 0)) -> torch.Tensor:
+  """`_invert_section` of 2d maps under `shift_bound` in plain torch: what
+  CPU tensors run, and what ops/cuda_invert.invert_section is held to."""
   dev = abs_map_xy.device
   abs_map_xy = abs_map_xy.to(torch.float32)
   lead = abs_map_xy.shape[:-3]

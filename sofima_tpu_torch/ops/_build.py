@@ -69,16 +69,18 @@ launch_counts: dict[str, int] = {
                                 # counted above; meshes whose tiles the
                                 # card cannot hold at once)
     'warp_gather_3d': 0,        # K13: 3d render
+    'invert_section': 0,        # 2d map inversion (csrc/invert.cu)
+    'fill_invalid': 0,          # 2d hole fill: each of its launches
 }
 
 
 _count_lock = threading.Lock()
 
 
-def count(name: str) -> None:
-  """Adds one launch of `name`; exact when several threads launch."""
+def count(name: str, n: int = 1) -> None:
+  """Adds n launches of `name`; exact when several threads launch."""
   with _count_lock:
-    launch_counts[name] += 1
+    launch_counts[name] += n
 
 
 def reset_launch_counts() -> None:

@@ -8,6 +8,8 @@ PyTorch: the fields are section or tile meshes (~250^2 or ~40^3 nodes).
 Fields are [..., c, *spatial] with masks [..., *spatial]: leading
 dimensions are a batch (the reference vmaps over sections; here the
 batch is written out), and every field is filled independently.
+`fill_invalid` and `nearest_fill` of 2d fields on the card run the
+kernels of ops/cuda_invert.py; CPU tensors and 3d fields stay here.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import itertools
 
 import torch
+
+from sofima_tpu_torch.ops import cuda_invert
 
 _BIG = 1e12
 
@@ -66,6 +70,15 @@ def nearest_fill(values: torch.Tensor, valid: torch.Tensor,
   Jump flooding over log2(n) passes; a field with no valid node is
   returned unchanged.
   """
+  if dim == 2 and values.is_cuda:
+    return cuda_invert.nearest_fill(values, valid)
+  return nearest_fill_plain(values, valid, dim)
+
+
+def nearest_fill_plain(values: torch.Tensor, valid: torch.Tensor,
+                       dim: int = 2) -> torch.Tensor:
+  """`nearest_fill` in plain torch: what CPU tensors and 3d fields run,
+  and what ops/cuda_invert.nearest_fill is held to."""
   spatial = valid.shape[-dim:]
   dev = values.device
   coords = torch.stack(torch.meshgrid(
@@ -214,6 +227,16 @@ def fill_invalid(values: torch.Tensor, valid: torch.Tensor,
                  extrapolate: bool = False, jacobi_iters: int = 16,
                  dim: int = 2) -> torch.Tensor:
   """Interpolates holes (span hull) and optionally extrapolates outside."""
+  if dim == 2 and values.is_cuda:
+    return cuda_invert.fill_invalid(values, valid, extrapolate, jacobi_iters)
+  return fill_invalid_plain(values, valid, extrapolate, jacobi_iters, dim)
+
+
+def fill_invalid_plain(values: torch.Tensor, valid: torch.Tensor,
+                       extrapolate: bool = False, jacobi_iters: int = 16,
+                       dim: int = 2) -> torch.Tensor:
+  """`fill_invalid` in plain torch: what CPU tensors and 3d fields run,
+  and what ops/cuda_invert.fill_invalid is held to."""
   cdim = -dim - 1
   filled = harmonic_fill(values, valid, jacobi_iters=jacobi_iters, dim=dim)
   hull = span_hull(valid, dim)
@@ -221,8 +244,8 @@ def fill_invalid(values: torch.Tensor, valid: torch.Tensor,
   out = torch.where(hull.unsqueeze(cdim), filled, nan)
   out = torch.where(valid.unsqueeze(cdim), values, out)
   if extrapolate:
-    out = nearest_fill(torch.where(hull.unsqueeze(cdim), out, nan),
-                       hull | valid, dim)
+    out = nearest_fill_plain(torch.where(hull.unsqueeze(cdim), out, nan),
+                             hull | valid, dim)
   any_valid = torch.any(valid.flatten(-dim), dim=-1)
   return torch.where(any_valid[(Ellipsis,) + (None,) * (dim + 1)], out,
                      values)

@@ -27,6 +27,7 @@ on its device, and the work stays there throughout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -171,7 +172,10 @@ def _solve_phase(flow_full: torch.Tensor, solved_prev: torch.Tensor,
   return solved
 
 
+@functools.lru_cache(maxsize=8)
 def _node_query(grid_n: int, stride: int, device) -> torch.Tensor:
+  """The node grid's positions [2, G, G] (xy channels), made once per grid
+  and device (read only)."""
   node = torch.arange(grid_n, dtype=torch.float32, device=device) * stride
   return torch.stack([node[None, :].expand(grid_n, grid_n),
                       node[:, None].expand(grid_n, grid_n)])  # xy channels

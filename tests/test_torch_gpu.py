@@ -31,7 +31,12 @@ chip_smoke's `plain_kernels` (flows as K1's bar, meshes within 1e-2 px,
 renders within 1e-3 of the gray range), ECC and phase correlation on the
 card against the CPU (matrices within 1e-3, shifts exact), ECC's loop
 under CUDA's sync debug mode (no call waits for the card) and a
-checkpointed relaxation stopped, resumed and equal to one run.
+checkpointed relaxation stopped, resumed and equal to one run. The
+invert layer (csrc/invert.cu: the 2d inversion under `shift_bound`, the
+hole fill with and without extrapolation, the nearest fill) against the
+plain path on a CPU copy: NaN placement exact, values within 1e-4 px,
+at most 24 of its launches a call of the stack path's invert phase, and
+fills of grids of other shapes from a thread pool each as alone.
 """
 
 import dataclasses
@@ -1037,3 +1042,142 @@ def test_checkpoint_resume_on_card(dev, tmp_path):
       path, cfg, save_every=2, device=dev).run(x0, prev)
   assert steps_r == steps
   torch.testing.assert_close(resumed, whole, rtol=0, atol=1e-5)
+
+
+# The invert layer's kernels (csrc/invert.cu) against the plain version on
+# a CPU copy: validity masks equal, finite values within 1e-4 px.
+def _solved_meshes(lead, g, seed=0):
+  """Relative solved meshes [*lead, 2, g, g] at stride 40 with a NaN
+  hole, NaN borders, a node beyond the stack path's shift_bound and a
+  collapsed band (d(dx)/dx = -1, det 0: the Newton det gate trips)."""
+  rng = np.random.RandomState(seed)
+  yy, xx = np.mgrid[:g, :g].astype(np.float32)
+  out = []
+  for b in range(int(np.prod(lead, dtype=np.int64))):
+    rel = np.stack([6.0 * np.sin(yy / 9.0 + b) + 3.0,
+                    -4.0 * np.cos(xx / 7.0 + b)]).astype(np.float32)
+    rel += rng.randn(2, g, g).astype(np.float32) * 0.3
+    rel[:, g // 3:g // 3 + 5, g // 2:g // 2 + 4] = np.nan
+    rel[:, 0] = np.nan
+    rel[:, :, -1] = np.nan
+    rel[:, g // 2, g // 4] = (300.0, -260.0)
+    c = 3 * g // 4
+    rel[:, c - 3:c + 3, c - 2:c + 2] = 0.0
+    rel[0, c - 3:c + 3, c - 2:c + 2] = -40.0 * np.arange(4, dtype=np.float32)
+    out.append(rel)
+  return torch.from_numpy(np.stack(out).reshape(*lead, 2, g, g))
+
+
+def _assert_same_field(got, ref):
+  got = got.cpu()
+  assert torch.equal(torch.isnan(got), torch.isnan(ref))
+  fin = torch.isfinite(ref)
+  assert float((got[fin] - ref[fin]).abs().max()) <= 1e-4
+
+
+def _query(g, s=40.0):
+  node = torch.arange(g, dtype=torch.float32) * s
+  return torch.stack([node[None, :].expand(g, g), node[:, None].expand(g, g)])
+
+
+@pytest.mark.parametrize('lead,g', [((), 250), ((15,), 250), ((2,), 63),
+                                    ((3,), 125)])
+def test_invert_section_kernel(dev, lead, g):
+  from sofima_tpu_torch import map_utils
+  q = _query(g)
+  abs_map = _solved_meshes(lead, g, seed=g) + q
+  kw = dict(num_iters=12, newton_iters=2, shift_bound=4)
+  before = _build.launch_counts['invert_section']
+  got = map_utils._invert_section(abs_map.to(dev), (0.0, 0.0), q.to(dev),
+                                  (40.0, 40.0), **kw)
+  assert _build.launch_counts['invert_section'] == before + 1
+  ref = map_utils._invert_section(abs_map, (0.0, 0.0), q, (40.0, 40.0), **kw)
+  assert 0 < int(torch.isnan(ref).sum()) < ref.numel() // 2
+  _assert_same_field(got, ref)
+
+
+@pytest.mark.parametrize('extrapolate', [True, False])
+@pytest.mark.parametrize('lead,g', [((), 250), ((15,), 250), ((2,), 63),
+                                    ((3,), 125)])
+def test_fill_invalid_kernel(dev, lead, g, extrapolate):
+  from sofima_tpu_torch.ops import cuda_invert
+  from sofima_tpu_torch.ops import fill
+  rel = _solved_meshes(lead, g, seed=g + 1)
+  valid = torch.isfinite(rel).all(dim=-3)
+  if lead:  # an all-invalid section comes back as it was
+    rel[-1] = float('nan')
+    valid[-1] = False
+  before = _build.launch_counts['fill_invalid']
+  got = fill.fill_invalid(rel.to(dev), valid.to(dev), extrapolate)
+  plan = cuda_invert.fill_plan((g, g), 16, int(extrapolate))
+  assert _build.launch_counts['fill_invalid'] == before + len(plan.launches)
+  ref = fill.fill_invalid(rel, valid, extrapolate)
+  _assert_same_field(got, ref)
+  if lead:
+    assert bool(torch.isnan(got[-1]).all())
+
+
+@pytest.mark.parametrize('lead', [(), (15,)])
+def test_invert_phase_on_card(dev, lead):
+  # The stack path's phase: at most 24 kernels of its own a call, batch 1
+  # or 15, and the CPU's maps.
+  cfg = stack_align.StackAlignConfig()
+  solved = _solved_meshes(lead, 250, seed=5).unsqueeze(-3)
+  names = ('invert_section', 'fill_invalid')
+  before = sum(_build.launch_counts[k] for k in names)
+  rel, inv = stack_align._invert_phase(solved.to(dev), cfg)
+  assert sum(_build.launch_counts[k] for k in names) - before <= 24
+  rel_ref, inv_ref = stack_align._invert_phase(solved, cfg)
+  _assert_same_field(rel, rel_ref)
+  _assert_same_field(inv, inv_ref)
+  assert bool(torch.isfinite(rel).all())
+
+
+def test_invert_montage_origin_on_card(dev):
+  # The montage's inversion: a query grid padded by 2 nodes (origin (-2,
+  # -2)), wider than tall, then the fill.
+  from sofima_tpu_torch import map_utils
+  from sofima_tpu_torch.ops import fill
+  g, p, s = 37, 2, 20.0
+  rel = _solved_meshes((), g, seed=9) * 0.5
+  ar = lambda n: (torch.arange(n, dtype=torch.float32) - p) * s
+  abs_map = rel + _query(g, s)
+  oy, ox = g + 2 * p, g + 2 * p + 5
+  query = torch.stack([ar(ox)[None, :].expand(oy, ox),
+                       ar(oy)[:, None].expand(oy, ox)])
+  kw = dict(num_iters=12, newton_iters=2, shift_bound=3, shift_origin=(-p, -p))
+  got = map_utils._invert_section(abs_map.to(dev), (0.0, 0.0), query.to(dev),
+                                  (s, s), **kw)
+  ref = map_utils._invert_section(abs_map, (0.0, 0.0), query, (s, s), **kw)
+  assert 0 < int(torch.isnan(ref).sum()) < ref.numel()
+  _assert_same_field(got, ref)
+  rel_inv = ref - query
+  valid = torch.isfinite(rel_inv).all(dim=0)
+  _assert_same_field(fill.fill_invalid(rel_inv.to(dev), valid.to(dev), True),
+                     fill.fill_invalid(rel_inv, valid, True))
+  _assert_same_field(fill.nearest_fill(rel_inv.to(dev), valid.to(dev)),
+                     fill.nearest_fill(rel_inv, valid))
+
+
+def test_fill_threads_of_other_shapes(dev):
+  # The processors fill chunks from a thread pool: grids whose coarse
+  # levels take different shared memory, filled at once, each as alone.
+  import concurrent.futures
+  from sofima_tpu_torch.ops import fill
+  cases = []
+  for i, shape in enumerate([(250, 250), (37, 41), (2, 3000), (125, 63)]):
+    rel = _solved_meshes((), max(shape), seed=20 + i)[..., :shape[0],
+                                                      :shape[1]].contiguous()
+    valid = torch.isfinite(rel).all(dim=0)
+    cases.append((rel, valid, fill.fill_invalid(rel, valid, True)))
+
+  def run(case):
+    rel, valid, _ = case
+    return [fill.fill_invalid(rel.to(dev), valid.to(dev), True)
+            for _ in range(8)]
+
+  with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+    outs = list(pool.map(run, cases))
+  for (_, _, ref), got in zip(cases, outs):
+    for g in got:
+      _assert_same_field(g, ref)
